@@ -1,0 +1,227 @@
+"""Settings and the predict command line of the PyTorch port.
+
+A copy of the fields and flags of ``iv2019_tpu/config.py`` that the
+predict and evaluate paths read, with the same names and defaults, plus one
+flag of the port's own: ``--device`` (``cuda`` unless the caller asks for
+``cpu``). Flags of paths the port does not have yet (test-time
+augmentation, sliding window, plotting, training) are not accepted.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+from typing import Any, Optional
+
+__all__ = [
+    "EVAL",
+    "PREDICT",
+    "Settings",
+    "build_argparser",
+    "resolve_dataset_name",
+    "resolve_trained_model",
+    "settings_from_args",
+]
+
+EVAL = "eval"
+PREDICT = "predict"
+
+
+@dataclasses.dataclass
+class Settings:
+    """The settings the predict and evaluate paths read."""
+
+    # -- system size -------------------------------------------------------
+    height_system: Optional[int] = None
+    width_system: Optional[int] = None
+    height_feature_extractor: int = 512
+    width_feature_extractor: int = 1024
+
+    # -- mode / dirs -------------------------------------------------------
+    mode: str = PREDICT
+    log_dir: str = ""
+    per_pixel_dataset_name: str = "cityscapes"
+    device: str = "cuda"
+
+    # -- problem definitions ----------------------------------------------
+    training_problem_def_path: str = ""
+    inference_problem_def_path: Optional[str] = None
+    evaluation_problem_def_path: Optional[str] = None
+    train_void_class: bool = False
+
+    # -- model -------------------------------------------------------------
+    name_feature_extractor: str = "resnet_v1_50"
+    stride_feature_extractor: int = 8
+    feature_dims_decreased: int = 256
+    fov_expansion_kernel_size: int = 0
+    fov_expansion_kernel_rate: int = 0
+    upsampling_method: str = "bilinear"
+    psp_module: bool = False
+    norm_layer: str = "batch"
+    compute_dtype: str = "bfloat16"
+    # eval/predict: identity units of the trunk as one CUDA kernel each
+    # (ops/fused_block.py), BatchNorm folded into the convs
+    fused_block: bool = False
+
+    # -- inference / evaluation -------------------------------------------
+    ckpt_path: Optional[str] = None
+    replace_voids: bool = False
+    restore_emas: bool = False
+    predict_dir: str = ""
+    results_dir: Optional[str] = None
+    preserve_aspect_ratio: bool = False
+    export_color_decisions: bool = False
+    export_overlapped_color_decisions: bool = False
+    export_lids_images: bool = False
+    predict_keys: tuple[str, ...] = (
+        "decisions",
+        "l1_probabilities",
+        "l2_vehicle_probabilities",
+        "rawimages",
+        "rawimagespaths",
+    )
+
+    def replace(self, **kw: Any) -> "Settings":
+        return dataclasses.replace(self, **kw)
+
+
+def _add_system_arguments(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--height_system", type=int, default=None)
+    p.add_argument("--width_system", type=int, default=None)
+    p.add_argument("--height_feature_extractor", type=int, default=512)
+    p.add_argument("--width_feature_extractor", type=int, default=1024)
+    p.add_argument("--compute_dtype", type=str, default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--fused_block", action="store_true",
+                   help="run supported trunk identity units as one CUDA kernel "
+                        "each (BN folded into the convs; ops/fused_block.py)")
+    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                   help="where the network runs (default: the CUDA card)")
+
+
+def _add_model_arguments(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--stride_feature_extractor", type=int, default=8)
+    p.add_argument("--name_feature_extractor", type=str, default="resnet_v1_50",
+                   choices=["resnet_v1_50", "resnet_v1_101", "resnet_v1_152"])
+    p.add_argument("--feature_dims_decreased", type=int, default=256)
+    p.add_argument("--fov_expansion_kernel_size", type=int, default=0)
+    p.add_argument("--fov_expansion_kernel_rate", type=int, default=0)
+    p.add_argument("--upsampling_method", type=str, default="bilinear",
+                   choices=["no", "bilinear", "hybrid"])
+    p.add_argument("--psp_module", action="store_true")
+    p.add_argument("--norm_layer", type=str, default="batch", choices=["batch", "group"])
+
+
+def _add_inference_arguments(p: argparse.ArgumentParser) -> None:
+    p.add_argument("log_dir", type=str)
+    p.add_argument("training_problem_def_path", type=str)
+    p.add_argument("predict_dir", type=str)
+    p.add_argument("--ckpt_path", type=str, default=None)
+    p.add_argument("--inference_problem_def_path", type=str, default=None)
+    p.add_argument("--replace_voids", action="store_true")
+    p.add_argument("--restore_emas", action="store_true")
+    p.add_argument("--train_void_class", action="store_true")
+    p.add_argument("--results_dir", type=str, default=None)
+    p.add_argument("--per_pixel_dataset_name", type=str, default=None,
+                   choices=["cityscapes", "vistas"],
+                   help="training dataset (default: read from log_dir/settings.txt)")
+    p.add_argument("--export_color_decisions", action="store_true")
+    p.add_argument("--export_overlapped_color_decisions", action="store_true")
+    p.add_argument("--export_lids_images", action="store_true")
+    p.add_argument("--preserve_aspect_ratio", action="store_true")
+
+
+def build_argparser(mode: str = PREDICT) -> argparse.ArgumentParser:
+    if mode != PREDICT:
+        raise NotImplementedError(f"the port has no {mode} command line yet")
+    p = argparse.ArgumentParser()
+    _add_system_arguments(p)
+    _add_model_arguments(p)
+    _add_inference_arguments(p)
+    return p
+
+
+def dataset_name_from_log_dir(log_dir: str) -> Optional[str]:
+    """per_pixel_dataset_name from a training run's settings.txt."""
+    try:
+        with open(os.path.join(log_dir, "settings.txt")) as f:
+            for line in f:
+                parts = [t.strip() for t in line.split(":")]
+                if len(parts) == 3 and parts[1] == "per_pixel_dataset_name":
+                    return parts[2]
+    except OSError:
+        return None
+    return None
+
+
+# flags that decide the trained architecture: read from settings.txt
+# unless given on the command line
+_MODEL_SHAPE_FIELDS = {
+    "name_feature_extractor": str,
+    "stride_feature_extractor": int,
+    "feature_dims_decreased": int,
+    "fov_expansion_kernel_size": int,
+    "fov_expansion_kernel_rate": int,
+    "psp_module": lambda s: s == "True",
+    "upsampling_method": str,
+}
+
+
+def trained_model_fields_from_log_dir(log_dir: str) -> dict:
+    out: dict = {}
+    try:
+        with open(os.path.join(log_dir, "settings.txt")) as f:
+            for line in f:
+                parts = [t.strip() for t in line.split(" : ", 2)]
+                if len(parts) == 3 and parts[1] in _MODEL_SHAPE_FIELDS:
+                    out[parts[1]] = _MODEL_SHAPE_FIELDS[parts[1]](parts[2])
+    except OSError:
+        pass
+    return out
+
+
+def resolve_trained_model(settings: Settings, argv: Optional[list] = None) -> Settings:
+    """Apply the trained run's architecture flags; an explicit flag that
+    contradicts the training run is a hard error."""
+    argv = sys.argv[1:] if argv is None else argv
+
+    def given(key: str) -> bool:
+        return any(t == f"--{key}" or t.startswith(f"--{key}=") for t in argv)
+
+    updates = {}
+    for key, trained in trained_model_fields_from_log_dir(settings.log_dir).items():
+        current = getattr(settings, key)
+        if given(key):
+            if current != trained:
+                raise SystemExit(
+                    f"--{key} {current} contradicts the training run in "
+                    f"{settings.log_dir} (settings.txt says {trained})."
+                )
+        elif current != trained:
+            updates[key] = trained
+    return settings.replace(**updates) if updates else settings
+
+
+def resolve_dataset_name(settings: Settings, explicit: Optional[str]) -> Settings:
+    """Apply the trained dataset name (``explicit`` None: read settings.txt)."""
+    trained = dataset_name_from_log_dir(settings.log_dir)
+    if explicit is None:
+        return settings.replace(per_pixel_dataset_name=trained or "cityscapes")
+    if trained and trained != explicit:
+        raise SystemExit(
+            f"--per_pixel_dataset_name {explicit} contradicts the training "
+            f"run in {settings.log_dir} (settings.txt says {trained})."
+        )
+    return settings
+
+
+def settings_from_args(args: argparse.Namespace, mode: str, **extra: Any) -> Settings:
+    field_names = {f.name for f in dataclasses.fields(Settings)}
+    kw = {k: v for k, v in vars(args).items() if k in field_names and v is not None}
+    if isinstance(kw.get("predict_keys"), list):
+        kw["predict_keys"] = tuple(kw["predict_keys"])
+    kw.update(extra)
+    kw["mode"] = mode
+    return Settings(**kw)

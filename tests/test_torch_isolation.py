@@ -1,0 +1,33 @@
+"""The PyTorch port imports neither JAX nor any module of the JAX package."""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import iv2019_tpu_torch
+names = ["chip_smoke"]
+for info in pkgutil.walk_packages(iv2019_tpu_torch.__path__, "iv2019_tpu_torch."):
+    names.append(info.name)
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300, check=True)
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "iv2019_tpu_torch.predict_cli" in result["imported"]
+    assert "iv2019_tpu_torch.ops.fused_block" in result["imported"]
+    loaded = result["loaded"]
+    assert not [m for m in loaded if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+                or m.startswith("jaxlib.") or m == "flax" or m.startswith("flax.")]
+    # the port's own name shares the prefix: match the JAX package exactly
+    assert not [m for m in loaded if m == "iv2019_tpu" or m.startswith("iv2019_tpu.")]
