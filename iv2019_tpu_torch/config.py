@@ -1,10 +1,12 @@
 """Settings and the predict command line of the PyTorch port.
 
-A copy of the fields and flags of ``iv2019_tpu/config.py`` that the
-predict and evaluate paths read, with the same names and defaults, plus one
-flag of the port's own: ``--device`` (``cuda`` unless the caller asks for
-``cpu``). Flags of paths the port does not have yet (test-time
-augmentation, sliding window, plotting, training) are not accepted.
+A copy of the fields of ``iv2019_tpu/config.py`` that the predict, evaluate
+and train-step paths read, with the same names and defaults (but for
+``mode``, which defaults to ``predict`` here), ``finalize()`` with its
+epoch-to-step math, and the predict flags, plus one field and flag of the
+port's own: ``--device`` (``cuda`` unless the caller asks for ``cpu``).
+Flags of paths the port does not have yet (test-time augmentation, sliding
+window, plotting, the training command line) are not accepted.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Any, Optional
 __all__ = [
     "EVAL",
     "PREDICT",
+    "TRAIN",
     "Settings",
     "build_argparser",
     "resolve_dataset_name",
@@ -25,13 +28,14 @@ __all__ = [
     "settings_from_args",
 ]
 
+TRAIN = "train"
 EVAL = "eval"
 PREDICT = "predict"
 
 
 @dataclasses.dataclass
 class Settings:
-    """The settings the predict and evaluate paths read."""
+    """The settings the predict, evaluate and train-step paths read."""
 
     # -- system size -------------------------------------------------------
     height_system: Optional[int] = None
@@ -50,6 +54,49 @@ class Settings:
     inference_problem_def_path: Optional[str] = None
     evaluation_problem_def_path: Optional[str] = None
     train_void_class: bool = False
+
+    # -- training schedule (iv2019_tpu/config.py:51-76) --------------------
+    Ntrain: int = 2975
+    Ne: int = 17
+    Nb: int = 4
+    learning_rate_schedule: str = "piecewise_constant"  # | polynomial_decay
+    learning_rate_initial: float = 0.01
+    learning_rate_boundaries: tuple[int, ...] = (8, 15, 17)  # epochs
+    learning_rate_decay: Optional[float] = None
+    learning_rate_values: Optional[tuple[float, ...]] = None
+    learning_rate_final: float = 0.5
+    learning_rate_power: float = 0.9
+    optimizer: str = "SGDM"  # | SGD
+    momentum: float = 0.9
+    use_nesterov: bool = False
+    ema_decay: float = 0.9
+    regularization_weight: float = 0.00017
+    # -1 = off; else bootstrapped CE keeps the top-p% per-pixel L1 losses
+    bootstrapping_percentage: int = -1
+    save_checkpoints_steps: Optional[int] = None
+
+    # -- mixed-supervision sub-batches -------------------------------------
+    Nb_per_pixel: int = 4
+    Nb_per_bbox: int = 8
+    Nb_per_image: int = 4
+
+    # -- training options (iv2019_tpu/config.py:88-92,110-215) -------------
+    augmentations: tuple[str, ...] = ()  # not ported: the step raises if set
+    batch_norm_accumulate_statistics: bool = True
+    batch_norm_decay: float = 0.9
+    grad_accum_steps: int = 1  # not ported beyond 1: the step raises
+    # SGDM + weight decay + EMA as one pass over flat f32 vectors
+    # (train/fused_update.py); False (the optax path) is not ported
+    fused_optimizer: bool = True
+    # the fused update runs as the CUDA kernel B3 (ops/fused_update.py)
+    pallas_update: bool = True
+    weak_loss_coefficient: float = 0.1
+    # the loss runs from stride-8 logits through kernels B1/B2
+    # (ops/fused_loss.py)
+    fused_loss: bool = True
+    rasterize_on_device: bool = False  # not ported: bbox_cids batches raise
+    # per-image weak labels as (Nb, 15) vectors, broadcast on the device
+    compact_image_labels: bool = False
 
     # -- model -------------------------------------------------------------
     name_feature_extractor: str = "resnet_v1_50"
@@ -83,8 +130,91 @@ class Settings:
         "rawimagespaths",
     )
 
+    # -- derived by finalize() ---------------------------------------------
+    height_network: int = 0
+    width_network: int = 0
+    num_examples_per_epoch: int = 0
+    num_batches_per_epoch: int = 0
+    num_training_steps: int = 0
+    learning_rate_boundaries_epochs: tuple[int, ...] = ()
+    learning_rate_boundaries_steps: tuple[int, ...] = ()
+    learning_rate_values_resolved: tuple[float, ...] = ()
+
     def replace(self, **kw: Any) -> "Settings":
         return dataclasses.replace(self, **kw)
+
+    def validate(self) -> None:
+        """The checks of iv2019_tpu/config.py:302-397 on the fields here."""
+        if (self.height_network, self.width_network) != (
+                self.height_feature_extractor, self.width_feature_extractor):
+            raise ValueError("For now height/width_network must equal "
+                             "height/width_feature_extractor (patch-wise training is not "
+                             "implemented).")
+        if self.learning_rate_schedule == "piecewise_constant":
+            if bool(self.learning_rate_decay) == bool(self.learning_rate_values):
+                raise AttributeError(
+                    "If learning_rate_schedule is piecewise_constant exactly one "
+                    "of learning_rate_decay or learning_rate_values must be given.")
+        if self.upsampling_method not in ("no", "bilinear", "hybrid"):
+            raise ValueError(f"unknown upsampling_method {self.upsampling_method}")
+        if bool(self.fov_expansion_kernel_rate) != bool(self.fov_expansion_kernel_size):
+            raise ValueError("Both or neither of fov_expansion_kernel_{rate,size} must be set.")
+        if self.grad_accum_steps < 1:
+            raise ValueError("grad_accum_steps must be >= 1.")
+        for name in ("Nb_per_pixel", "Nb_per_bbox", "Nb_per_image"):
+            if getattr(self, name) % self.grad_accum_steps:
+                raise ValueError(f"grad_accum_steps={self.grad_accum_steps} must divide "
+                                 f"{name}={getattr(self, name)}.")
+        if self.bootstrapping_percentage != -1 and not 1 <= self.bootstrapping_percentage <= 100:
+            raise ValueError("--bootstrapping_percentage must be -1 (off) or in [1, 100], "
+                             f"got {self.bootstrapping_percentage}")
+
+    def finalize(self) -> "Settings":
+        """Fill the derived fields; returns a new Settings (iv2019_tpu/config.py:423-486,
+        reference system_factory.py:197-248: learning-rate boundaries from
+        epochs to steps)."""
+        s = self.replace(height_network=self.height_feature_extractor,
+                         width_network=self.width_feature_extractor)
+        lr_decay, lr_values = s.learning_rate_decay, s.learning_rate_values
+        if s.learning_rate_schedule == "piecewise_constant" and not (lr_decay or lr_values):
+            lr_decay = 0.5
+        num_examples_per_epoch = int(
+            s.Ntrain * (s.height_network // s.height_feature_extractor)
+            * (s.width_network // s.width_feature_extractor))
+        num_batches_per_epoch = int(num_examples_per_epoch / s.Nb)
+        num_training_steps = int(s.Ne * num_batches_per_epoch)
+        boundaries = list(s.learning_rate_boundaries)
+        values: tuple[float, ...] = ()
+        if s.learning_rate_schedule == "piecewise_constant":
+            last_boundary = s.Ne - boundaries[-1]
+            if last_boundary == 0:
+                boundaries.pop()
+            elif last_boundary < 0:
+                raise ValueError("Ne is less than learning rate boundaries.")
+            boundaries_steps = [b * num_batches_per_epoch for b in boundaries]
+            if lr_decay:
+                values = tuple(s.learning_rate_initial * lr_decay**i
+                               for i in range(len(boundaries_steps) + 1))
+            else:
+                values = tuple(lr_values)
+                if len(values) != len(boundaries_steps) + 1:
+                    raise ValueError(
+                        f"piecewise_constant needs len(values) == len(boundaries)+1; "
+                        f"got {len(values)} values, {len(boundaries_steps)} boundaries.")
+        else:
+            boundaries_steps = []
+        s = s.replace(
+            learning_rate_decay=lr_decay,
+            num_examples_per_epoch=num_examples_per_epoch,
+            num_batches_per_epoch=num_batches_per_epoch,
+            num_training_steps=num_training_steps,
+            learning_rate_boundaries_epochs=tuple(boundaries),
+            learning_rate_boundaries_steps=tuple(boundaries_steps),
+            learning_rate_values_resolved=values,
+            save_checkpoints_steps=s.save_checkpoints_steps or num_batches_per_epoch,
+        )
+        s.validate()
+        return s
 
 
 def _add_system_arguments(p: argparse.ArgumentParser) -> None:

@@ -1,4 +1,4 @@
-"""Layer primitives of the trunk, eval mode, in PyTorch.
+"""Layer primitives of the trunk, in PyTorch.
 
 Port of iv2019_tpu/models/layers.py. Tensors inside the network are NCHW
 in ``torch.channels_last`` memory, so a ``permute(0, 2, 3, 1)`` hands the
@@ -10,12 +10,15 @@ as ``conv.weight`` (OIHW) and ``norm/BatchNorm/<leaf>`` as ``norm.<leaf>``
 (utils/convert.py).
 
 - ``conv2d_same`` padding: symmetric ``keff - 1`` split low/high.
-- Norm: eval BatchNorm on running statistics, epsilon 1e-5, computed in
-  f32 as flax does, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, then
-  cast back to the compute dtype.
+- Norm: flax BatchNorm in f32, epsilon 1e-5, cast back to the compute
+  dtype. In eval mode (``module.eval()``) on the running statistics,
+  ``(x - mean) * (rsqrt(var + eps) * scale) + bias``; in train mode on the
+  batch's statistics over (N, H, W), with the running statistics moved by
+  ``decay * ra + (1 - decay) * batch`` with the *biased* variance, as flax.
 - ``BottleneckV1``: slim resnet_v1.bottleneck. With ``fused_block`` an
   eligible identity unit runs as one kernel (ops/fused_block.py) under the
-  JAX package's dispatch rule.
+  JAX package's dispatch rule, in eval mode only (the kernels fold the
+  running statistics into the convs).
 """
 
 from __future__ import annotations
@@ -47,19 +50,40 @@ class Conv(nn.Module):
 
 
 class Norm(nn.Module):
-    """Eval-mode BatchNorm in f32 (the flax ``BatchNorm`` variables)."""
+    """BatchNorm in f32 (the flax ``BatchNorm`` variables); the mode follows
+    ``module.train()`` / ``module.eval()``."""
 
-    def __init__(self, channels: int, epsilon: float = 1e-5):
+    def __init__(self, channels: int, epsilon: float = 1e-5, decay: float = 0.9):
         super().__init__()
-        self.epsilon = epsilon
+        self.epsilon, self.decay = epsilon, decay
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self._train(x)
         mul = torch.rsqrt(self.var + self.epsilon) * self.scale
         y = (x.float() - self.mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+    def _train(self, x: torch.Tensor) -> torch.Tensor:
+        # Autograd differentiates through the batch statistics, as flax's
+        # autodiff does. F.batch_norm moves its running buffers with the
+        # *unbiased* variance and momentum = 1 - decay, so it is handed fresh
+        # buffers with momentum 1 (they come back holding the batch mean and
+        # unbiased variance, with no second pass over x) and the flax update
+        # with the biased variance is done here.
+        xf = x.float()
+        batch_mean, batch_var = torch.zeros_like(self.mean), torch.zeros_like(self.var)
+        y = F.batch_norm(xf, batch_mean, batch_var, self.scale, self.bias, training=True,
+                         momentum=1.0, eps=self.epsilon)
+        count = xf.numel() // xf.shape[1]
+        with torch.no_grad():
+            self.mean.mul_(self.decay).add_(batch_mean, alpha=1.0 - self.decay)
+            self.var.mul_(self.decay).add_(batch_var * ((count - 1) / count),
+                                           alpha=1.0 - self.decay)
         return y.to(x.dtype)
 
 
@@ -114,12 +138,12 @@ class BottleneckV1(nn.Module):
     def fused_kernel(self, n: int, h: int, w: int):
         """The kernel wrapper the JAX rule picks for this unit, or None.
 
-        Eligible: identity shortcut, stride 1, bf16 (BatchNorm always runs
-        on running statistics here). Then the full-window kernel if its rule
+        Eligible: eval mode (BatchNorm on running statistics), identity
+        shortcut, stride 1, bf16. Then the full-window kernel if its rule
         admits the shape, else the channel-tiled one (layers.py:488-531).
         """
-        if not (self.fused_block and self.stride == 1 and self.depth_in == self.depth
-                and self.dtype == torch.bfloat16):
+        if not (self.fused_block and not self.training and self.stride == 1
+                and self.depth_in == self.depth and self.dtype == torch.bfloat16):
             return None
         shape = (n, h, w, self.depth_in, self.depth_bottleneck, self.rate)
         if fb.fused_bottleneck_supported(*shape):

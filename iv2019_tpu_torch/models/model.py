@@ -1,4 +1,4 @@
-"""Hierarchical segmentation model: dilated ResNet-50 + three heads, eval mode.
+"""Hierarchical segmentation model: dilated ResNet-50 + three heads.
 
 Port of the default path of iv2019_tpu/models/model.py::
 
@@ -7,8 +7,13 @@ Port of the default path of iv2019_tpu/models/model.py::
            -> three bottleneck adaptation branches (never fused)
            -> 1x1 logit heads with their BatchNorm (L1 / L2-vehicle / L2-human)
            -> x8 bilinear upsample, align_corners=True, f32
+              (``upsampling_method="no"``: the stride-8 logits, f32)
            -> softmax / first-max argmax per head, f32
            -> hierarchical decision fusion into the common label space
+
+BatchNorm runs on batch statistics in train mode (``model.train()``) and on
+running statistics in eval mode; ``build_model`` picks the mode from the
+settings.
 
 Public tensors are NHWC, like the JAX package's: ``forward`` takes
 (N, H, W, 3) images in [-1, 1) and returns the same ten-key dict.
@@ -17,6 +22,7 @@ Public tensors are NHWC, like the JAX package's: ``forward`` takes
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -46,9 +52,13 @@ class HierarchicalSegmentationModel(nn.Module):
 
     def __init__(self, taxonomy: Taxonomy, resnet_blocks=None, stride_feature_extractor: int = 8,
                  feature_dims_decreased: int = 256, fused_block: bool = False,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, upsampling_method: str = "bilinear",
+                 batch_norm_decay: float = 0.9):
         super().__init__()
+        if upsampling_method not in ("no", "bilinear"):
+            raise NotImplementedError(f"upsampling_method={upsampling_method} is not ported yet")
         self.taxonomy = taxonomy
+        self.upsampling_method = upsampling_method
         base = ResNetV1(resnet_blocks or RESNET50_BLOCKS, stride_feature_extractor,
                         fused_block=fused_block, dtype=dtype)
         self.add_module("feature_extractor/base", base)
@@ -65,10 +75,15 @@ class HierarchicalSegmentationModel(nn.Module):
                             BottleneckV1(c, c, c, dtype=dtype))
             self.add_module(f"softmax_classifier/{head}_logits",
                             ConvNormRelu(c, n_out, 1, activation=False, dtype=dtype))
+        for module in self.modules():
+            if isinstance(module, Norm):
+                module.decay = batch_norm_decay
 
-    def forward(self, images: torch.Tensor) -> dict:
-        """images: (N, H, W, 3) float in [-1, 1)."""
+    def forward(self, images: torch.Tensor, upsampling_method: Optional[str] = None) -> dict:
+        """images: (N, H, W, 3) float in [-1, 1). ``upsampling_method``
+        overrides the model's for this call ("no": stride-8 outputs)."""
         tax = self.taxonomy
+        upsample = (upsampling_method or self.upsampling_method) != "no"
         hf, wf = images.shape[1], images.shape[2]
         # NHWC -> NCHW view in channels_last memory
         x = self.get_submodule("feature_extractor/base")(images.permute(0, 3, 1, 2))
@@ -78,7 +93,9 @@ class HierarchicalSegmentationModel(nn.Module):
         for head in _HEADS:
             feat = self.get_submodule(f"adaptation_module/{head}_features")(x)
             logits = self.get_submodule(f"softmax_classifier/{head}_logits")(feat)
-            logits = resize_bilinear_mxu(logits.permute(0, 2, 3, 1), (hf, wf), align_corners=True)
+            logits = logits.permute(0, 2, 3, 1).float()
+            if upsample:
+                logits = resize_bilinear_mxu(logits, (hf, wf), align_corners=True)
             preds[f"{head}_logits"] = logits
             preds[f"{head}_probabilities"] = torch.softmax(logits, dim=3)
             preds[f"{head}_decisions"] = torch.argmax(logits, dim=3).int()
@@ -97,13 +114,16 @@ class HierarchicalSegmentationModel(nn.Module):
 
 def build_model(settings: Settings, device=None) -> HierarchicalSegmentationModel:
     """The model of ``settings`` on ``device`` (default ``settings.device``),
-    in eval mode, with channels_last conv weights. Weights are uninitialized:
-    load them (utils/convert.py) or draw them (``init_model``)."""
+    with channels_last conv weights, in train mode when ``settings.mode`` is
+    train and ``batch_norm_accumulate_statistics`` is set, else in eval
+    mode. Weights are uninitialized: load them (utils/convert.py) or draw
+    them (``init_model``)."""
     unported = {
         "psp_module": settings.psp_module,
         "fov_expansion": settings.fov_expansion_kernel_rate or settings.fov_expansion_kernel_size,
         "norm_layer=group": settings.norm_layer != "batch",
-        f"upsampling_method={settings.upsampling_method}": settings.upsampling_method != "bilinear",
+        f"upsampling_method={settings.upsampling_method}":
+            settings.upsampling_method not in ("no", "bilinear"),
     }
     for name, on in unported.items():
         if on:
@@ -116,8 +136,12 @@ def build_model(settings: Settings, device=None) -> HierarchicalSegmentationMode
         feature_dims_decreased=settings.feature_dims_decreased,
         fused_block=settings.fused_block and settings.mode != "train",
         dtype=torch.bfloat16 if settings.compute_dtype == "bfloat16" else torch.float32,
+        upsampling_method=settings.upsampling_method,
+        batch_norm_decay=settings.batch_norm_decay,
     )
-    return model.to(device=device, memory_format=torch.channels_last).eval()
+    model = model.to(device=device, memory_format=torch.channels_last)
+    train = settings.mode == "train" and settings.batch_norm_accumulate_statistics
+    return model.train(train)
 
 
 @torch.no_grad()

@@ -1,7 +1,9 @@
 """Confusion matrix and the metrics derived from it.
 
 Port of iv2019_tpu/ops/confusion.py: the (K, K) matrix of one batch is a
-bincount of ``label * K + prediction`` over the valid pixels, exact in int64.
+count of ``label * K + prediction`` over the valid pixels, exact in int64,
+scattered into a fixed-size vector (invalid pixels into one extra slot), so
+that the device never waits on the host for a size.
 """
 
 from __future__ import annotations
@@ -9,7 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["confusion_matrix", "metrics_from_confusion_matrix"]
+__all__ = ["batch_mean_iou", "confusion_matrix", "mean_iou_from_cm",
+           "metrics_from_confusion_matrix"]
+
+_EPSILON = 1e-9
 
 
 def confusion_matrix(labels: torch.Tensor, predictions: torch.Tensor,
@@ -21,9 +26,25 @@ def confusion_matrix(labels: torch.Tensor, predictions: torch.Tensor,
     predictions = predictions.reshape(-1).long()
     valid = (labels >= 0) & (labels < num_classes) & (predictions >= 0) & (
         predictions < num_classes)
-    flat = (labels * num_classes + predictions)[valid]
-    counts = torch.bincount(flat, minlength=num_classes * num_classes)
-    return counts.reshape(num_classes, num_classes)
+    cells = num_classes * num_classes
+    flat = torch.where(valid, labels * num_classes + predictions, cells)
+    counts = torch.zeros(cells + 1, dtype=torch.int64, device=flat.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat))
+    return counts[:cells].reshape(num_classes, num_classes)
+
+
+def batch_mean_iou(labels: torch.Tensor, decisions: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Batch mIoU, the online training metric (reference define_metrics.py:5-20):
+    the mean over *all* classes of inter / (union + eps), a 0-d f32 tensor."""
+    return mean_iou_from_cm(confusion_matrix(labels, decisions, num_classes))
+
+
+def mean_iou_from_cm(cm: torch.Tensor) -> torch.Tensor:
+    """The ``batch_mean_iou`` formula on a (summed) confusion matrix."""
+    cm = cm.float()
+    inter = torch.diagonal(cm)
+    union = cm.sum(0) + cm.sum(1) - inter
+    return torch.mean(inter / (union + _EPSILON))
 
 
 def metrics_from_confusion_matrix(cm) -> dict:

@@ -9,6 +9,13 @@
   reference's trained-checkpoint names, as converted to an ``.npz``, onto a
   flax tree, with the EMA shadow names under ``restore_emas``. Copies of
   iv2019_tpu/utils/checkpoint.py:112-418 (numpy only).
+- ``opt_state_from_jax`` / ``opt_state_to_jax``: the JAX package's
+  ``FusedOptState`` (``momentum``, ``ema_biased``, ``ema_decay_product``)
+  to and from the port's (train/fused_update.py). JAX's flat vectors are in
+  ``ravel_pytree`` order (flax paths sorted), with HWIO kernels and a tail
+  padded to a multiple of ``JAX_UPDATE_TILE``; the port's follow its
+  optimizer's ``layout`` (parameter order, OIHW kernels in their memory
+  strides, each parameter 512-byte aligned with zero gaps).
 """
 
 from __future__ import annotations
@@ -20,9 +27,14 @@ import numpy as np
 import torch
 
 __all__ = [
+    "JAX_UPDATE_TILE",
     "flax_from_state_dict",
     "flax_variables",
     "load_flax_variables",
+    "opt_state_from_jax",
+    "opt_state_to_jax",
+    "opt_vector_from_jax",
+    "opt_vector_to_jax",
     "restore_trained_from_npz",
     "state_dict_from_flax",
     "tf_trained_name_to_flax_path",
@@ -76,7 +88,8 @@ def flax_from_state_dict(state_dict: dict) -> tuple[dict, dict]:
     params, batch_stats = {}, {}
     for key, value in state_dict.items():
         *mods, leaf = key.split(".")
-        value = value.detach().float().cpu().numpy()
+        # a copy: a CPU tensor's .numpy() would share the live parameters
+        value = np.array(value.detach().float().cpu().numpy())
         if leaf == "weight":
             _set_path(params, tuple(mods) + ("kernel",), np.ascontiguousarray(value.transpose(2, 3, 1, 0)))
         elif leaf in _PARAM_LEAVES:
@@ -266,3 +279,85 @@ def restore_trained_from_npz(variables: dict, npz_path: str, restore_emas: bool 
 
 def _copy(tree: dict) -> dict:
     return {k: _copy(v) if isinstance(v, dict) else np.asarray(v) for k, v in tree.items()}
+
+
+# --- fused optimizer state ----------------------------------------------------
+
+# f32 elements per grid step of the JAX package's update kernel; its flat
+# state vectors are padded to a multiple of it (iv2019_tpu/ops/pallas_update.py)
+JAX_UPDATE_TILE = 512 * 128
+
+
+def _jax_order(layout):
+    """The port layout's entries in ``ravel_pytree`` order, each with its
+    flax shape: [(flax shape, is_kernel, (name, shape, stride, offset))]."""
+    entries = []
+    for entry in layout:
+        name, shape, _, _ = entry
+        *mods, leaf = name.split(".")
+        if leaf == "weight":
+            path, flax_shape = tuple(mods) + ("kernel",), (shape[2], shape[3], shape[1], shape[0])
+        else:
+            path, flax_shape = tuple(mods) + ("BatchNorm", leaf), tuple(shape)
+        entries.append((path, flax_shape, leaf == "weight", entry))
+    return [e[1:] for e in sorted(entries, key=lambda e: e[0])]
+
+
+def _port_view(flat: np.ndarray, shape, stride, offset) -> np.ndarray:
+    return np.lib.stride_tricks.as_strided(
+        flat[offset:], shape=shape, strides=[st * flat.itemsize for st in stride])
+
+
+def opt_vector_from_jax(vec, layout) -> np.ndarray:
+    """A JAX flat optimizer vector (raveled, padded) in the port's layout."""
+    from iv2019_tpu_torch.train.fused_update import ALIGN
+
+    vec = np.asarray(vec, np.float32)
+    _, shape, _, offset = layout[-1]
+    out = np.zeros(-(-(offset + int(np.prod(shape))) // ALIGN) * ALIGN, np.float32)
+    pos = 0
+    for flax_shape, is_kernel, (_, shape, stride, offset) in _jax_order(layout):
+        size = int(np.prod(flax_shape))
+        chunk = vec[pos:pos + size].reshape(flax_shape)
+        if is_kernel:
+            chunk = chunk.transpose(3, 2, 0, 1)
+        _port_view(out, shape, stride, offset)[...] = chunk
+        pos += size
+    if np.any(vec[pos:]):
+        raise ValueError("the JAX vector's padding is not zero")
+    return out
+
+
+def opt_vector_to_jax(vec, layout) -> np.ndarray:
+    """A port flat optimizer vector in the JAX layout, padded again."""
+    vec = np.ascontiguousarray(np.asarray(vec, np.float32))
+    chunks = []
+    for _, is_kernel, (_, shape, stride, offset) in _jax_order(layout):
+        value = _port_view(vec, shape, stride, offset)
+        chunks.append((value.transpose(2, 3, 1, 0) if is_kernel else value).reshape(-1))
+    flat = np.concatenate(chunks)
+    padded = -(-flat.size // JAX_UPDATE_TILE) * JAX_UPDATE_TILE
+    return np.pad(flat, (0, padded - flat.size))
+
+
+def opt_state_from_jax(jax_state: dict, layout, device="cpu"):
+    """The port's FusedOptState from the JAX one's arrays (a dict with
+    ``momentum``, ``ema_biased`` and ``ema_decay_product``)."""
+    from iv2019_tpu_torch.train.fused_update import FusedOptState
+
+    def vector(key):
+        return torch.as_tensor(opt_vector_from_jax(jax_state[key], layout), device=device)
+
+    return FusedOptState(
+        momentum=vector("momentum"), ema_biased=vector("ema_biased"),
+        ema_decay_product=torch.tensor(float(np.asarray(jax_state["ema_decay_product"])),
+                                       dtype=torch.float32, device=device))
+
+
+def opt_state_to_jax(state, layout) -> dict:
+    """The JAX FusedOptState's arrays (numpy) from the port's FusedOptState."""
+    return {
+        "momentum": opt_vector_to_jax(state.momentum.detach().cpu().numpy(), layout),
+        "ema_biased": opt_vector_to_jax(state.ema_biased.detach().cpu().numpy(), layout),
+        "ema_decay_product": np.asarray(float(state.ema_decay_product), np.float32),
+    }

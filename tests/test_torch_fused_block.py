@@ -127,11 +127,12 @@ def _resnet50_units():
 
 def _dispatch_counts(h, w):
     """The port's kernel choice for every ResNet-50 unit at an (h, w)
-    feature map, checked unit by unit against layers.py:488-531."""
+    feature map, checked unit by unit against layers.py:488-531, in eval
+    mode (the rule's ``use_running_average``; train mode fuses nothing)."""
     from iv2019_tpu_torch.models.resnet import ResNetV1
 
     with torch.device("meta"):
-        trunk = ResNetV1(fused_block=True)
+        trunk = ResNetV1(fused_block=True).eval()
     port_units = dict(zip(trunk.unit_names, trunk.units()))
     counts = {"full": 0, "ct": 0, None: 0}
     for name, depth_in, depth, mid, stride, rate in _resnet50_units():

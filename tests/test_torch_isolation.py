@@ -26,6 +26,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert "iv2019_tpu_torch.predict_cli" in result["imported"]
     assert "iv2019_tpu_torch.ops.fused_block" in result["imported"]
+    for name in ("iv2019_tpu_torch.ops.fused_loss", "iv2019_tpu_torch.ops.fused_update",
+                 "iv2019_tpu_torch.train.fused_update", "iv2019_tpu_torch.train.step",
+                 "iv2019_tpu_torch.losses.hierarchical"):
+        assert name in result["imported"], name
     loaded = result["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.") or m == "jaxlib"
                 or m.startswith("jaxlib.") or m == "flax" or m.startswith("flax.")]

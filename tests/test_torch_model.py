@@ -130,7 +130,8 @@ def test_fused_unit_receives_channels_last_without_copy():
     assert seen and all(seen)
 
 
-def test_entry_points_refuse_missing_cuda():
+@pytest.mark.parametrize("mode", ["predict", "train"])
+def test_entry_points_refuse_missing_cuda(mode):
     """No silent CPU fallback: asking for cuda without a card raises."""
     from iv2019_tpu_torch.config import Settings
     from iv2019_tpu_torch.models.model import build_model
@@ -138,4 +139,4 @@ def test_entry_points_refuse_missing_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        build_model(Settings())
+        build_model(Settings(mode=mode))

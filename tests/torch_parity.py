@@ -149,3 +149,59 @@ def write_trained_npz(path, variables, seed=7, with_ema=True):
             arrays[f"{name}/Momentum"] = value * 0
     np.savez(path, **arrays)
     return str(path)
+
+
+def torch_tiny_model(settings, variables, train=True):
+    """The port's counterpart of helpers.tiny_model, f32, with the flax
+    variables loaded (``settings``: the port's Settings)."""
+    from helpers import TINY_BLOCKS
+
+    model = TorchModel(
+        taxonomy=torch_taxonomy(settings.per_pixel_dataset_name), resnet_blocks=TINY_BLOCKS,
+        feature_dims_decreased=settings.feature_dims_decreased, dtype=torch.float32,
+        upsampling_method=settings.upsampling_method, batch_norm_decay=settings.batch_norm_decay,
+    ).to(memory_format=torch.channels_last).train(train)
+    return load_flax_variables(
+        model, numpy_tree(variables["params"]), numpy_tree(variables["batch_stats"]))
+
+
+def torch_tiny_settings(**kw):
+    """The port's Settings with helpers.tiny_settings' values, on the CPU."""
+    from helpers import tiny_settings
+    from iv2019_tpu_torch.config import Settings as TorchSettings
+
+    jax_settings = tiny_settings(**kw)
+    derived = ("height_network", "width_network", "num_", "learning_rate_boundaries_",
+               "learning_rate_values_")
+    fields = {f for f in TorchSettings.__dataclass_fields__ if not f.startswith(derived)}
+    values = {k: getattr(jax_settings, k) for k in fields if k not in ("mode", "device")}
+    return jax_settings, TorchSettings(device="cpu", **values).finalize()
+
+
+def loss_inputs_np(tax, seed, n_pp, n_pb, n_pi, h=8, w=16, scale=4):
+    """Stride-8 logits (dict), full-resolution labels and the output size:
+    random logits, per-pixel labels over the whole per-pixel space, sparse
+    weak multinomials with exact-void pixels (tests/test_fused_loss.py)."""
+    rng = np.random.RandomState(seed)
+    n = n_pp + n_pb + n_pi
+    H, W = h * scale, w * scale
+    lr = {k: (rng.randn(n, h, w, c) * 2).astype(np.float32) for k, c in (
+        ("l1_logits", tax.num_l1_classes), ("l2_vehicle_logits", tax.num_vehicle_classes),
+        ("l2_human_logits", tax.num_human_classes))}
+
+    def weak(nb):
+        lab = rng.rand(nb, H, W, 15).astype(np.float32) ** 4
+        lab[lab < 0.3] = 0.0
+        void = rng.rand(nb, H, W) < 0.25
+        lab[void] = 0.0
+        lab[void, -1] = 1.0
+        lab[lab.sum(-1) == 0, -1] = 1.0
+        return lab / lab.sum(-1, keepdims=True)
+
+    labels = {
+        "prolabels_per_pixel": rng.randint(0, len(tax.per_pixel_cids2l1_cids),
+                                           (n_pp, H, W)).astype(np.int32),
+        "prolabels_per_bbox": weak(n_pb),
+        "prolabels_per_image": weak(n_pi),
+    }
+    return lr, labels, (H, W)
