@@ -15,9 +15,19 @@ Phases, each of which fails the run on its own:
    weights under the reference's variable names.
 5. train: the port's train step at full ResNet-50 width on a constant
    synthetic 512x1024 batch of 4 per-pixel + 8 bbox + 4 image-label
-   images (bf16, train-mode BatchNorm, fused loss B1/B2, fused update B3):
-   one launch of each kernel per step, finite and falling losses, the EMA
-   decay product; step time, images/s, device busy and idle share, peak
+   images (bf16, train-mode BatchNorm, fused loss B1/B2, fused update B3),
+   with the root conv's weight gradient from cuDNN and from B6
+   (``root_wgrad_pallas``) in turns, both from the same initial weights:
+   one launch of each kernel per step (B6 only with the flag), B6's dW
+   against cuDNN's on the same step, finite and falling losses, the EMA
+   decay product; step time, images/s, device busy and idle share, the
+   root wgrad's device time, peak memory.
+6. train run: the port's training run through its entry points at full
+   width with ``root_wgrad_pallas`` (``SemanticSegmentation.train`` to step
+   6 on synthetic input, checkpoints every 3 steps, then a rerun on the same
+   directory that resumes at 6 and stops at 8), then ``train_cli.main`` at
+   256x512 for 2 steps: the run's artifacts, one B6 launch per step; step
+   p50/p90, images/s, the host input's time per batch, idle share, peak
    memory.
 
 The next-to-last line is a JSON object describing every kernel; the last
@@ -94,6 +104,7 @@ REPLACES = {
     "fused_loss_fwd": "iv2019_tpu/ops/fused_loss.py:196",
     "fused_loss_bwd": "iv2019_tpu/ops/fused_loss.py:250",
     "fused_update": "iv2019_tpu/ops/pallas_update.py:38",
+    "root_conv_wgrad": "iv2019_tpu/ops/pallas_wgrad.py:115",
 }
 
 # the flagship train step: per-pixel, bbox and image-label images, input size
@@ -107,6 +118,15 @@ TRAIN_STEPS = 8  # timed steps, after one warm-up step
 # (~5 per logit)
 LOSS_FWD_OPS_PER_LOGIT, LOSS_BWD_OPS_PER_LOGIT, LOSS_OPS_PER_PIXEL = 15, 24, 40
 UPDATE_OPS_PER_PARAM = 14
+# The root-conv wgrad kernel (B6) against its plain version (one f32 matrix
+# product over the same bf16 operands, cuBLAS without TF32): only the order
+# of the f32 sums differs, over up to 2.1M products per output (measured
+# 7.6e-6 of the largest |dW| at the flagship shape, 2.3e-7 at 2x36x70).
+WGRAD_REL_TOL = 1e-4
+# the flagship train step's root conv: x (16, 3, 512, 1024), dy (16, 64, 256, 512)
+WGRAD_SHAPE = ((sum(TRAIN_NB), 3) + TRAIN_HW, 64, 7)
+# the train run: steps of the first run, of the resumed run, checkpoint cadence
+RUN_STEPS, RESUME_STEPS, RUN_SAVE_EVERY = 6, 8, 3
 
 
 def log(*args):
@@ -326,7 +346,72 @@ def kernel_phase(device):
             library_ms=mean("library_ms"), per_shape=rows,
         ))
     results.extend(train_kernels(device))
+    results.append(wgrad_kernel(device))
     return results
+
+
+def wgrad_inputs(x_shape, cout, k, channels_last, seed=0):
+    """x (NCHW view of NHWC bf16 memory, images in [-1, 1)) and dy (bf16,
+    NHWC memory or, with ``channels_last`` False, NCHW contiguous)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    n, c, h, w = x_shape
+    x = (torch.rand(x_shape, generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    dy = torch.randn((n, cout, h // 2, w // 2), generator=gen, device="cuda").to(torch.bfloat16)
+    if channels_last:
+        dy = dy.contiguous(memory_format=torch.channels_last)
+    return x, dy
+
+
+def compare_wgrad(x_shape, cout, k, channels_last, seed=0):
+    """B6 against its plain version: the largest error, absolute and
+    relative to the largest |dW|, and the launches of the call."""
+    from iv2019_tpu_torch.ops import root_wgrad as rw
+
+    x, dy = wgrad_inputs(x_shape, cout, k, channels_last, seed)
+    before = rw.root_conv_wgrad.launches
+    got = rw.root_conv_wgrad(x, dy, k, 2)
+    launches = rw.root_conv_wgrad.launches - before
+    want = rw.root_conv_wgrad_reference(x, dy, k, 2)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    return dict(shape=list(x_shape), cout=cout, k=k, channels_last_dy=channels_last,
+                max_abs_err=err, rel_err=err / float(want.abs().max()), launches=launches)
+
+
+def wgrad_kernel(device):
+    """B6 at the flagship step's shape, a ragged one, and with a dy in NCHW
+    memory; times at the flagship shape, against cuDNN's wgrad of the same
+    conv (``torch.nn.grad.conv2d_weight``) as the library call."""
+    from iv2019_tpu_torch.ops import root_wgrad as rw
+
+    x_shape, cout, k = WGRAD_SHAPE
+    checks = [compare_wgrad(x_shape, cout, k, True),
+              compare_wgrad((2, 3, 36, 70), cout, k, True),
+              compare_wgrad((2, 3, 36, 70), cout, k, False)]
+    for check in checks:
+        log(f"kernel root_conv_wgrad {json.dumps(check)}")
+        if not check["rel_err"] <= WGRAD_REL_TOL:
+            raise AssertionError(f"root_conv_wgrad departs from its plain version: {check}")
+    x, dy = wgrad_inputs(x_shape, cout, k, True)
+    n, c, h, w = x_shape
+    pixels = n * (h // 2) * (w // 2)
+    nbytes = x.numel() * 2 + dy.numel() * 2 + cout * c * k * k * 4
+    b = bound(nbytes, 2 * k * k * c * cout * pixels, PEAK_BF16_FLOPS)
+    w_shape = (cout, c, k, k)
+    row = dict(
+        name="root_conv_wgrad", route="cuda", source="iv2019_tpu_torch/csrc/root_wgrad.cu",
+        replaces=REPLACES["root_conv_wgrad"], launches=None,
+        max_abs_err=checks[0]["max_abs_err"], rel_err=checks[0]["rel_err"],
+        ms=time_ms(lambda: rw.root_conv_wgrad(x, dy, k, 2)),
+        plain_ms=time_ms(lambda: rw.root_conv_wgrad_reference(x, dy, k, 2), runs=5),
+        bound_ms=b[0], bound_by=b[1],
+        library_ms=time_ms(lambda: torch.nn.grad.conv2d_weight(x, w_shape, dy, 2, (k - 1) // 2)),
+        mbytes=nbytes / 1e6, gflop=2 * k * k * c * cout * pixels / 1e9,
+        per_shape=checks)
+    log(f"kernel root_conv_wgrad ms {row['ms']:.4f} plain {row['plain_ms']:.4f} cudnn "
+        f"{row['library_ms']:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']})")
+    return row
 
 
 def bound(nbytes, ops, peak_ops):
@@ -457,23 +542,27 @@ def calibrate_bn(model, images, rng):
 
 # device-time groups of the train step's profile, first match wins
 STEP_GROUPS = (
-    ("port kernels B1-B3", ("fwd_kernel", "bwd_rows_kernel", "bwd_cols_kernel",
-                            "update_kernel", "sum_partials")),
+    ("port kernels B1-B3, B6", ("fwd_kernel", "bwd_rows_kernel", "bwd_cols_kernel",
+                                "update_kernel", "sum_partials", "wgrad_partial_kernel",
+                                "wgrad_reduce_kernel")),
     ("batchnorm", ("batchnorm", "batch_norm")),
     ("conv and gemm", ("xmma", "nvjet", "gemm", "conv", "cutlass")),
     ("copies and casts", ("copy", "convert")),
 )
 
 
-def profile_call(fn, label, p50_ms, top=8, groups=()):
+def profile_call(fn, label, p50_ms, top=8, groups=(), root_shape=None):
     """Device time of one call of ``fn`` by kernel (torch.profiler); the wall
     time under the profiler includes its own overhead, so the device's idle
     share is taken against the unprofiled p50. ``groups``: (name, key
-    substrings) to sum device time by; the rest is "other". Returns the
-    numbers."""
+    substrings) to sum device time by; the rest is "other". ``root_shape``:
+    the images' NCHW shape, to report the device time of the root conv's
+    weight gradient (B6's kernels, or cuDNN's convolution backward on that
+    input). Returns the numbers."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=root_shape is not None) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -503,6 +592,14 @@ def profile_call(fn, label, p50_ms, top=8, groups=()):
                 port_rows.append((key[:60], count, ms))
         out["device_ms_by_group"] = by_group
         out["port_kernels"] = port_rows
+    if root_shape is not None:
+        cudnn = [e for e in prof.key_averages(group_by_input_shape=True)
+                 if e.key == "aten::convolution_backward"
+                 and list(root_shape) in [list(s) for s in e.input_shapes]]
+        out["root_wgrad_ms"] = (
+            sum(e.device_time_total for e in cudnn) / 1e3
+            + sum(ms for key, _, ms in rows if "wgrad_partial_kernel" in key
+                  or "wgrad_reduce_kernel" in key))
     log(f"profile {label}: wall {wall_ms:.3f} ms under the profiler, device busy "
         f"{busy_ms:.3f} ms, {out['kernels']} kernels, idle share of the "
         f"p50 {out['idle_share']:.3f}, {len(syncs)} host waits for the device")
@@ -666,14 +763,78 @@ def train_batch(rng, device):
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def train_phase(device, steps=TRAIN_STEPS):
-    """The flagship train step: full-width ResNet-50, seeded weights, the
-    default fused loss and fused optimizer, one warm-up step and ``steps``
-    timed steps on one constant batch. Returns the launch counts of the run."""
-    from iv2019_tpu_torch.config import Settings
-    from iv2019_tpu_torch.models.model import build_model, init_model
+def _counts():
+    """The launch counts of the train path's kernels."""
     from iv2019_tpu_torch.ops import fused_loss as fl
     from iv2019_tpu_torch.ops import fused_update as fu
+    from iv2019_tpu_torch.ops import root_wgrad as rw
+
+    return {"fused_loss_fwd": fl.fused_loss_fwd.launches,
+            "fused_loss_bwd": fl.fused_loss_bwd.launches,
+            "fused_update": fu.fused_update.launches,
+            "root_conv_wgrad": rw.root_conv_wgrad.launches}
+
+
+def _reset_counts():
+    from iv2019_tpu_torch.ops import fused_loss as fl
+    from iv2019_tpu_torch.ops import fused_update as fu
+    from iv2019_tpu_torch.ops import root_wgrad as rw
+
+    fl.fused_loss_fwd.launches = fl.fused_loss_bwd.launches = 0
+    fu.fused_update.launches = rw.root_conv_wgrad.launches = 0
+
+
+def _p50_p90(values):
+    ordered = sorted(values)
+    return ordered[len(ordered) // 2], ordered[min(len(ordered) - 1, int(len(ordered) * 0.9))]
+
+
+def capture_root_grads(model):
+    """Hooks that keep the root conv's bf16 input and the gradient of its
+    output from the next backward; returns (dict, remove)."""
+    captured = {}
+    conv1 = model.get_submodule("feature_extractor/base").conv1
+
+    def hook(module, inputs, output):
+        captured["x"] = inputs[0].detach().to(module.dtype)
+        output.register_hook(lambda g: captured.__setitem__("dy", g.detach()))
+
+    return captured, conv1.register_forward_hook(hook).remove
+
+
+def check_step_wgrad(captured):
+    """B6's dW of a train step's root conv against cuDNN's for the same x
+    and dy: both rounded to bf16 (what each path hands the optimizer), within
+    one bf16 ulp of the largest |dW|; and B6's f32 dW against cuDNN's in f32
+    (TF32 off) on the same bf16 operands."""
+    from iv2019_tpu_torch.ops.root_wgrad import root_conv_wgrad
+
+    x, dy = captured["x"], captured["dy"]
+    shape = (dy.shape[1], x.shape[1], 7, 7)
+    b6 = root_conv_wgrad(x, dy, 7, 2)
+    cudnn = torch.nn.grad.conv2d_weight(x, shape, dy, 2, 3)
+    cudnn_f32 = torch.nn.grad.conv2d_weight(x.float(), shape, dy.float(), 2, 3)
+    torch.cuda.synchronize()
+    top = float(cudnn.float().abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    out = dict(max_abs_dw=top, bf16_ulp=ulp,
+               bf16_max_abs_diff=float((b6.to(torch.bfloat16).float() - cudnn.float()).abs().max()),
+               f32_rel_err=float((b6 - cudnn_f32).abs().max()) / float(cudnn_f32.abs().max()))
+    log("train: root dW, B6 against cuDNN on the same step: " + json.dumps(out))
+    if not (out["bf16_max_abs_diff"] <= ulp and out["f32_rel_err"] <= WGRAD_REL_TOL):
+        raise AssertionError(f"B6's dW departs from cuDNN's on the train step: {out}")
+    return out
+
+
+def train_phase(device, steps=TRAIN_STEPS):
+    """The flagship train step: full-width ResNet-50, the default fused loss
+    and fused optimizer, the root conv's wgrad from cuDNN and from B6 in
+    turns (two models from the same seeded weights), one warm-up step and
+    ``steps`` timed steps each on one constant batch. Returns the device
+    busy time of the B6 step."""
+    from iv2019_tpu_torch.config import Settings
+    from iv2019_tpu_torch.models.model import build_model, init_model
+    from iv2019_tpu_torch.ops import root_wgrad as rw
     from iv2019_tpu_torch.train.fused_update import FusedSGDM
     from iv2019_tpu_torch.train.state import create_fused_train_state
     from iv2019_tpu_torch.train.step import make_train_step
@@ -685,52 +846,203 @@ def train_phase(device, steps=TRAIN_STEPS):
     if not (settings.fused_loss and settings.fused_optimizer and settings.pallas_update):
         raise AssertionError("the train phase drives the default fused loss and update")
     torch.cuda.reset_peak_memory_stats()
-    model = init_model(build_model(settings), torch.Generator().manual_seed(0))
-    opt = FusedSGDM(settings, model)
-    state = create_fused_train_state(opt)
-    step = make_train_step(settings, fused_opt=opt)
+    runs = {}
+    for flag in (False, True):
+        s = settings.replace(root_wgrad_pallas=flag)
+        model = init_model(build_model(s), torch.Generator().manual_seed(0))
+        opt = FusedSGDM(s, model)
+        runs[flag] = dict(opt=opt, state=create_fused_train_state(opt),
+                          step=make_train_step(s, fused_opt=opt), history=[], times=[], b6=[])
     batch = train_batch(np.random.RandomState(0), device)
     images = sum(TRAIN_NB)
-    log(f"train: {opt.num_params} parameters, batch {TRAIN_NB} x {h}x{w}, "
-        f"{settings.compute_dtype}, weights {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-        "with the batch")
+    log(f"train: {runs[True]['opt'].num_params} parameters, batch {TRAIN_NB} x {h}x{w}, "
+        f"{settings.compute_dtype}, two models (root_wgrad_pallas off/on), "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB with the batch")
+    captured, remove_hooks = capture_root_grads(runs[True]["opt"].model)
 
-    fl.fused_loss_fwd.launches = fl.fused_loss_bwd.launches = fu.fused_update.launches = 0
-    history, times = [], []
+    _reset_counts()
     for i in range(steps + 1):
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        history.append({k: float(v) for k, v in metrics.items() if k != "weight_masks"})
-    launches = {"fused_loss_fwd": fl.fused_loss_fwd.launches,
-                "fused_loss_bwd": fl.fused_loss_bwd.launches,
-                "fused_update": fu.fused_update.launches}
+        # the two paths take turns, in alternating order
+        for flag in (False, True) if i % 2 == 0 else (True, False):
+            r = runs[flag]
+            before = rw.root_conv_wgrad.launches
+            t0 = time.perf_counter()
+            r["state"], metrics = r["step"](r["state"], batch)
+            torch.cuda.synchronize()
+            r["times"].append((time.perf_counter() - t0) * 1e3)
+            r["b6"].append(rw.root_conv_wgrad.launches - before)
+            r["history"].append({k: float(v) for k, v in metrics.items() if k != "weight_masks"})
+            if flag:
+                remove_hooks()
+    launches = _counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    for i, m in enumerate(history):
-        log(f"train step {i}: {times[i]:.1f} ms " + json.dumps(m))
-    if launches != {k: steps + 1 for k in launches}:
-        raise AssertionError(f"launches {launches}, expected one of each per step ({steps + 1})")
-    if not all(np.isfinite(v) for m in history for v in m.values()):
-        raise AssertionError("non-finite loss or metric")
-    if not history[-1]["total"] < history[0]["total"]:
-        raise AssertionError(f"total did not fall on a constant batch: "
-                             f"{history[0]['total']} -> {history[-1]['total']}")
+    want = {"fused_loss_fwd": 2 * (steps + 1), "fused_loss_bwd": 2 * (steps + 1),
+            "fused_update": 2 * (steps + 1), "root_conv_wgrad": steps + 1}
+    log(f"train: launches {launches}")
+    if launches != want or runs[True]["b6"] != [1] * (steps + 1) or any(runs[False]["b6"]):
+        raise AssertionError(f"launches {launches}, expected {want}; B6 per step with the flag "
+                             f"{runs[True]['b6']}, without {runs[False]['b6']}")
+    wgrad_check = check_step_wgrad(captured)
+    del captured
     prod = float(np.prod([min(0.9, (1 + t) / (10 + t)) for t in range(steps + 1)]))
-    got = float(state.opt_state.ema_decay_product)
-    if abs(got - prod) > 1e-6 * prod:
-        raise AssertionError(f"ema_decay_product {got}, expected {prod}")
-    timed = sorted(times[1:])
-    p50 = timed[len(timed) // 2]
-    p90 = timed[min(len(timed) - 1, int(len(timed) * 0.9))]
-    stats = dict(steps=steps, p50_ms=p50, p90_ms=p90, images_per_s=images / p50 * 1e3,
-                 warmup_ms=times[0], peak_memory_gib=peak_gib, launches=launches,
-                 first_total=history[0]["total"], last_total=history[-1]["total"],
-                 ema_decay_product=got)
+    stats = {}
+    for flag, r in runs.items():
+        key = "b6" if flag else "cudnn"
+        history = r["history"]
+        for i, m in enumerate(history):
+            log(f"train step {i} ({key}): {r['times'][i]:.1f} ms " + json.dumps(m))
+        if not all(np.isfinite(v) for m in history for v in m.values()):
+            raise AssertionError(f"{key}: non-finite loss or metric")
+        if not history[-1]["total"] < history[0]["total"]:
+            raise AssertionError(f"{key}: total did not fall on a constant batch: "
+                                 f"{history[0]['total']} -> {history[-1]['total']}")
+        got = float(r["state"].opt_state.ema_decay_product)
+        if abs(got - prod) > 1e-6 * prod:
+            raise AssertionError(f"{key}: ema_decay_product {got}, expected {prod}")
+        p50, p90 = _p50_p90(r["times"][1:])
+        stats[key] = dict(p50_ms=p50, p90_ms=p90, images_per_s=images / p50 * 1e3,
+                          warmup_ms=r["times"][0], first_total=history[0]["total"],
+                          last_total=history[-1]["total"], ema_decay_product=got)
+    stats.update(steps=steps, peak_memory_gib=peak_gib, launches=launches,
+                 root_dw_check=wgrad_check)
     log("train: " + json.dumps(stats))
-    profile = profile_call(lambda: step(state, batch), "train step", p50, top=12,
-                           groups=STEP_GROUPS)
-    log("train profile: " + json.dumps(profile))
+    busy = {}
+    for flag, r in runs.items():
+        key = "b6" if flag else "cudnn"
+        profile = profile_call(lambda: r["step"](r["state"], batch), f"train step ({key})",
+                               stats[key]["p50_ms"], top=12, groups=STEP_GROUPS,
+                               root_shape=(images, 3, h, w))
+        log(f"train profile ({key}): " + json.dumps(profile))
+        busy[key] = profile["device_busy_ms"]
+    return busy["b6"]
+
+
+def _waits_by_file(syncs):
+    """Host waits for the device (sync debug warnings) by the port's source
+    file that triggered them."""
+    import collections
+    import os
+
+    out = collections.Counter(os.path.basename(w.filename) for w in syncs)
+    return dict(out.most_common())
+
+
+def _read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_run_phase(device, step_busy_ms):
+    """The training run through its entry points (see the module
+    docstring). ``step_busy_ms``: the device time of one B6 train step
+    (train phase profile), for the run's idle share. Returns the launch
+    counts of the two SemanticSegmentation runs."""
+    import os
+    import tempfile
+
+    from iv2019_tpu_torch import train_cli
+    from iv2019_tpu_torch.config import Settings
+    from iv2019_tpu_torch.input.heterogeneous import train_input
+    from iv2019_tpu_torch.problem.problem_def import load_problem_def
+    from iv2019_tpu_torch.system import SemanticSegmentation
+
+    problem = os.path.join(os.path.dirname(os.path.abspath(train_cli.__file__)),
+                           "problem_definitions", "cityscapes", "problem01.json")
+    (npp, npb, npi), (h, w) = TRAIN_NB, TRAIN_HW
+    images = sum(TRAIN_NB)
+    with tempfile.TemporaryDirectory() as tmp:
+        log_dir = os.path.join(tmp, "run")
+        settings = Settings(
+            device=device.type, mode="train", log_dir=log_dir, training_problem_def_path=problem,
+            synthetic_data=True, input_seed=0, root_wgrad_pallas=True,
+            save_checkpoints_steps=RUN_SAVE_EVERY, save_summaries_steps=RUN_SAVE_EVERY,
+            height_feature_extractor=h, width_feature_extractor=w, Nb=npp, Nb_per_pixel=npp,
+            Nb_per_bbox=npb, Nb_per_image=npi)
+        # the host input alone, one thread, as the loop's prefetcher runs it
+        batches = train_input(settings.finalize(), load_problem_def(problem))
+        next(batches)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            next(batches)
+        input_ms = (time.perf_counter() - t0) / 3 * 1e3
+        del batches
+
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        SemanticSegmentation({"train": train_input}, settings=settings).train(
+            max_steps=RUN_STEPS, log_every=1)
+        first_s = time.perf_counter() - t0
+        # a rerun on the same directory: the user moves settings.txt aside
+        os.rename(os.path.join(log_dir, "settings.txt"), os.path.join(log_dir, "settings.0.txt"))
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            SemanticSegmentation({"train": train_input}, settings=settings).train(
+                max_steps=RESUME_STEPS, log_every=1)
+            resume_s = time.perf_counter() - t0
+        torch.cuda.set_sync_debug_mode("default")
+        launches = _counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+        records = _read_jsonl(os.path.join(log_dir, "train_metrics.jsonl"))
+        steps = [r["step"] for r in records]
+        ckpts = sorted(int(d) for d in os.listdir(os.path.join(log_dir, "checkpoints")))
+        tb = os.listdir(os.path.join(log_dir, "tb"))
+        traces = sorted(os.listdir(os.path.join(log_dir, "profile")))
+        want = {k: RESUME_STEPS for k in launches}
+        log(f"train run: steps {steps}, checkpoints {ckpts}, tb {tb}, traces {traces}, "
+            f"launches {launches}")
+        problems = []
+        if steps != list(range(1, RESUME_STEPS + 1)):
+            problems.append(f"metrics steps {steps}: the rerun did not resume at {RUN_STEPS}")
+        if not all(np.isfinite(v) for r in records for v in r.values()):
+            problems.append("non-finite metrics")
+        if ckpts != [3, 6, 8]:
+            problems.append(f"checkpoints {ckpts}")
+        if len(tb) != 2 or not all(t.startswith("events.out.tfevents.") for t in tb):
+            problems.append(f"tb event files {tb}")
+        if not set(os.listdir(log_dir)) >= {"settings.txt", "all_code.zip", "train_metrics.jsonl"}:
+            problems.append(f"log dir holds {sorted(os.listdir(log_dir))}")
+        if launches != want:
+            problems.append(f"launches {launches}, expected one of each per step {want}")
+        if problems:
+            raise AssertionError("train run: " + "; ".join(problems))
+        # per-step wall time from the loop's own records (it reads the
+        # metrics back every step here); left out: the first step of each
+        # run (warm-up) and each step the loop traced with torch.profiler
+        # (every RUN_SAVE_EVERY steps, the reference's cadence)
+        skipped = {1, RUN_STEPS + 1} | set(range(RUN_SAVE_EVERY + 1, RESUME_STEPS + 1,
+                                                 RUN_SAVE_EVERY))
+        step_ms = [images / r["images_per_sec"] * 1e3 for r in records
+                   if r["step"] not in skipped]
+        p50, p90 = _p50_p90(step_ms)
+        stats = dict(steps=RESUME_STEPS, p50_ms=p50, p90_ms=p90, images_per_s=images / p50 * 1e3,
+                     input_ms_per_batch=input_ms, device_busy_ms_per_step=step_busy_ms,
+                     idle_share=1 - step_busy_ms / p50, peak_memory_gib=peak_gib,
+                     first_run_s=first_s, resumed_run_s=resume_s,
+                     host_waits_resumed_run=_waits_by_file(syncs), launches=launches,
+                     last_total=records[-1]["total"])
+        log("train run: " + json.dumps(stats))
+
+        cli_dir = os.path.join(tmp, "cli")
+        _reset_counts()
+        train_cli.main([cli_dir, "cityscapes", "--synthetic_data", "--height_feature_extractor",
+                        "256", "--width_feature_extractor", "512", "--Nb_per_pixel", "1",
+                        "--Nb_per_bbox", "2", "--Nb_per_image", "1", "--Ntrain", "2", "--Ne", "1",
+                        "--learning_rate_boundaries", "1", "--learning_rate_values", "0.01",
+                        "--input_seed", "1"])
+        cli_launches = _counts()
+        cli_records = _read_jsonl(os.path.join(cli_dir, "train_metrics.jsonl"))
+        listing = sorted(os.listdir(cli_dir))
+        log(f"train cli: {listing}, records {cli_records}, launches {cli_launches}")
+        if ([r["step"] for r in cli_records] != [2]
+                or not os.path.isfile(os.path.join(cli_dir, "checkpoints", "2", "state.pt"))
+                or not {"settings.txt", "all_code.zip", "tb"} <= set(listing)
+                or cli_launches != {"fused_loss_fwd": 2, "fused_loss_bwd": 2, "fused_update": 2,
+                                    "root_conv_wgrad": 0}):
+            raise AssertionError(f"train cli: {listing} {cli_records} {cli_launches}")
     return launches
 
 
@@ -761,9 +1073,14 @@ def main():
     cli_phase(state)
     del state
     torch.cuda.empty_cache()
-    launches.update(train_phase(device))
+    step_busy_ms = train_phase(device)
+    torch.cuda.empty_cache()
+    # the train path's kernels report the launches of this slice's main
+    # path, the training run; the train phase's are printed above
+    launches.update(train_run_phase(device, step_busy_ms))
     for r in results:
         r["launches"] = launches[r["name"]]
+    log(f"chip_smoke: {time.time() - t0:.1f} s from the build to the end")
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,17 @@
-"""Settings and the predict command line of the PyTorch port.
+"""Settings and the predict and train command lines of the PyTorch port.
 
-A copy of the fields of ``iv2019_tpu/config.py`` that the predict, evaluate
-and train-step paths read, with the same names and defaults (but for
-``mode``, which defaults to ``predict`` here), ``finalize()`` with its
-epoch-to-step math, and the predict flags, plus one field and flag of the
-port's own: ``--device`` (``cuda`` unless the caller asks for ``cpu``).
-Flags of paths the port does not have yet (test-time augmentation, sliding
-window, plotting, the training command line) are not accepted.
+A copy of the fields of ``iv2019_tpu/config.py`` that the predict, evaluate,
+train-step and training-run paths read, with the same names and defaults
+(but for ``mode``, which defaults to ``predict`` here), ``finalize()`` with
+its epoch-to-step math, ``dump()`` in the same format, and the predict and
+train flags, plus one field and flag of the port's own: ``--device``
+(``cuda`` unless the caller asks for ``cpu``). The train command line
+accepts the flags of paths the port does not have yet (gradient
+accumulation, augmentations, multi-process and multi-device training,
+spatial partitions); ``validate()`` raises ``NotImplementedError`` when one
+of them is set. ``root_wgrad_pallas`` has no flag, as in the JAX package.
+Flags of inference paths the port does not have yet (test-time
+augmentation, sliding window, plotting) are not accepted.
 """
 
 from __future__ import annotations
@@ -74,11 +79,16 @@ class Settings:
     # -1 = off; else bootstrapped CE keeps the top-p% per-pixel L1 losses
     bootstrapping_percentage: int = -1
     save_checkpoints_steps: Optional[int] = None
+    save_summaries_steps: int = 120
+    init_ckpt_path: str = ""
 
     # -- mixed-supervision sub-batches -------------------------------------
     Nb_per_pixel: int = 4
     Nb_per_bbox: int = 8
     Nb_per_image: int = 4
+    preserve_aspect_ratio_per_pixel: bool = False
+    preserve_aspect_ratio_per_bbox: bool = True
+    preserve_aspect_ratio_per_image: bool = True
 
     # -- training options (iv2019_tpu/config.py:88-92,110-215) -------------
     augmentations: tuple[str, ...] = ()  # not ported: the step raises if set
@@ -97,6 +107,22 @@ class Settings:
     rasterize_on_device: bool = False  # not ported: bbox_cids batches raise
     # per-image weak labels as (Nb, 15) vectors, broadcast on the device
     compact_image_labels: bool = False
+    # the root conv's weight gradient as kernel B6 (ops/root_wgrad.py); set
+    # in Settings only, as in the JAX package
+    root_wgrad_pallas: bool = False
+    random_seed: int = 0
+    # seeds the host input pipelines (shuffle, crops); None: OS entropy
+    input_seed: Optional[int] = None
+    # checkpoint writes overlap the following steps (utils/checkpoint.py)
+    async_checkpoints: bool = True
+    # not ported beyond their defaults: validate() raises when set
+    num_devices: Optional[int] = None
+    num_slices: int = 1
+    spatial_partitions: int = 1
+    remat: bool = False
+    coordinator_address: str = ""
+    num_processes: int = 1
+    process_id: int = 0
 
     # -- model -------------------------------------------------------------
     name_feature_extractor: str = "resnet_v1_50"
@@ -107,6 +133,8 @@ class Settings:
     upsampling_method: str = "bilinear"
     psp_module: bool = False
     norm_layer: str = "batch"
+    norm_train_variables: bool = True
+    cross_replica_norm: bool = False
     compute_dtype: str = "bfloat16"
     # eval/predict: identity units of the trunk as one CUDA kernel each
     # (ops/fused_block.py), BatchNorm folded into the convs
@@ -129,6 +157,18 @@ class Settings:
         "rawimages",
         "rawimagespaths",
     )
+
+    # -- dataset paths -----------------------------------------------------
+    tfrecords_path: str = ""
+    tfrecords_path_per_pixel: str = ""
+    dataset_directory: str = ""
+    openimages_image_dir: str = ""
+    openimages_bboxes_path: str = ""  # imageid2bboxes pickle/json
+    openimages_image_labels_path: str = ""  # imageid2mids pickle/json
+    # weak-label MID aggregation: "v2" (15 classes) or the legacy "v1"
+    openimages_label_space: str = "v2"
+    # random batches of the real shapes instead of datasets on disk
+    synthetic_data: bool = False
 
     # -- derived by finalize() ---------------------------------------------
     height_network: int = 0
@@ -168,6 +208,20 @@ class Settings:
         if self.bootstrapping_percentage != -1 and not 1 <= self.bootstrapping_percentage <= 100:
             raise ValueError("--bootstrapping_percentage must be -1 (off) or in [1, 100], "
                              f"got {self.bootstrapping_percentage}")
+        if self.openimages_label_space not in ("v1", "v2"):
+            raise ValueError(f"openimages_label_space must be 'v1' or 'v2', got "
+                             f"{self.openimages_label_space!r}.")
+        unported = {
+            "num_processes > 1 (multi-process training)": self.num_processes != 1,
+            "num_devices > 1 (multi-device training)": (self.num_devices or 1) > 1,
+            "num_slices > 1": self.num_slices != 1,
+            "spatial_partitions > 1": self.spatial_partitions != 1,
+            "remat": self.remat,
+        }
+        for name, on in unported.items():
+            if on:
+                raise NotImplementedError(f"{name} is not ported to the PyTorch package yet "
+                                          "(ROADMAP.md queue A)")
 
     def finalize(self) -> "Settings":
         """Fill the derived fields; returns a new Settings (iv2019_tpu/config.py:423-486,
@@ -216,6 +270,14 @@ class Settings:
         s.validate()
         return s
 
+    def dump(self, path: str) -> None:
+        """Write the settings as ``i : key : value`` lines, sorted by key
+        (the format of iv2019_tpu/config.py:491-496)."""
+        items = sorted(dataclasses.asdict(self).items())
+        with open(path, "w") as f:
+            for i, (k, v) in enumerate(items):
+                print(f"{i:2} : {k} : {v}", file=f)
+
 
 def _add_system_arguments(p: argparse.ArgumentParser) -> None:
     p.add_argument("--height_system", type=int, default=None)
@@ -231,6 +293,26 @@ def _add_system_arguments(p: argparse.ArgumentParser) -> None:
                    help="where the network runs (default: the CUDA card)")
 
 
+def _add_train_system_arguments(p: argparse.ArgumentParser) -> None:
+    """The training flags of iv2019_tpu/config.py:504-539; those of paths the
+    port does not have yet are accepted and refused by validate()."""
+    p.add_argument("--enable_xla", action="store_true", default=True)
+    p.add_argument("--num_devices", type=int, default=None)
+    p.add_argument("--num_slices", type=int, default=1)
+    p.add_argument("--spatial_partitions", type=int, default=1)
+    p.add_argument("--remat", action="store_true")
+    p.add_argument("--grad_accum_steps", type=int, default=1)
+    p.add_argument("--coordinator_address", type=str, default="")
+    p.add_argument("--num_processes", type=int, default=1)
+    p.add_argument("--process_id", type=int, default=0)
+    p.add_argument("--async_checkpoints", action=argparse.BooleanOptionalAction, default=True,
+                   help="overlap checkpoint writes with training steps")
+    p.add_argument("--input_seed", type=int, default=None,
+                   help="seed the host input pipelines (shuffle, crops) for reproducible "
+                        "runs; default: OS entropy")
+    p.add_argument("--synthetic_data", action="store_true")
+
+
 def _add_model_arguments(p: argparse.ArgumentParser) -> None:
     p.add_argument("--stride_feature_extractor", type=int, default=8)
     p.add_argument("--name_feature_extractor", type=str, default="resnet_v1_50",
@@ -242,6 +324,60 @@ def _add_model_arguments(p: argparse.ArgumentParser) -> None:
                    choices=["no", "bilinear", "hybrid"])
     p.add_argument("--psp_module", action="store_true")
     p.add_argument("--norm_layer", type=str, default="batch", choices=["batch", "group"])
+
+
+def _add_train_model_arguments(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--cross_replica_norm", action="store_true")
+    p.add_argument("--norm_train_variables", action="store_true", default=True)
+    p.add_argument("--batch_norm_accumulate_statistics", action="store_true", default=True)
+    p.add_argument("--batch_norm_decay", type=float, default=0.9)
+
+
+def _add_train_arguments(p: argparse.ArgumentParser) -> None:
+    """iv2019_tpu/config.py:560-617 (reference utils/utils.py:56-119)."""
+    p.add_argument("log_dir", type=str)
+    p.add_argument("per_pixel_dataset_name", type=str, choices=["cityscapes", "vistas"])
+    p.add_argument("--Ntrain", type=int, default=2975)
+    p.add_argument("--init_ckpt_path", type=str, default="")
+    p.add_argument("--training_problem_def_path", type=str, default="")
+    p.add_argument("--save_checkpoints_steps", type=int, default=None)
+    p.add_argument("--save_summaries_steps", type=int, default=120)
+    p.add_argument("--train_void_class", action="store_true")
+    p.add_argument("--Ne", type=int, default=17)
+    p.add_argument("--Nb", type=int, default=4)
+    p.add_argument("--learning_rate_schedule", type=str, default="piecewise_constant",
+                   choices=["piecewise_constant", "polynomial_decay"])
+    p.add_argument("--learning_rate_initial", type=float, default=0.01)
+    p.add_argument("--learning_rate_boundaries", type=int, default=[8, 15, 17], nargs="*")
+    g = p.add_mutually_exclusive_group()
+    g.add_argument("--learning_rate_decay", type=float, default=None)
+    g.add_argument("--learning_rate_values", type=float, nargs="*", default=None)
+    p.add_argument("--learning_rate_final", type=float, default=0.5)
+    p.add_argument("--learning_rate_power", type=float, default=0.9)
+    p.add_argument("--optimizer", type=str, default="SGDM", choices=["SGD", "SGDM"])
+    p.add_argument("--ema_decay", type=float, default=0.9)
+    p.add_argument("--regularization_weight", type=float, default=0.00017)
+    p.add_argument("--bootstrapping_percentage", type=int, default=-1,
+                   help="bootstrapped CE: keep only the top-p%% hardest non-void pixels in "
+                        "the L1 loss; -1 disables")
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--use_nesterov", action="store_true")
+    p.add_argument("--distribute", action="store_true")
+    p.add_argument("--Nb_per_pixel", type=int, default=None)
+    p.add_argument("--Nb_per_bbox", type=int, default=None)
+    p.add_argument("--Nb_per_image", type=int, default=None)
+    p.add_argument("--weak_loss_coefficient", type=float, default=0.1,
+                   help="weight of the L2 vehicle/human (weak) losses in the total")
+    p.add_argument("--augmentations", type=str, default="",
+                   help="comma list from {color,blur,flip,scale}; not ported yet")
+    p.add_argument("--random_seed", type=int, default=0)
+    p.add_argument("--tfrecords_path_per_pixel", type=str, default="")
+    p.add_argument("--dataset_directory", type=str, default="")
+    p.add_argument("--openimages_image_dir", type=str, default="")
+    p.add_argument("--openimages_bboxes_path", type=str, default="")
+    p.add_argument("--openimages_image_labels_path", type=str, default="")
+    p.add_argument("--openimages_label_space", type=str, default="v2", choices=("v1", "v2"),
+                   help="MID aggregation: v2 = 15 fine weak classes; v1 = legacy 10 classes")
 
 
 def _add_inference_arguments(p: argparse.ArgumentParser) -> None:
@@ -264,12 +400,17 @@ def _add_inference_arguments(p: argparse.ArgumentParser) -> None:
 
 
 def build_argparser(mode: str = PREDICT) -> argparse.ArgumentParser:
-    if mode != PREDICT:
+    if mode not in (PREDICT, TRAIN):
         raise NotImplementedError(f"the port has no {mode} command line yet")
     p = argparse.ArgumentParser()
     _add_system_arguments(p)
     _add_model_arguments(p)
-    _add_inference_arguments(p)
+    if mode == TRAIN:
+        _add_train_system_arguments(p)
+        _add_train_model_arguments(p)
+        _add_train_arguments(p)
+    else:
+        _add_inference_arguments(p)
     return p
 
 
@@ -350,8 +491,12 @@ def resolve_dataset_name(settings: Settings, explicit: Optional[str]) -> Setting
 def settings_from_args(args: argparse.Namespace, mode: str, **extra: Any) -> Settings:
     field_names = {f.name for f in dataclasses.fields(Settings)}
     kw = {k: v for k, v in vars(args).items() if k in field_names and v is not None}
-    if isinstance(kw.get("predict_keys"), list):
-        kw["predict_keys"] = tuple(kw["predict_keys"])
+    for k in ("learning_rate_boundaries", "learning_rate_values", "predict_keys"):
+        if isinstance(kw.get(k), list):
+            kw[k] = tuple(kw[k])
+    if isinstance(kw.get("augmentations"), str):
+        kw["augmentations"] = tuple(a.strip() for a in kw["augmentations"].split(",")
+                                    if a.strip())
     kw.update(extra)
     kw["mode"] = mode
     return Settings(**kw)

@@ -10,7 +10,6 @@ crop), [-1, 1) scaling. Decoding runs on the host, one image at a time.
 from __future__ import annotations
 
 import glob
-import math
 import os
 from typing import Iterator, Optional, Sequence
 
@@ -18,7 +17,7 @@ import numpy as np
 from PIL import Image
 
 from iv2019_tpu_torch.config import Settings
-from iv2019_tpu_torch.ops.resize import resize_bilinear
+from iv2019_tpu_torch.input import core
 
 __all__ = ["SUPPORTED_EXTENSIONS", "predict_input", "preprocess"]
 
@@ -32,26 +31,12 @@ def find_images(predict_dir: str) -> list[str]:
     return sorted(set(fnames))
 
 
-def aspect_preserving_size(in_hw: Sequence[int], target_hw: Sequence[int]) -> tuple[int, int]:
-    """Tight cover of ``target_hw`` with ceil, TF1 parity ('max' mode)."""
-    scale = max(target_hw[0] / in_hw[0], target_hw[1] / in_hw[1])
-    return (int(math.ceil(scale * in_hw[0])), int(math.ceil(scale * in_hw[1])))
-
-
 def preprocess(raw: np.ndarray, hw: Sequence[int], preserve_aspect_ratio: bool = False,
                rng: Optional[np.random.RandomState] = None) -> np.ndarray:
     """uint8 (H, W, 3) -> float32 (h, w, 3) in [-1, 1)."""
-    # uint8 -> [0, 1) as x * (1/255), the reference's native decode path
-    image = raw.astype(np.float32) * np.float32(1.0 / 255.0)
-    th, tw = int(hw[0]), int(hw[1])
-    rh, rw = aspect_preserving_size(image.shape[:2], (th, tw)) if preserve_aspect_ratio else (th, tw)
-    image = resize_bilinear(image, (rh, rw))
-    if (rh, rw) != (th, tw):
-        rng = rng or np.random
-        oy = rng.randint(0, rh - th + 1)
-        ox = rng.randint(0, rw - tw + 1)
-        image = image[oy:oy + th, ox:ox + tw]
-    return (image - 0.5) / 0.5
+    image, _ = core.resize_images_and_labels(core.convert_image_dtype(raw), None, hw,
+                                             preserve_aspect_ratio, rng)
+    return core.from_0_1_to_m1_1(image)
 
 
 def predict_input(settings: Settings) -> Iterator[dict]:

@@ -53,14 +53,14 @@ class HierarchicalSegmentationModel(nn.Module):
     def __init__(self, taxonomy: Taxonomy, resnet_blocks=None, stride_feature_extractor: int = 8,
                  feature_dims_decreased: int = 256, fused_block: bool = False,
                  dtype: torch.dtype = torch.bfloat16, upsampling_method: str = "bilinear",
-                 batch_norm_decay: float = 0.9):
+                 batch_norm_decay: float = 0.9, root_wgrad_pallas: bool = False):
         super().__init__()
         if upsampling_method not in ("no", "bilinear"):
             raise NotImplementedError(f"upsampling_method={upsampling_method} is not ported yet")
         self.taxonomy = taxonomy
         self.upsampling_method = upsampling_method
         base = ResNetV1(resnet_blocks or RESNET50_BLOCKS, stride_feature_extractor,
-                        fused_block=fused_block, dtype=dtype)
+                        fused_block=fused_block, dtype=dtype, root_wgrad_pallas=root_wgrad_pallas)
         self.add_module("feature_extractor/base", base)
         c = base.depth_out
         self.has_extension = feature_dims_decreased > 0
@@ -138,6 +138,7 @@ def build_model(settings: Settings, device=None) -> HierarchicalSegmentationMode
         dtype=torch.bfloat16 if settings.compute_dtype == "bfloat16" else torch.float32,
         upsampling_method=settings.upsampling_method,
         batch_norm_decay=settings.batch_norm_decay,
+        root_wgrad_pallas=settings.root_wgrad_pallas,
     )
     model = model.to(device=device, memory_format=torch.channels_last)
     train = settings.mode == "train" and settings.batch_norm_accumulate_statistics

@@ -1,9 +1,14 @@
-"""Dilated ResNet-v1 trunk (slim ``resnet_v1_50``, output stride 8), eval mode.
+"""Dilated ResNet-v1 trunk (slim ``resnet_v1_50``, output stride 8).
 
 Port of iv2019_tpu/models/resnet.py: root conv2d_same 7x7/2 + norm + relu,
 TF 'SAME' 3x3/2 max pool, then the bottleneck units of ``_unit_plan``. Once
 the cumulative stride reaches the output stride, later unit strides become
 dilation rates (rate 2 in block3 and 4 in block4 for stride 8).
+
+With ``root_wgrad_pallas`` the root conv's weight gradient on images of even
+height and width is kernel B6 (ops/root_wgrad.py) instead of the library's
+(``RootConvPallasWgrad``, resnet.py:206-257); the parameter stays
+``conv1.conv.weight``.
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from iv2019_tpu_torch.models.layers import BottleneckV1, Conv, Norm, conv_same
+from iv2019_tpu_torch.models.layers import BottleneckV1, Conv, Norm, conv_same, same_padding
+from iv2019_tpu_torch.ops.root_wgrad import root_conv_wgrad, wgrad_supported
 
 __all__ = [
     "FEATURE_EXTRACTOR_BLOCKS",
@@ -75,25 +81,64 @@ def max_pool_same(x: torch.Tensor, window: int = 3, stride: int = 2) -> torch.Te
     return F.max_pool2d(x, window, stride).contiguous(memory_format=torch.channels_last)
 
 
-class _RootConv(nn.Module):
-    """The 7x7/2 root conv (flax ``conv1/conv/kernel``)."""
+class _RootConvWgrad(torch.autograd.Function):
+    """conv2d_same whose weight gradient is kernel B6 where it applies
+    (``_root_conv_pallas_wgrad``, resnet.py:206-234).
 
-    def __init__(self, dtype: torch.dtype):
+    Takes x and the kernel in the compute dtype, as the JAX custom VJP does
+    (the cast of the f32 parameter stays outside, so its backward carries
+    dW to the parameter's f32 gradient). Forward and dx are the library's
+    conv; dx only where autograd asks for it (the images never need it).
+    dW is B6 for bf16 operands inside ``wgrad_supported``, rounded to bf16
+    as ``dw.astype(k.dtype)`` is in JAX; else the library's exact wgrad.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, stride):
+        ctx.save_for_backward(x, weight)
+        ctx.stride = stride
+        return conv_same(x, weight, stride=stride)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        k, stride = weight.shape[-1], ctx.stride
+        pad = same_padding(k, 1)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv2d_input(x.shape, weight, dy, stride=stride, padding=pad)
+        if ctx.needs_input_grad[1]:
+            if x.dtype == torch.bfloat16 and wgrad_supported(x.shape, dy.shape, k, stride):
+                dw = root_conv_wgrad(x, dy, kernel_size=k, stride=stride).to(weight.dtype)
+            else:
+                dw = torch.nn.grad.conv2d_weight(x, weight.shape, dy, stride=stride, padding=pad)
+        return dx, dw, None
+
+
+class _RootConv(nn.Module):
+    """The 7x7/2 root conv (flax ``conv1/conv/kernel``); ``wgrad_kernel``
+    sends its weight gradient to B6 on images of even height and width."""
+
+    def __init__(self, dtype: torch.dtype, wgrad_kernel: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.wgrad_kernel = dtype, wgrad_kernel
         self.conv = Conv(3, 64, 7)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_same(x.to(self.dtype), self.conv.weight, stride=2)
+        x = x.to(self.dtype)
+        if self.wgrad_kernel and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
+            return _RootConvWgrad.apply(x, self.conv.weight.to(self.dtype), 2)
+        return conv_same(x, self.conv.weight, stride=2)
 
 
 class ResNetV1(nn.Module):
     """Fully convolutional dilated ResNet-v1; returns the last block's map."""
 
     def __init__(self, blocks=RESNET50_BLOCKS, output_stride: int = 8,
-                 fused_block: bool = False, dtype: torch.dtype = torch.bfloat16):
+                 fused_block: bool = False, dtype: torch.dtype = torch.bfloat16,
+                 root_wgrad_pallas: bool = False):
         super().__init__()
-        self.conv1 = _RootConv(dtype)
+        self.conv1 = _RootConv(dtype, wgrad_kernel=root_wgrad_pallas)
         self.conv1_norm = Norm(64)
         self.unit_names = []
         depth_in = 64

@@ -28,7 +28,14 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert "iv2019_tpu_torch.ops.fused_block" in result["imported"]
     for name in ("iv2019_tpu_torch.ops.fused_loss", "iv2019_tpu_torch.ops.fused_update",
                  "iv2019_tpu_torch.train.fused_update", "iv2019_tpu_torch.train.step",
-                 "iv2019_tpu_torch.losses.hierarchical"):
+                 "iv2019_tpu_torch.losses.hierarchical", "iv2019_tpu_torch.ops.root_wgrad",
+                 "iv2019_tpu_torch.ops.rasterize", "iv2019_tpu_torch.input.core",
+                 "iv2019_tpu_torch.input.tfrecord", "iv2019_tpu_torch.input.cityscapes",
+                 "iv2019_tpu_torch.input.openimages", "iv2019_tpu_torch.input.heterogeneous",
+                 "iv2019_tpu_torch.input.prefetch", "iv2019_tpu_torch.utils.checkpoint",
+                 "iv2019_tpu_torch.utils.tb_writer", "iv2019_tpu_torch.utils.util_zip",
+                 "iv2019_tpu_torch.train.loop", "iv2019_tpu_torch.system",
+                 "iv2019_tpu_torch.train_cli"):
         assert name in result["imported"], name
     loaded = result["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.") or m == "jaxlib"

@@ -6,7 +6,9 @@ Imports no JAX, so it runs on the GPU machine, from the repo root:
 kernel has no CPU mode. Tolerances as in chip_smoke.py (reasons there):
 fused units max |got - want| / max(1, |want|) < 2e-2; fused loss sums 1e-4
 relative, decisions >= 99.99% equal, gradients 1e-4 of the largest; update
-vectors 1e-6 of the largest, reg 1e-5 relative.
+vectors 1e-6 of the largest, reg 1e-5 relative; root-conv wgrad within
+1e-5 of the largest |dW| (the same bf16 products, f32 sums in another
+order).
 """
 
 import numpy as np
@@ -133,3 +135,23 @@ def test_train_norm_on_card_matches_cpu():
                                    rtol=1e-5, atol=1e-6)
     want = 0.9 + 0.1 * x.permute(1, 0, 2, 3).reshape(64, -1).var(1, unbiased=False)
     torch.testing.assert_close(norms["cuda"].var.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+# (x NCHW, Cout, k, dy channels_last): a flagship-width batch of 4, a ragged
+# shape whose 35-pixel rows fill no 64-pixel chunk, the same with an NCHW
+# contiguous dy (as autograd may hand it over), and the generic kernel
+# (k=5, two channels, eight outputs: no 16-byte dy loads)
+WGRAD_SHAPES = [((4, 3, 512, 1024), 64, 7, True), ((2, 3, 36, 70), 64, 7, True),
+                ((2, 3, 36, 70), 64, 7, False), ((1, 2, 24, 40), 8, 5, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_shape,cout,k,channels_last", WGRAD_SHAPES)
+def test_root_wgrad_matches_plain_on_card(x_shape, cout, k, channels_last):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import chip_smoke
+
+    check = chip_smoke.compare_wgrad(x_shape, cout, k, channels_last)
+    assert check["launches"] == 1
+    assert check["rel_err"] <= chip_smoke.WGRAD_REL_TOL, check
