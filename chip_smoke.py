@@ -6,7 +6,9 @@ Phases, each of which fails the run on its own:
 
 1. build: compiles the port's CUDA sources (``iv2019_tpu_torch/csrc``).
 2. kernels: each hand-written kernel against its plain PyTorch version at
-   the shapes the flagship predict and train paths give it, with times.
+   the shapes the flagship predict and train paths give it, with times;
+   for the fused units also the device times of their two kernels apart,
+   the achieved TFLOP/s and the share of the bound.
 3. predict: the port's predict path at full ResNet-50 width (Cityscapes
    taxonomy, 512x1024 input, 1024x2048 output, bf16, fused blocks) on
    seeded random weights; checks the kernel launch counts, compares with
@@ -153,6 +155,20 @@ def time_ms(fn, runs=20, warmup=3):
     return float(np.median([start.elapsed_time(end) for start, end in events]))
 
 
+def device_ms(fn, runs=20):
+    """Median device time of one call of ``fn`` with the host's time taken
+    out: the call is captured once in a CUDA graph and the graph replayed,
+    with CUDA events around each replay. For calls whose kernels take less
+    time than the host needs to launch them (the small fused units),
+    ``time_ms`` measures the host."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, runs=runs)
+
+
 def random_unit(rng, c, m, device):
     """Folded weights of one identity unit with randomized BN statistics.
 
@@ -295,6 +311,9 @@ def kernel_phase(device):
 
     Returns one entry per kernel; its times and bound are per launch,
     averaged over the path's mix of shapes (per_shape has each shape).
+    A fused unit's entry also has the device times of the wrapper's two
+    kernels apart (conv1, and conv2 + conv3), its achieved TFLOP/s and its
+    share of the bound, from ``ms`` and from ``device_ms``.
     """
     from iv2019_tpu_torch.ops import fused_block as fb
 
@@ -316,16 +335,31 @@ def kernel_phase(device):
             flops = 2 * h * w * (c * m + 9 * m * m + m * c)
             nbytes = 2 * x.numel() * 2 + sum(t.numel() * t.element_size() for t in args[1:])
             t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+            y1 = torch.empty((1, h, w, m), dtype=torch.bfloat16, device=device)
+            symbol = f"iv_{name}"
             row = dict(
                 unit=unit, C=c, M=m, rate=rate, per_request=per_request,
                 max_abs_err=float(diff.max()), max_rel_err=rel,
                 ms=time_ms(lambda: wrapper(*args, rate=rate)),
+                device_ms=device_ms(lambda: wrapper(*args, rate=rate)),
+                kernel1_ms=device_ms(lambda: fb._run(symbol, *args, rate, kernels=1, y1=y1)),
+                kernel2_ms=device_ms(lambda: fb._run(symbol, *args, rate, kernels=2, y1=y1)),
                 plain_ms=time_ms(lambda: fb.bottleneck_plain(*args, rate=rate)),
                 library_ms=time_ms(unfused_cudnn(x, u, rate)),
+                library_device_ms=device_ms(unfused_cudnn(x, u, rate)),
                 bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 gflop=flops / 1e9, mbytes=nbytes / 1e6,
             )
+            row.update(tflops=flops / row["ms"] / 1e9, bound_share=row["bound_ms"] / row["ms"],
+                       device_tflops=flops / row["device_ms"] / 1e9,
+                       device_bound_share=row["bound_ms"] / row["device_ms"])
+            log(f"kernel {name} {unit}: {row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
+                f"{row['bound_share']:.3f} of the bound), device {row['device_ms']:.4f} ms "
+                f"= conv1 {row['kernel1_ms']:.4f} + conv2/3 {row['kernel2_ms']:.4f} "
+                f"({row['device_tflops']:.1f} TFLOP/s, {row['device_bound_share']:.3f}); "
+                f"cuDNN unit {row['library_ms']:.4f} ms, device {row['library_device_ms']:.4f}; "
+                f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
             log(f"kernel {name} {json.dumps(row)}")
             if not rel < KERNEL_REL_TOL:
                 raise AssertionError(f"{name} {unit}: max rel err {rel} >= {KERNEL_REL_TOL}")
@@ -343,7 +377,9 @@ def kernel_phase(device):
             max_rel_err=max(r["max_rel_err"] for r in rows),
             ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
             bound_by=bound_by.pop() if len(bound_by) == 1 else "operations",
-            library_ms=mean("library_ms"), per_shape=rows,
+            library_ms=mean("library_ms"), device_ms=mean("device_ms"),
+            kernel1_ms=mean("kernel1_ms"), kernel2_ms=mean("kernel2_ms"),
+            library_device_ms=mean("library_device_ms"), per_shape=rows,
         ))
     results.extend(train_kernels(device))
     results.append(wgrad_kernel(device))
@@ -540,6 +576,12 @@ def calibrate_bn(model, images, rng):
         h.remove()
 
 
+# device-time groups of the fused predict request's profile
+PREDICT_GROUPS = (
+    ("port kernels B4/B5", ("conv1_kernel", "conv23_kernel")),
+    ("conv and gemm", ("xmma", "nvjet", "gemm", "conv", "cutlass")),
+    ("copies and casts", ("copy", "convert")),
+)
 # device-time groups of the train step's profile, first match wins
 STEP_GROUPS = (
     ("port kernels B1-B3, B6", ("fwd_kernel", "bwd_rows_kernel", "bwd_cols_kernel",
@@ -682,7 +724,9 @@ def predict_phase(device, requests):
         stats[f"{key}_p90_ms"] = ordered[min(len(ordered) - 1, int(len(ordered) * 0.9))]
         stats[f"{key}_ms"] = values
     log("predict: " + json.dumps(stats))
-    profile_call(lambda: predict(images[0]), "fused", stats["fused_p50_ms"])
+    profile = profile_call(lambda: predict(images[0]), "fused", stats["fused_p50_ms"],
+                           groups=PREDICT_GROUPS)
+    log("predict profile (fused): " + json.dumps(profile))
     profile_call(lambda: predict_unfused(images[0]), "unfused", stats["unfused_p50_ms"])
     fu, ff, uf = stats["fused_vs_unfused"], stats["fused_vs_f32"], stats["unfused_vs_f32"]
     if not fu["mean_abs"] < PREDICT_MEAN_ABS_TOL:

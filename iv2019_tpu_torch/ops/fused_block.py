@@ -3,39 +3,44 @@
 One call computes a whole stride-1 identity bottleneck unit with every
 BatchNorm folded into the conv weights (``fold_bn``)::
 
-    y1  = relu(x @ w1 + b1)                    bf16, zero outside the image
-    y2  = relu(conv3x3_rate(y1) + b2)          bf16, SAME zero padding
+    y1  = relu(x @ w1 + b1)                    bf16
+    y2  = relu(conv3x3_rate(y1) + b2)          bf16, SAME zero padding of y1
     out = relu(x + y2 @ w3 + b3)               residual in f32, bf16 store
 
-Two kernels, both in ``csrc/fused_bottleneck.cu``:
+Two wrappers over ``csrc/fused_bottleneck.cu``:
 
 - ``fused_bottleneck`` replaces ``_kernel`` of iv2019_tpu/ops/pallas_block.py
   (``fused_bottleneck``, block2/block3 units);
 - ``fused_bottleneck_ct`` replaces ``_ct_kernel`` of the same file
   (``fused_bottleneck_ct``, block4 units).
 
-Both are bound by tensor-core operations on the H100 (a block3 unit does
-~570 FLOP per byte of x and out, above the card's ~295 FLOP/B ridge). The
-Pallas kernels lean on the TPU's sequential grid and a 14 MiB VMEM budget;
-on the card every block instead owns one output tile, recomputes conv1 on
-the tile's dilated halo, and keeps y1 and y2 in shared memory. They differ in
-tile shape only (8x4 and 16x2 pixels), so that block4's 512-channel y1 halo
-fits in a block's 227 KB. See the source for the design.
+Both run the same two CUDA kernels: conv1 as one GEMM over all pixels into
+a bf16 (N, H, W, M) scratch allocated here, then conv2 + conv3 per 8x8
+output tile with y2 kept in shared memory. block3 and block4 units are
+bound by tensor-core operations on the H100, block2 units by bytes. y1
+goes through the scratch (25% more bytes, L2-resident at batch 1) instead
+of being recomputed on every tile's dilated halo, as keeping it on chip
+would need. The products are wgmma, fed by TMA through a ring of
+shared-memory stages; see the source for the design. One wrapper call is
+one launch in ``<wrapper>.launches``, though it runs two kernels.
 
-Which unit goes to which kernel is the JAX package's rule, copied here
+Which unit goes to which wrapper is the JAX package's rule, copied here
 (``fused_bottleneck_supported``, ``pick_ct_config``): it keeps the fused
 units, and so their bf16 roundings, the same as the reference's. It is a
 dispatch rule, not a memory gate on this card.
 
 The wrappers take the JAX layouts: x (N, H, W, C) bf16; w1 (C, M), w2
 (3, 3, M, M) HWIO and w3 (M, C) bf16; biases f32. For a CPU tensor they run
-``bottleneck_plain``; for a CUDA tensor they launch the kernel or raise.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+``bottleneck_plain``; for a CUDA tensor they launch the kernels or raise.
+``_plan`` holds the kernels' tile and shared-memory arithmetic in Python,
+so that the CPU tests can check it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -143,11 +148,110 @@ def bottleneck_plain(x, w1, b1, w2, b2, w3, b3, *, rate):
     return torch.relu(y2 @ w3.float() + b3 + xf).to(torch.bfloat16)
 
 
+# Launch plan: the tile and shared-memory arithmetic of the two kernels,
+# repeated from csrc/fused_bottleneck.cu, which checks what it is handed.
+_SMS = 132            # H100 SXM streaming multiprocessors
+_MAX_STAGES = 6       # deepest shared-memory ring
+_BOX = 64 * 64 * 2    # bytes of one 64 x 64 bf16 TMA box
+_TILE = 8             # conv23 output tile side (8x8 pixels)
+MAX_SMEM = 232_448    # shared memory one block may use on the H100
+
+
+class Plan(NamedTuple):
+    tile1: int        # conv1 pixels per tile (x 128 output channels)
+    grid1: tuple      # conv1 blocks: (pixel tiles, channel tiles)
+    stages1: int      # conv1 ring depth
+    smem1: int        # conv1 shared-memory bytes per block
+    nc: int           # conv2 / conv3 output channels per chunk
+    tiles2: tuple     # conv23 blocks, one per 8x8 tile: (images, along H, along W)
+    stages2: int      # conv23 ring depth
+    smem2: int        # conv23 shared-memory bytes per block
+
+
+def _stages(stage_bytes, fixed_bytes):
+    """The deepest ring (up to _MAX_STAGES) that fits beside ``fixed_bytes``:
+    each stage also holds two 8-byte mbarriers, and 1024 bytes align the
+    ring to the 128-byte swizzle's period."""
+    return min(_MAX_STAGES, (MAX_SMEM - 1024 - fixed_bytes) // (stage_bytes + 16))
+
+
+def _plan(n, h, w, c, m, rate, sms=_SMS):
+    """Tiles, grids, ring depths and shared memory of the two kernels.
+
+    conv1 takes 128-pixel tiles unless its grid would then leave more than
+    half of the ``sms`` multiprocessors idle (block2 at batch 1), then 64.
+    conv2 and conv3 run in chunks of 256 output channels where M and C
+    allow, else 128. ``rate`` does not enter: no halo lives in shared
+    memory.
+    """
+    p = n * h * w
+    tile1 = 128 if -(-p // 128) * (m // 128) >= sms // 2 else 64
+    nc = 256 if m % 256 == 0 and c % 256 == 0 else 128
+    stage1 = tile1 * 128 + 2 * _BOX
+    stage2 = _TILE * _TILE * 128 + nc * 128
+    y2 = _TILE * _TILE * m * 2
+    stages1, stages2 = _stages(stage1, 0), _stages(stage2, y2)
+    return Plan(tile1=tile1, grid1=(-(-p // tile1), m // 128), stages1=stages1,
+                smem1=1024 + stages1 * (stage1 + 16), nc=nc,
+                tiles2=(n, -(-h // _TILE), -(-w // _TILE)), stages2=stages2,
+                smem2=1024 + stages2 * (stage2 + 16) + y2)
+
+
 _ERRORS = {
-    -1: "the unit's dilated halo needs more row tiles than the kernel was compiled for",
-    -2: "the unit's halo does not fit in the device's shared memory",
     -3: "channels must be multiples of 128",
+    -4: "the launch plan disagrees with the kernels' layout",
+    -5: "a TMA tensor map could not be encoded",
 }
+
+
+def _check(symbol, x, w1, b1, w2, b2, w3, b3):
+    n, h, w, c = x.shape
+    m = w1.shape[1]
+    bf, f32 = torch.bfloat16, torch.float32
+    for name, t, dtype, shape in (
+        ("x", x, bf, (n, h, w, c)), ("w1", w1, bf, (c, m)), ("b1", b1, f32, (m,)),
+        ("w2", w2, bf, (3, 3, m, m)), ("b2", b2, f32, (m,)), ("w3", w3, bf, (m, c)),
+        ("b3", b3, f32, (c,)),
+    ):
+        if t.dtype != dtype or t.shape != shape or t.device != x.device:
+            raise ValueError(
+                f"{symbol}: {name} must be {dtype} {shape} on {x.device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{symbol}: {name} must be contiguous and 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(symbol):
+    fn = getattr(_build.load("fused_bottleneck"), symbol)
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _run(symbol, x, w1, b1, w2, b2, w3, b3, rate, kernels=3, y1=None):
+    """Launch the unit's kernels on a CUDA tensor: bit 0 of ``kernels`` is
+    conv1 (into ``y1``, a bf16 (N, H, W, M) scratch allocated here when not
+    given), bit 1 conv2 + conv3. Returns the output; counts nothing."""
+    _check(symbol, x, w1, b1, w2, b2, w3, b3)
+    n, h, w, c = x.shape
+    m = w1.shape[1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = _plan(n, h, w, c, m, rate, sms)
+    if y1 is None:
+        y1 = torch.empty((n, h, w, m), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty_like(x)
+    err = _entry(symbol)(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        w3.data_ptr(), b3.data_ptr(), y1.data_ptr(), out.data_ptr(), n, h, w, c, m, rate,
+        plan.tile1, plan.stages1, plan.nc, plan.stages2, plan.smem1, plan.smem2, kernels,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"{symbol} (n,h,w,c,m,rate)={(n, h, w, c, m, rate)}: "
+                           f"{_ERRORS.get(err, f'CUDA error {err}')}")
+    return out
 
 
 def _launch(symbol, wrapper, x, w1, b1, w2, b2, w3, b3, rate):
@@ -155,49 +259,19 @@ def _launch(symbol, wrapper, x, w1, b1, w2, b2, w3, b3, rate):
         return bottleneck_plain(x, w1, b1, w2, b2, w3, b3, rate=rate)
     if x.device.type != "cuda":
         raise ValueError(f"{symbol}: unsupported device {x.device}")
-    n, h, w, c = x.shape
-    m = w1.shape[1]
-    expect = {
-        "x": (x, torch.bfloat16, (n, h, w, c)),
-        "w1": (w1, torch.bfloat16, (c, m)),
-        "b1": (b1, torch.float32, (m,)),
-        "w2": (w2, torch.bfloat16, (3, 3, m, m)),
-        "b2": (b2, torch.float32, (m,)),
-        "w3": (w3, torch.bfloat16, (m, c)),
-        "b3": (b3, torch.float32, (c,)),
-    }
-    for name, (t, dtype, shape) in expect.items():
-        if t.device != x.device or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{symbol}: {name} must be {dtype} {shape} on {x.device}, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{symbol}: {name} must be contiguous and 16-byte aligned")
-    out = torch.empty_like(x)
-    fn = getattr(_build.load("fused_bottleneck"), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        w3.data_ptr(), b3.data_ptr(), out.data_ptr(), n, h, w, c, m, rate,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"{symbol} (n,h,w,c,m,rate)={(n, h, w, c, m, rate)}: "
-                           f"{_ERRORS.get(err, f'CUDA error {err}')}")
+    out = _run(symbol, x, w1, b1, w2, b2, w3, b3, rate)
     wrapper.launches += 1
     return out
 
 
 def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, *, rate):
-    """Whole identity bottleneck, 8x4-pixel tiles (block2/block3 units; 16x2
-    where a unit's 8x4 halo does not fit in shared memory)."""
+    """Whole identity bottleneck (block2/block3 units, and block4 units on
+    maps where the rule picks the full-window kernel)."""
     return _launch("iv_fused_bottleneck", fused_bottleneck, x, w1, b1, w2, b2, w3, b3, rate)
 
 
 def fused_bottleneck_ct(x, w1, b1, w2, b2, w3, b3, *, rate):
-    """Whole identity bottleneck, 16x2-pixel tiles (block4 units)."""
+    """Whole identity bottleneck (block4 units): the same kernels."""
     return _launch("iv_fused_bottleneck_ct", fused_bottleneck_ct, x, w1, b1, w2, b2, w3, b3, rate)
 
 

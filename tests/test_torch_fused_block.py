@@ -169,6 +169,54 @@ def test_dispatch_rule_matches_jax_off_flagship(shape):
     assert tb.pick_ct_config(*shape) == jb.pick_ct_config(*shape)
 
 
+# (n, h, w, C, M, rate) the kernels are launched at: the card tests' units
+# at 64x128 and 20x36 and their edge cases, every ResNet-50 identity unit at
+# a 16x16 map, and the dispatch tests' shapes off the flagship
+PLAN_SHAPES = sorted(
+    {(1, h, w, c, m, r) for c, m, r in ((512, 128, 1), (1024, 256, 2), (2048, 512, 4),
+                                        (256, 128, 3), (256, 128, 1))
+     for h, w in ((64, 128), (20, 36))}
+    | {(2, 64, 128, 2048, 512, 4), (1, 6, 10, 2048, 512, 4), (1, 16, 16, 2048, 512, 8),
+       (1, 16, 16, 256, 64, 1), (1, 16, 16, 512, 128, 1), (1, 16, 16, 1024, 256, 2),
+       (4, 64, 128, 2048, 512, 4), (2, 32, 64, 1024, 256, 2), (1, 60, 128, 1024, 256, 2),
+       (1, 64, 128, 2048, 512, 8)})
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_launch_plan_covers_map_within_shared_memory(shape):
+    """The plan the wrapper hands the kernels: conv1's tiles cover the N*H*W
+    pixels and the M channels with no tile wholly outside, the 8x8 tiles
+    cover every image, the chunks divide M and C, and neither kernel asks
+    for more shared memory than an H100 block may use."""
+    n, h, w, c, m, rate = shape
+    plan = tb._plan(*shape)
+    p = n * h * w
+    assert plan.tile1 in (64, 128)
+    assert (plan.grid1[0] - 1) * plan.tile1 < p <= plan.grid1[0] * plan.tile1
+    imgs, th, tw = plan.tiles2
+    assert imgs == n and (th - 1) * 8 < h <= th * 8 and (tw - 1) * 8 < w <= tw * 8
+    if m % 128:  # the kernels refuse such a unit (-3); the rule never picks one
+        return
+    assert plan.grid1[1] * 128 == m
+    assert m % plan.nc == 0 and c % plan.nc == 0
+    assert 2 <= plan.stages1 <= 6 and 2 <= plan.stages2 <= 6
+    assert max(plan.smem1, plan.smem2) <= tb.MAX_SMEM == 232_448
+
+
+def test_launch_plan_at_flagship():
+    """block2 takes 64-pixel conv1 tiles (128 ones would leave half the 132
+    SMs idle), block3 and block4 128; each unit's conv23 grid is the map's
+    128 8x8 tiles, one wave on 132 SMs; block4's y2 (64 KB) leaves room for
+    a four-stage ring."""
+    plans = {unit: tb._plan(1, 64, 128, c, m, r)
+             for unit, c, m, r in (("block2", 512, 128, 1), ("block3", 1024, 256, 2),
+                                   ("block4", 2048, 512, 4))}
+    assert [p.tile1 for p in plans.values()] == [64, 128, 128]
+    assert [p.nc for p in plans.values()] == [128, 256, 256]
+    assert all(p.tiles2 == (1, 8, 16) for p in plans.values())
+    assert plans["block4"].stages2 == 4
+
+
 def test_wrapper_refuses_other_devices():
     x = torch.empty(1, 16, 16, 128, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

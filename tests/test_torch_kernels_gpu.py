@@ -23,16 +23,19 @@ from iv2019_tpu_torch.problem.taxonomy import get_taxonomy
 SHAPES = [("fused_bottleneck", 512, 128, 1), ("fused_bottleneck", 1024, 256, 2),
           ("fused_bottleneck_ct", 2048, 512, 4), ("fused_bottleneck", 256, 128, 3),
           ("fused_bottleneck_ct", 256, 128, 1),
-          # block4 on a small feature map: the rule picks the full-window
-          # kernel, whose 8x4 halo does not fit, so it runs 16x2 tiles
+          # block4 on a small feature map: the rule picks the full-window kernel
           ("fused_bottleneck", 2048, 512, 4)]
 
+# (wrapper, n, h, w, C, M, rate): batch 2 at the flagship map (the y1
+# scratch and the conv2 TMA boxes must not cross images), a map smaller than
+# one 8x8 tile (every tap's box lies partly outside the image), and rate 8
+# at block4 widths
+CASES = [("fused_bottleneck_ct", 2, 64, 128, 2048, 512, 4),
+         ("fused_bottleneck", 1, 6, 10, 2048, 512, 4),
+         ("fused_bottleneck_ct", 1, 16, 16, 2048, 512, 8)]
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("wrapper,c,m,rate", SHAPES)
-@pytest.mark.parametrize("h,w", [(64, 128), (20, 36)])
-def test_kernel_matches_plain_on_card(wrapper, c, m, rate, h, w):
-    """Flagship units and ragged tiles (20x36 is no multiple of either tile)."""
+
+def _check_unit(wrapper, n, h, w, c, m, rate):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     import chip_smoke
@@ -41,7 +44,7 @@ def test_kernel_matches_plain_on_card(wrapper, c, m, rate, h, w):
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(0)
     u = chip_smoke.random_unit(rng, c, m, "cuda")
-    x = torch.tensor(rng.normal(0, 1, (1, h, w, c)), dtype=torch.bfloat16, device="cuda")
+    x = torch.tensor(rng.normal(0, 1, (n, h, w, c)), dtype=torch.bfloat16, device="cuda")
     args = (x, u["w1"], u["b1"], u["w2"], u["b2"], u["w3"], u["b3"])
     fn = getattr(tb, wrapper)
     before = fn.launches
@@ -51,6 +54,20 @@ def test_kernel_matches_plain_on_card(wrapper, c, m, rate, h, w):
     assert fn.launches == before + 1
     rel = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
     assert rel < chip_smoke.KERNEL_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrapper,c,m,rate", SHAPES)
+@pytest.mark.parametrize("h,w", [(64, 128), (20, 36)])
+def test_kernel_matches_plain_on_card(wrapper, c, m, rate, h, w):
+    """Flagship units and ragged tiles (20x36 fills no 8x8 tile row)."""
+    _check_unit(wrapper, 1, h, w, c, m, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrapper,n,h,w,c,m,rate", CASES)
+def test_kernel_matches_plain_on_card_edges(wrapper, n, h, w, c, m, rate):
+    _check_unit(wrapper, n, h, w, c, m, rate)
 
 
 # (dataset, n_pp, n_weak, stride-8 size, output size): the flagship step,
