@@ -8,7 +8,11 @@ Phases, each of which fails the run on its own:
 2. kernels: each hand-written kernel against its plain PyTorch version at
    the shapes the flagship predict and train paths give it, with times;
    for the fused units also the device times of their two kernels apart,
-   the achieved TFLOP/s and the share of the bound.
+   the achieved TFLOP/s and the share of the bound. The fused-loss backward
+   (B2) is also checked at a ragged shape and at the Vistas head widths,
+   the root-conv wgrad (B6) on its ragged edge and on its general kernel;
+   for both, two launches on the same inputs must agree bit for bit, and
+   ``device_ms`` (replays of a CUDA graph of one call) stands beside ``ms``.
 3. predict: the port's predict path at full ResNet-50 width (Cityscapes
    taxonomy, 512x1024 input, 1024x2048 output, bf16, fused blocks) on
    seeded random weights; checks the kernel launch counts, compares with
@@ -109,6 +113,12 @@ REPLACES = {
     "root_conv_wgrad": "iv2019_tpu/ops/pallas_wgrad.py:115",
 }
 
+# B2 beside the flagship check: (dataset, n_pp, n_weak, stride-8 size, output
+# size) of a ragged shape (no chunk, band or 16-byte label row comes out
+# even), the Vistas head widths, and Vistas at a ragged mid size
+LOSS_EDGE_SHAPES = [("cityscapes", 0, 3, (5, 9), (37, 67)),
+                    ("vistas", 1, 2, (9, 16), (36, 64)),
+                    ("vistas", 1, 1, (39, 54), (310, 427))]
 # the flagship train step: per-pixel, bbox and image-label images, input size
 TRAIN_NB = (4, 8, 4)
 TRAIN_HW = (512, 1024)
@@ -416,13 +426,17 @@ def compare_wgrad(x_shape, cout, k, channels_last, seed=0):
 
 
 def wgrad_kernel(device):
-    """B6 at the flagship step's shape, a ragged one, and with a dy in NCHW
-    memory; times at the flagship shape, against cuDNN's wgrad of the same
-    conv (``torch.nn.grad.conv2d_weight``) as the library call."""
+    """B6 at the flagship step's shape, on the root kernel's ragged edge (a
+    200-pixel row fills no 128-pixel chunk; dy in NCHW memory), and on the
+    general kernel (W = 70 is no multiple of 8), dy in NHWC and in NCHW
+    memory; two launches bit for bit; times at the flagship shape, against
+    cuDNN's wgrad of the same conv (``torch.nn.grad.conv2d_weight``) as the
+    library call."""
     from iv2019_tpu_torch.ops import root_wgrad as rw
 
     x_shape, cout, k = WGRAD_SHAPE
     checks = [compare_wgrad(x_shape, cout, k, True),
+              compare_wgrad((2, 3, 20, 400), cout, k, False),
               compare_wgrad((2, 3, 36, 70), cout, k, True),
               compare_wgrad((2, 3, 36, 70), cout, k, False)]
     for check in checks:
@@ -430,6 +444,10 @@ def wgrad_kernel(device):
         if not check["rel_err"] <= WGRAD_REL_TOL:
             raise AssertionError(f"root_conv_wgrad departs from its plain version: {check}")
     x, dy = wgrad_inputs(x_shape, cout, k, True)
+    first, second = rw.root_conv_wgrad(x, dy, k, 2), rw.root_conv_wgrad(x, dy, k, 2)
+    if not torch.equal(first, second):
+        raise AssertionError("root_conv_wgrad: two launches on the same inputs differ")
+    del first, second
     n, c, h, w = x_shape
     pixels = n * (h // 2) * (w // 2)
     nbytes = x.numel() * 2 + dy.numel() * 2 + cout * c * k * k * 4
@@ -440,12 +458,13 @@ def wgrad_kernel(device):
         replaces=REPLACES["root_conv_wgrad"], launches=None,
         max_abs_err=checks[0]["max_abs_err"], rel_err=checks[0]["rel_err"],
         ms=time_ms(lambda: rw.root_conv_wgrad(x, dy, k, 2)),
+        device_ms=device_ms(lambda: rw.root_conv_wgrad(x, dy, k, 2)), bit_equal=True,
         plain_ms=time_ms(lambda: rw.root_conv_wgrad_reference(x, dy, k, 2), runs=5),
         bound_ms=b[0], bound_by=b[1],
         library_ms=time_ms(lambda: torch.nn.grad.conv2d_weight(x, w_shape, dy, 2, (k - 1) // 2)),
         mbytes=nbytes / 1e6, gflop=2 * k * k * c * cout * pixels / 1e9,
         per_shape=checks)
-    log(f"kernel root_conv_wgrad ms {row['ms']:.4f} plain {row['plain_ms']:.4f} cudnn "
+    log(f"kernel root_conv_wgrad ms {row['ms']:.4f} device {row['device_ms']:.4f} plain {row['plain_ms']:.4f} cudnn "
         f"{row['library_ms']:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']})")
     return row
 
@@ -475,6 +494,35 @@ def train_kernels(device):
     log(f"kernel fused_loss {json.dumps(check)}")
     if not loss_ok(check):
         raise AssertionError(f"fused loss departs from its plain version: {check}")
+    edge_checks = []
+    for dataset, e_pp, e_weak, e_in, e_out in LOSS_EDGE_SHAPES:
+        e_tax = get_taxonomy(dataset)
+        e_args = loss_inputs(np.random.RandomState(0), e_tax, e_pp, e_weak, e_in, e_out, device)
+        e_check = compare_loss(e_tax, e_args, e_out, torch.tensor([0.5, 0.07, 0.11], device=device))
+        e_check.update(dataset=dataset, n_pp=e_pp, n_weak=e_weak, in_hw=e_in, out_hw=e_out)
+        log(f"kernel fused_loss {json.dumps(e_check)}")
+        if not loss_ok(e_check):
+            raise AssertionError(f"fused loss departs from its plain version: {e_check}")
+        edge_checks.append(e_check)
+    first = fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw)
+    # device memory one call takes besides its three outputs (the caching
+    # allocator hands out a cached block whole when less than 1 MiB of it
+    # would be left over, so up to 1 MiB per output shows here as rounding;
+    # the scratch this guards against was N x H x w x C floats, 100 MB here)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    second = fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw)
+    torch.cuda.synchronize()
+    scratch_bytes = (torch.cuda.max_memory_allocated() - before
+                     - sum(t.numel() * t.element_size() for t in second))
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("fused_loss_bwd: two launches on the same inputs differ")
+    if scratch_bytes > 8 * 2**20:
+        raise AssertionError(f"fused_loss_bwd allocates {scratch_bytes} bytes of scratch")
+    del first, second
+    heads = (tax.num_l1_classes, tax.num_vehicle_classes, tax.num_human_classes)
+    plan = fl._bwd_plan(*in_hw, *out_hw, heads)
     n = args[0].shape[0]
     pixels = n * out_hw[0] * out_hw[1]
     c_tot = tax.num_l1_classes + tax.num_vehicle_classes + tax.num_human_classes
@@ -499,6 +547,10 @@ def train_kernels(device):
         dict(name="fused_loss_bwd", replaces=REPLACES["fused_loss_bwd"], **common,
              max_abs_err=check["grad_max_abs_err"],
              ms=time_ms(lambda: fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw)),
+             device_ms=device_ms(lambda: fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw)),
+             bit_equal=True, scratch_bytes=scratch_bytes, smem_bytes=plan.smem_bytes,
+             blocks=len(plan.chunks) * len(plan.bands) * n, threads=plan.threads,
+             per_shape=edge_checks,
              plain_ms=time_ms(lambda: fl.fused_loss_bwd_plain(g3, *args, tax=tax, out_hw=out_hw),
                               runs=5),
              bound_ms=bwd_bound[0], bound_by=bwd_bound[1], mbytes=bwd_bytes / 1e6,
@@ -584,9 +636,9 @@ PREDICT_GROUPS = (
 )
 # device-time groups of the train step's profile, first match wins
 STEP_GROUPS = (
-    ("port kernels B1-B3, B6", ("fwd_kernel", "bwd_rows_kernel", "bwd_cols_kernel",
-                                "update_kernel", "sum_partials", "wgrad_partial_kernel",
-                                "wgrad_reduce_kernel")),
+    ("port kernels B1-B3, B6", ("fwd_kernel", "bwd_walk_kernel", "update_kernel", "sum_partials",
+                                "wgrad_root_kernel", "wgrad_root_reduce_kernel",
+                                "wgrad_general_kernel", "wgrad_general_reduce_kernel")),
     ("batchnorm", ("batchnorm", "batch_norm")),
     ("conv and gemm", ("xmma", "nvjet", "gemm", "conv", "cutlass")),
     ("copies and casts", ("copy", "convert")),
@@ -640,8 +692,7 @@ def profile_call(fn, label, p50_ms, top=8, groups=(), root_shape=None):
                  and list(root_shape) in [list(s) for s in e.input_shapes]]
         out["root_wgrad_ms"] = (
             sum(e.device_time_total for e in cudnn) / 1e3
-            + sum(ms for key, _, ms in rows if "wgrad_partial_kernel" in key
-                  or "wgrad_reduce_kernel" in key))
+            + sum(ms for key, _, ms in rows if "::wgrad_" in key))
     log(f"profile {label}: wall {wall_ms:.3f} ms under the profiler, device busy "
         f"{busy_ms:.3f} ms, {out['kernels']} kernels, idle share of the "
         f"p50 {out['idle_share']:.3f}, {len(syncs)} host waits for the device")

@@ -19,6 +19,20 @@ plain forward upsamples with the dense f32 matrices of
 is autograd through it. Each wrapper counts its launches in
 ``<wrapper>.launches``.
 
+On the H100 both kernels are bound by bytes by the count (the weak labels,
+377 MB at the flagship step, are read once) and by instruction issue in
+practice (several hundred instructions per output pixel). B2 is one kernel:
+a block owns a chunk of stride-8 columns and a band of stride-8 rows of one
+image and walks down the output rows that touch the band; per row it blends
+the logit rows once, evaluates one pixel per thread (only what the pixel's
+gradient needs), contracts the gradients over the columns in shared memory
+and adds them into the two live stride-8 rows, which it stores when the walk
+has passed them. Every logit is summed by one thread in a fixed order: no
+atomics, no scratch in device memory, the same bits from run to run.
+``_bwd_plan`` computes the launch plan (chunk and band sizes, threads,
+shared-memory regions), which the kernel checks and the CPU tests hold to
+the tap tables.
+
 ``make_fused_hierarchical_loss`` returns the ``torch.autograd.Function``
 whose forward is B1 and whose backward is B2; ``define_losses_fused`` is the
 drop-in counterpart of ``losses.hierarchical.define_losses`` on stride-8
@@ -28,6 +42,7 @@ logits.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -51,11 +66,17 @@ __all__ = [
 
 # constants of csrc/fused_loss.cu
 _FWD_PIXELS_PER_BLOCK = 1024
-_J_CHUNK = 16
+_WEAK_CLASSES = 15
+_BWD_MAX_THREADS = 320
+_BWD_LABEL_RING = 2
+_BWD_J_CHUNK = 16  # stride-8 columns per chunk, before the plan shrinks it
+_BWD_I_BAND = 8    # stride-8 rows per band
+_MAX_SMEM = 227 * 1024
 _ERRORS = {
     -1: "no kernel is compiled for these head widths (Cityscapes 14/7/3, Vistas 53/12/5)",
-    -2: "a column chunk's pixels do not fit in the device's shared memory",
+    -2: "the backward's launch plan is over the device's shared memory",
     -3: "the partial-sum buffer is too small",
+    -4: "the backward's launch plan disagrees with the kernel's layout",
 }
 
 
@@ -154,15 +175,110 @@ def _taps(in_size: int, out_size: int):
 
 @functools.lru_cache(maxsize=None)
 def _device_tables(h: int, w: int, out_h: int, out_w: int, device: torch.device):
-    """(itab int32, ftab f32) on the device, and the backward's shared
-    memory per f32 channel; built once per shape."""
+    """(itab int32, ftab f32) on the device; built once per shape."""
     rlo, rhi, rw0, rw1, rfirst, rend = _taps(h, out_h)
     clo, chi, cw0, cw1, cfirst, cend = _taps(w, out_w)
     itab = np.concatenate([rlo, rhi, clo, chi, rfirst, rend, cfirst, cend]).astype(np.int32)
     ftab = np.concatenate([rw0, rw1, cw0, cw1]).astype(np.float32)
-    chunk_px = max(int(cend[min(j + _J_CHUNK, w) - 1] - cfirst[j]) for j in range(0, w, _J_CHUNK))
-    return (torch.as_tensor(itab, device=device), torch.as_tensor(ftab, device=device),
-            chunk_px * 4)
+    return torch.as_tensor(itab, device=device), torch.as_tensor(ftab, device=device)
+
+
+def _pad4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class _BwdPlan:
+    """The launch plan of B2 (``WalkPlan`` of csrc/fused_loss.cu, in its
+    field order up to ``smem_bytes``), and what the tests read of it."""
+
+    jc: int           # stride-8 columns per chunk
+    ib: int           # stride-8 rows per band
+    threads: int      # >= the pixels of a chunk (one trip of the pixel loop), unless one
+                      # stride-8 column alone touches more pixels than a block has threads
+    px_max: int       # most output pixels of one chunk
+    cols_max: int     # most stride-8 columns a chunk stages (its own and the halo)
+    rows_max: int     # most stride-8 rows a band stages
+    taps_max: int     # most output columns that touch one stride-8 column
+    label_words: int  # 4-byte words of one label-row buffer
+    smem_bytes: int
+    chunks: tuple     # (j0, j1, x_begin, x_end): columns owned, output columns evaluated
+    bands: tuple      # (i0, i1, y_begin, y_end): rows owned, output rows walked
+    scratch_bytes: int = 0  # device memory besides the outputs: none
+
+    def as_ints(self):
+        return [self.jc, self.ib, self.threads, self.px_max, self.cols_max, self.rows_max,
+                self.taps_max, self.label_words, self.smem_bytes]
+
+    def smem_words(self, heads):
+        """Word offsets of the shared-memory regions, as ``bwd_smem_words``."""
+        cp, s = sum(_pad4(c) for c in heads), _bwd_stride(sum(heads))
+        sizes = [("lr", self.rows_max * self.cols_max * cp), ("rb", self.cols_max * cp),
+                 ("d", self.px_max * s), ("coef", self.jc * self.taps_max),
+                 ("cstart", self.jc), ("ccnt", self.jc), ("bars", 2 * _BWD_LABEL_RING)]
+        out, at = {}, 0
+        for name, words in sizes:
+            out[name], at = at, at + _pad4(words)
+        out["labels"], at = at, at + _BWD_LABEL_RING * self.label_words
+        out["total"] = at
+        return out
+
+
+def _bwd_stride(c_tot: int) -> int:
+    """The gradient tile's pixel stride in words (``bwd_stride``): the
+    classes in groups of four, padded to an odd number of groups."""
+    return 4 * (-(-c_tot // 4) | 1)
+
+
+def _bwd_units(c_tot: int) -> int:
+    """Most (column, four classes) units one thread owns (``bwd_units``)."""
+    return -(-16 * -(-c_tot // 4) // 128)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(h: int, w: int, out_h: int, out_w: int, heads: tuple,
+              jc: int = _BWD_J_CHUNK, ib: int = _BWD_I_BAND) -> _BwdPlan:
+    """How B2 cuts (h, w) -> (out_h, out_w) into blocks: chunks of ``jc``
+    stride-8 columns by bands of ``ib`` stride-8 rows per image.
+
+    A chunk evaluates the output columns that touch its stride-8 columns
+    (one tap of halo per edge) and a band walks the output rows that touch
+    its rows, each keeping only its own columns' and rows' sums. ``jc``
+    halves until a chunk's pixels fit one trip of the thread block (a chunk
+    of one column that still does not takes several trips); ``ib`` halves
+    until the staged logit rows fit the shared memory.
+    """
+    rlo, rhi, _, _, rfirst, rend = _taps(h, out_h)
+    clo, chi, _, _, cfirst, cend = _taps(w, out_w)
+    c_tot = sum(heads)
+    jc, ib = max(1, min(jc, w)), max(1, min(ib, h))
+    while True:
+        chunks = tuple((j0, min(j0 + jc, w), int(cfirst[j0]), int(cend[min(j0 + jc, w) - 1]))
+                       for j0 in range(0, w, jc))
+        bands = tuple((i0, min(i0 + ib, h), int(rfirst[i0]), int(rend[min(i0 + ib, h) - 1]))
+                      for i0 in range(0, h, ib))
+        px_max = max(x1 - x0 for _, _, x0, x1 in chunks)
+        threads = 32 * -(-max(px_max, -(-jc * -(-c_tot // 4) // _bwd_units(c_tot))) // 32)
+        if threads > _BWD_MAX_THREADS and jc > 1:
+            jc = -(-jc // 2)
+            continue
+        threads = min(threads, _BWD_MAX_THREADS)
+        plan = _BwdPlan(
+            jc=jc, ib=ib, threads=threads, px_max=px_max,
+            cols_max=max(int(chi[x1 - 1] - clo[x0]) + 1 for _, _, x0, x1 in chunks),
+            rows_max=max(int(rhi[y1 - 1] - rlo[y0]) + 1 for _, _, y0, y1 in bands),
+            taps_max=int((cend - cfirst).max()),
+            label_words=max(_pad4(px_max * _WEAK_CLASSES + 3), 3 * _pad4(px_max + 3)),
+            smem_bytes=0, chunks=chunks, bands=bands)
+        plan = dataclasses.replace(plan, smem_bytes=4 * plan.smem_words(heads)["total"])
+        if plan.smem_bytes > _MAX_SMEM and ib > 1:
+            ib = -(-ib // 2)
+            continue
+        if plan.smem_bytes > _MAX_SMEM:
+            raise ValueError(f"fused_loss_bwd: no launch plan for {(h, w)} -> {(out_h, out_w)}: "
+                             f"the {px_max} output pixels of one stride-8 column take "
+                             f"{plan.smem_bytes} bytes of shared memory")
+        return plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -223,7 +339,7 @@ def fused_loss_fwd(l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, *, tax: T
         raise ValueError(f"fused_loss_fwd: unsupported device {l1_lr.device}")
     n, n_pp, h, w, H, W = _check_inputs("fused_loss_fwd", l1_lr, veh_lr, hum_lr, pp_l1,
                                         pp_veh, pp_hum, weak, tax, out_hw)
-    itab, ftab, _ = _device_tables(h, w, H, W, l1_lr.device)
+    itab, ftab = _device_tables(h, w, H, W, l1_lr.device)
     blocks = -(-H * W // _FWD_PIXELS_PER_BLOCK)
     partials = torch.empty(n * blocks * 6, dtype=torch.float32, device=l1_lr.device)
     sums = torch.empty(6, dtype=torch.float32, device=l1_lr.device)
@@ -258,16 +374,21 @@ def fused_loss_bwd(g3, l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, *,
     if g3.device != l1_lr.device or g3.dtype != torch.float32 or tuple(g3.shape) != (3,) \
             or not g3.is_contiguous():
         raise ValueError(f"fused_loss_bwd: g3 must be contiguous float32 (3,) on {l1_lr.device}")
-    itab, ftab, smem_per_channel = _device_tables(h, w, H, W, l1_lr.device)
-    c_tot = tax.num_l1_classes + tax.num_vehicle_classes + tax.num_human_classes
-    scratch = torch.empty((n, H, w, c_tot), dtype=torch.float32, device=l1_lr.device)
+    for name, t in (("pp_l1", pp_l1), ("pp_veh", pp_veh), ("pp_hum", pp_hum), ("weak", weak)):
+        if t.numel() and t.data_ptr() % 16:
+            raise ValueError(f"fused_loss_bwd: {name} must start on a 16-byte boundary "
+                             "(its rows are copied 16 bytes at a time)")
+    itab, ftab = _device_tables(h, w, H, W, l1_lr.device)
+    heads = (tax.num_l1_classes, tax.num_vehicle_classes, tax.num_human_classes)
+    plan = _bwd_plan(h, w, H, W, heads, _BWD_J_CHUNK, _BWD_I_BAND)
     grads = [torch.empty_like(t) for t in (l1_lr, veh_lr, hum_lr)]
     fn = _build.load("fused_loss").iv_fused_loss_bwd
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    plan_ints = (ctypes.c_int * 9)(*plan.as_ints())
     err = fn(*_common_args(l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, itab, ftab, tax),
-             g3.data_ptr(), scratch.data_ptr(), *(g.data_ptr() for g in grads),
-             n, n_pp, h, w, H, W, *_head_args(tax), smem_per_channel * c_tot,
+             g3.data_ptr(), ctypes.cast(plan_ints, ctypes.c_void_p),
+             *(g.data_ptr() for g in grads), n, n_pp, h, w, H, W, *_head_args(tax),
              torch.cuda.current_stream(l1_lr.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_loss_bwd (n,h,w,H,W)={(n, h, w, H, W)}: "

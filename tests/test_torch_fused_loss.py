@@ -130,3 +130,232 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         tfl.fused_loss_fwd(*meta, *[torch.empty(1, 32, 64, dtype=torch.int32)] * 3,
                            torch.empty(0, 32, 64, 15), tax=tax, out_hw=(32, 64))
+
+
+# ---------------------------------------------------------------- B2's launch plan
+
+MAX_SMEM = 232_448
+CITY, VISTAS = (14, 7, 3), (53, 12, 5)
+# (h, w, H, W, heads, jc, ib): the flagship at both head widths, ragged
+# shapes, a single row, out == in, a last chunk of one column, a last band
+# of one row, a large factor (the plan shrinks the chunk), tiny blocks, one
+# column that touches more pixels than a block has threads (several trips)
+PLAN_SHAPES = [
+    (64, 128, 512, 1024, CITY, 16, 8),
+    (64, 128, 512, 1024, VISTAS, 16, 8),
+    (5, 7, 33, 49, CITY, 16, 8),
+    (1, 9, 8, 72, CITY, 16, 8),
+    (6, 7, 6, 7, CITY, 16, 8),
+    (9, 17, 70, 131, CITY, 16, 8),
+    (9, 16, 36, 64, VISTAS, 16, 8),
+    (17, 33, 129, 257, CITY, 16, 8),
+    (4, 8, 128, 256, CITY, 16, 8),
+    (11, 37, 50, 150, CITY, 4, 2),
+    (78, 107, 621, 855, VISTAS, 16, 8),
+    (3, 1, 20, 5, CITY, 16, 8),
+    (1, 1, 8, 700, CITY, 16, 8),
+]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_bwd_plan_covers_every_tap_once(shape):
+    """Every stride-8 row and column is owned by exactly one band and chunk,
+    and the owner evaluates every output row and column that touches it: so
+    each logit's sum is complete and is stored once, with no scratch."""
+    h, w, H, W, heads, jc, ib = shape
+    plan = tfl._bwd_plan(h, w, H, W, heads, jc, ib)
+    for size, out_size, blocks in ((h, H, plan.bands), (w, W, plan.chunks)):
+        lo, hi, _, _, first, end = tfl._taps(size, out_size)
+        owner = np.full(size, -1)
+        for b, (i0, i1, o0, o1) in enumerate(blocks):
+            assert (owner[i0:i1] == -1).all() and i1 > i0
+            owner[i0:i1] = b
+            assert (o0, o1) == (first[i0:i1].min(), end[i0:i1].max())
+        assert (owner >= 0).all()
+        for o in range(out_size):  # each tap of each output index has one owner, who walks it
+            for tap in {int(lo[o]), int(hi[o])}:
+                _, _, o0, o1 = blocks[owner[tap]]
+                assert o0 <= o < o1
+        covered = np.zeros(out_size, int)
+        for _, _, o0, o1 in blocks:
+            covered[o0:o1] += 1
+        assert covered.min() >= 1 and covered.max() <= 2  # one tap of halo per edge
+    assert plan.scratch_bytes == 0
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_bwd_plan_fits_the_block(shape):
+    """Threads cover a chunk's pixels in one trip (unless a single column has
+    more), the (column, four classes) units fit the threads, the staged tiles hold what the taps reach, the
+    label rows copy in whole 16-byte pieces inside their buffers and tensors,
+    and the shared memory is within the card's."""
+    h, w, H, W, heads, jc, ib = shape
+    plan = tfl._bwd_plan(h, w, H, W, heads, jc, ib)
+    c_tot, c4 = sum(heads), -(-sum(heads) // 4)
+    rlo, rhi, *_ = tfl._taps(h, H)
+    clo, chi, _, _, cfirst, cend = tfl._taps(w, W)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= tfl._BWD_MAX_THREADS
+    assert plan.jc * c4 <= tfl._bwd_units(c_tot) * plan.threads
+    assert plan.taps_max == (cend - cfirst).max()
+    for _, _, x0, x1 in plan.chunks:
+        assert 0 < x1 - x0 <= plan.px_max
+        assert plan.px_max <= plan.threads or plan.jc == 1
+        assert chi[x1 - 1] - clo[x0] + 1 <= plan.cols_max
+    for _, _, y0, y1 in plan.bands:
+        assert rhi[y1 - 1] - rlo[y0] + 1 <= plan.rows_max
+    words = plan.smem_words(heads)
+    assert plan.smem_bytes == 4 * words["total"] <= MAX_SMEM
+    assert all(v % 4 == 0 for v in words.values())  # every region starts on 16 bytes
+    assert tfl._bwd_stride(c_tot) % 4 == 0 and tfl._bwd_stride(c_tot) // 4 % 2 == 1
+    # the label copies of every (image, row, chunk): from e0 rounded down to 4
+    # words, in 4-word pieces, the last zero-filled past the tensor's end
+    n_img = 3
+    for per_px, total, room in ((15, n_img * H * W * 15, plan.label_words),
+                                (1, n_img * H * W, tfl._pad4(plan.px_max + 3))):
+        assert 3 * tfl._pad4(plan.px_max + 3) <= plan.label_words
+        for img in (0, n_img - 1):
+            for y in (0, H // 2, H - 1):
+                for _, _, x0, x1 in plan.chunks:
+                    e0 = ((img * H + y) * W + x0) * per_px
+                    e1 = e0 + (x1 - x0) * per_px
+                    start, pieces = e0 & ~3, (e1 - (e0 & ~3) + 3) // 4
+                    assert start % 4 == 0 and 0 <= start and 4 * pieces <= room
+                    assert start + 4 * (pieces - 1) < total and e1 <= total
+
+
+def test_bwd_plan_shrinks_to_fit():
+    """A large upsampling factor halves the chunk until its pixels fit one
+    trip; Vistas rows that overflow the shared memory halve the band."""
+    plan = tfl._bwd_plan(4, 64, 128, 2048, CITY)
+    assert plan.jc < 16 and plan.px_max <= plan.threads <= tfl._BWD_MAX_THREADS
+    big = tfl._bwd_plan(64, 128, 512, 1024, VISTAS, 16, 64)
+    assert big.ib < 64 and big.smem_bytes <= MAX_SMEM
+    wide = tfl._bwd_plan(1, 1, 8, 700, CITY)  # one column, 700 pixels: three trips
+    assert wide.jc == 1 and wide.px_max == 700 and wide.threads == tfl._BWD_MAX_THREADS
+    with pytest.raises(ValueError):
+        tfl._bwd_plan(2, 2, 2, 2000, CITY)  # one column's pixels over the shared memory
+
+
+# ---------------------------------------------------------------- B2's walk, emulated
+
+
+def _emulate_walk(g3, l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, tax, out_hw, jc, ib):
+    """The kernel's walk in plain PyTorch, block by block: the staged logit
+    tile with its relative indices, the row blend, the pixel gradients, the
+    column contraction from the coefficient table, the two live rows and
+    their retirement. Checks the indexing where no card is needed; the
+    arithmetic is torch's (f32, sums in the kernel's order)."""
+    n, h, w, _ = l1_lr.shape
+    H, W = out_hw
+    heads = (tax.num_l1_classes, tax.num_vehicle_classes, tax.num_human_classes)
+    c1, cv, _ = heads
+    plan = tfl._bwd_plan(h, w, H, W, heads, jc, ib)
+    rlo, rhi, rw0, rw1, _, _ = tfl._taps(h, H)
+    clo, chi, cw0, cw1, cfirst, cend = tfl._taps(w, W)
+    n_pp = pp_l1.shape[0]
+    lr_all = torch.cat([l1_lr, veh_lr, hum_lr], -1)
+    out = torch.full_like(lr_all, float("nan"))
+    masks = [torch.tensor(np.asarray(t)[:, None] == np.arange(c)[None], dtype=torch.float32)
+             for t, c in ((tax.per_bbox_cids2vehicle_cids, heads[1]),
+                          (tax.per_bbox_cids2human_cids, heads[2]))]
+
+    def softmax_grad(u, onehot_or_label, weight):
+        return weight[:, None] * (torch.softmax(u, -1) - onehot_or_label)
+
+    for img in range(n):
+        for i0, i1, y_begin, y_end in plan.bands:
+            for j0, j1, x_begin, x_end in plan.chunks:
+                px = x_end - x_begin
+                jlo, ilo = int(clo[x_begin]), int(rlo[y_begin])
+                tile = lr_all[img, ilo:int(rhi[y_end - 1]) + 1, jlo:int(chi[x_end - 1]) + 1]
+                assert tile.shape[0] <= plan.rows_max and tile.shape[1] <= plan.cols_max
+                xs = np.arange(x_begin, x_end)
+                x0l, x1l = clo[xs] - jlo, chi[xs] - jlo
+                wx0, wx1 = torch.tensor(cw0[xs])[:, None], torch.tensor(cw1[xs])[:, None]
+                coef = torch.zeros(j1 - j0, plan.taps_max)
+                for jl, j in enumerate(range(j0, j1)):
+                    for k, x in enumerate(range(cfirst[j], cend[j])):
+                        coef[jl, k] = float(cw0[x] if clo[x] == j else 0.0) + float(
+                            cw1[x] if chi[x] == j else 0.0)
+                cur = ilo
+                acc_lo = torch.zeros(j1 - j0, lr_all.shape[-1])
+                acc_hi = torch.zeros_like(acc_lo)
+
+                def retire(i):
+                    nonlocal acc_lo, acc_hi
+                    if i0 <= i < i1:
+                        assert torch.isnan(out[img, i, j0:j1]).all()  # stored exactly once
+                        out[img, i, j0:j1] = acc_lo
+                    acc_lo, acc_hi = acc_hi, torch.zeros_like(acc_hi)
+
+                for y in range(y_begin, y_end):
+                    rb = float(rw0[y]) * tile[int(rlo[y]) - ilo] + float(rw1[y]) * tile[int(rhi[y]) - ilo]
+                    u = wx0 * rb[x0l] + wx1 * rb[x1l]
+                    u1, uv, uh = u[:, :c1], u[:, c1:c1 + cv], u[:, c1 + cv:]
+                    d = torch.zeros(px, lr_all.shape[-1])
+                    if img < n_pp:
+                        for head, (uu, lab) in enumerate(((u1, pp_l1), (uv, pp_veh), (uh, pp_hum))):
+                            lab = lab[img, y, x_begin:x_end].long()
+                            c = uu.shape[1]
+                            grad = softmax_grad(uu, torch.nn.functional.one_hot(lab, c).float(),
+                                                (lab != c - 1).float() * g3[head])
+                            d[:, sum(heads[:head]):sum(heads[:head + 1])] = grad
+                    else:
+                        wk = weak[img - n_pp, y, x_begin:x_end]
+                        d1 = u1.argmax(-1)
+                        for head, (uu, cid) in enumerate(((uv, tax.cid_l1_vehicle),
+                                                          (uh, tax.cid_l1_human)), 1):
+                            lab = wk @ masks[head - 1]
+                            gate = ((1.0 - lab[:, -1]) > 0.01) & (d1 == cid) & (
+                                lab[:, :-1].amax(-1) >= 0.01)
+                            grad = softmax_grad(uu, lab, gate.float() * g3[head])
+                            d[:, sum(heads[:head]):sum(heads[:head + 1])] = grad
+                    while cur < rlo[y]:
+                        retire(cur)
+                        cur += 1
+                    r = torch.zeros_like(acc_lo)
+                    for jl, j in enumerate(range(j0, j1)):
+                        start, cnt = int(cfirst[j]) - x_begin, int(cend[j] - cfirst[j])
+                        r[jl] = coef[jl, :cnt] @ d[start:start + cnt]
+                    acc_lo = acc_lo + float(rw0[y]) * r
+                    acc_hi = acc_hi + float(rw1[y]) * r
+                retire(cur)
+                retire(cur + 1)
+    assert not torch.isnan(out).any()
+    return out[..., :c1], out[..., c1:c1 + cv], out[..., c1 + cv:]
+
+
+# CASES with one block per image, then ragged shapes cut into several chunks
+# and bands (3 x 2 and 3 x 6 blocks per image)
+WALK_CASES = [(*case, 16, 8) for case in CASES] + [
+    ("cityscapes", 1, 1, 1, 11, 37, None, 16, 8),
+    ("cityscapes", 1, 2, 0, 11, 13, None, 5, 2),
+]
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_emulated_walk_matches_plain_bwd(case):
+    """The walk (bands, chunks, halo, the two live rows, the tap tables)
+    against autograd through the plain forward: 1e-5 of the largest
+    |gradient| (f32, another summation order)."""
+    threads()
+    dataset, n_pp, n_pb, n_pi, h, w, scale, jc, ib = case
+    if scale is None:  # ragged: no integer factor
+        out_hw = {(11, 37): (50, 150), (11, 13): (41, 37)}[(h, w)]
+        jtax, lr, _, heads, weak, _ = _inputs(dataset, 2, n_pp, n_pb, n_pi, h, w, 4)
+        rng = np.random.RandomState(5)
+        heads = [rng.randint(0, c, (n_pp, *out_hw)).astype(np.int32) for c in (
+            jtax.num_l1_classes, jtax.num_vehicle_classes, jtax.num_human_classes)]
+        raw = rng.dirichlet(np.full(15, 0.3), (weak.shape[0], *out_hw)).astype(np.float32)
+        weak = np.where(rng.rand(*raw.shape[:3], 1) < 0.5, raw, np.eye(15, dtype=np.float32)[
+            rng.randint(0, 15, raw.shape[:3])]).astype(np.float32)
+    else:
+        _, lr, _, heads, weak, out_hw = _inputs(dataset, 0, n_pp, n_pb, n_pi, h, w, scale)
+    tax = get_taxonomy(dataset)
+    args = [torch.from_numpy(lr[k]) for k in LOGIT_KEYS] + [torch.from_numpy(x) for x in heads]
+    args.append(torch.from_numpy(weak))
+    g3 = torch.tensor([0.3, 0.07, 0.11])
+    want = tfl.fused_loss_bwd_plain(g3, *args, tax=tax, out_hw=out_hw)
+    got = _emulate_walk(g3, *args, tax, out_hw, jc, ib)
+    for g, w_ in zip(got, want):
+        assert float((g - w_).abs().max()) <= 1e-5 * float(w_.abs().max())

@@ -7,8 +7,9 @@ kernel has no CPU mode. Tolerances as in chip_smoke.py (reasons there):
 fused units max |got - want| / max(1, |want|) < 2e-2; fused loss sums 1e-4
 relative, decisions >= 99.99% equal, gradients 1e-4 of the largest; update
 vectors 1e-6 of the largest, reg 1e-5 relative; root-conv wgrad within
-1e-5 of the largest |dW| (the same bf16 products, f32 sums in another
-order).
+1e-4 of the largest |dW| (the same bf16 products, f32 sums in another
+order). The fused-loss backward and the root-conv wgrad must also give the
+same bits on two launches.
 """
 
 import numpy as np
@@ -77,7 +78,17 @@ LOSS_SHAPES = [("cityscapes", 4, 12, (64, 128), (512, 1024)),
                ("cityscapes", 2, 2, (4, 8), (32, 64)),
                ("cityscapes", 2, 0, (4, 8), (32, 64)),
                ("cityscapes", 0, 3, (5, 9), (37, 67)),
-               ("vistas", 1, 2, (9, 16), (36, 64))]
+               ("vistas", 1, 2, (9, 16), (36, 64)),
+               # the backward's walk: out == in, one stride-8 row, a last chunk of one
+               # column and a last band of one row, Vistas at a ragged mid size, a
+               # factor of 32 (the plan halves the chunk)
+               ("cityscapes", 2, 1, (6, 7), (6, 7)),
+               ("cityscapes", 1, 2, (1, 9), (8, 72)),
+               ("cityscapes", 1, 1, (9, 17), (70, 131)),
+               ("vistas", 1, 1, (39, 54), (310, 427)),
+               ("cityscapes", 1, 1, (4, 16), (128, 512)),
+               # one stride-8 column that touches 700 pixels: several trips a row
+               ("cityscapes", 1, 1, (1, 1), (8, 700))]
 
 
 @pytest.mark.gpu
@@ -97,6 +108,44 @@ def test_fused_loss_matches_plain_on_card(dataset, n_pp, n_weak, in_hw, out_hw):
     assert (fl.fused_loss_fwd.launches, fl.fused_loss_bwd.launches) == (before[0] + 1,
                                                                         before[1] + 1)
     assert chip_smoke.loss_ok(check), check
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dataset,n_pp,n_weak,in_hw,out_hw", [LOSS_SHAPES[0], LOSS_SHAPES[3],
+                                                             LOSS_SHAPES[8]])
+def test_fused_loss_bwd_is_deterministic_on_card(dataset, n_pp, n_weak, in_hw, out_hw):
+    """Two launches on the same inputs give the same bits: every logit is
+    summed by one thread in a fixed order, without atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import chip_smoke
+
+    tax = get_taxonomy(dataset)
+    args = chip_smoke.loss_inputs(np.random.RandomState(1), tax, n_pp, n_weak, in_hw, out_hw,
+                                  "cuda")
+    g3 = torch.tensor([0.5, 0.07, 0.11], device="cuda")
+    first = fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw)
+    second = fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_fused_loss_bwd_refuses_unaligned_labels_on_card():
+    """The label rows are copied 16 bytes at a time: a label tensor that
+    starts off a 16-byte boundary is refused, not misread."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import chip_smoke
+
+    tax = get_taxonomy("cityscapes")
+    args = list(chip_smoke.loss_inputs(np.random.RandomState(1), tax, 1, 1, (4, 8), (32, 64),
+                                       "cuda"))
+    weak = args[6]
+    shifted = torch.empty(weak.numel() + 1, device="cuda")[1:].view_as(weak).copy_(weak)
+    args[6] = shifted
+    with pytest.raises(ValueError):
+        fl.fused_loss_bwd(torch.ones(3, device="cuda"), *args, tax=tax, out_hw=(32, 64))
 
 
 @pytest.mark.gpu
@@ -154,12 +203,18 @@ def test_train_norm_on_card_matches_cpu():
     torch.testing.assert_close(norms["cuda"].var.cpu(), want, rtol=1e-5, atol=1e-6)
 
 
-# (x NCHW, Cout, k, dy channels_last): a flagship-width batch of 4, a ragged
-# shape whose 35-pixel rows fill no 64-pixel chunk, the same with an NCHW
-# contiguous dy (as autograd may hand it over), and the generic kernel
-# (k=5, two channels, eight outputs: no 16-byte dy loads)
-WGRAD_SHAPES = [((4, 3, 512, 1024), 64, 7, True), ((2, 3, 36, 70), 64, 7, True),
-                ((2, 3, 36, 70), 64, 7, False), ((1, 2, 24, 40), 8, 5, False)]
+# (x NCHW, Cout, k, dy channels_last). The root kernel (wgmma, TMA): a
+# flagship-width batch of 4, 200-pixel rows that fill no 128-pixel chunk, rows
+# narrower than one chunk (both TMA boxes reach past the tensors), two input
+# rows only, more chunks than blocks by an uneven count. The general kernel:
+# 35-pixel rows (W = 70 is no multiple of 8), the same with an NCHW
+# contiguous dy (as autograd may hand it over), k = 5 with two channels and
+# eight outputs (no 16-byte dy loads), and 32 outputs at the root's k and C
+WGRAD_SHAPES = [((4, 3, 512, 1024), 64, 7, True), ((2, 3, 20, 400), 64, 7, False),
+                ((2, 3, 36, 72), 64, 7, True), ((1, 3, 2, 256), 64, 7, True),
+                ((3, 3, 94, 520), 64, 7, True),
+                ((2, 3, 36, 70), 64, 7, True), ((2, 3, 36, 70), 64, 7, False),
+                ((1, 2, 24, 40), 8, 5, False), ((1, 3, 16, 256), 32, 7, True)]
 
 
 @pytest.mark.gpu
@@ -172,3 +227,20 @@ def test_root_wgrad_matches_plain_on_card(x_shape, cout, k, channels_last):
     check = chip_smoke.compare_wgrad(x_shape, cout, k, channels_last)
     assert check["launches"] == 1
     assert check["rel_err"] <= chip_smoke.WGRAD_REL_TOL, check
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_shape,cout,k,channels_last", [WGRAD_SHAPES[0], WGRAD_SHAPES[1],
+                                                          WGRAD_SHAPES[5]])
+def test_root_wgrad_is_deterministic_on_card(x_shape, cout, k, channels_last):
+    """Two launches give the same bits on both kernels: the per-block
+    partials are added in block order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import chip_smoke
+    from iv2019_tpu_torch.ops.root_wgrad import root_conv_wgrad
+
+    x, dy = chip_smoke.wgrad_inputs(x_shape, cout, k, channels_last, seed=1)
+    first, second = root_conv_wgrad(x, dy, k, 2), root_conv_wgrad(x, dy, k, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
