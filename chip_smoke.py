@@ -8,11 +8,14 @@ Phases, each of which fails the run on its own:
 2. kernels: each hand-written kernel against its plain PyTorch version at
    the shapes the flagship predict and train paths give it, with times;
    for the fused units also the device times of their two kernels apart,
-   the achieved TFLOP/s and the share of the bound. The fused-loss backward
-   (B2) is also checked at a ragged shape and at the Vistas head widths,
-   the root-conv wgrad (B6) on its ragged edge and on its general kernel;
-   for both, two launches on the same inputs must agree bit for bit, and
-   ``device_ms`` (replays of a CUDA graph of one call) stands beside ``ms``.
+   the achieved TFLOP/s and the share of the bound. The fused-loss kernels
+   (B1, B2) are also checked at ragged shapes, at the Vistas head widths
+   and with label views that start 1-3 elements off 16 bytes, and B1's
+   decisions against an argmax of the 4-tap blend done as separate tensor
+   multiplies and adds (equal on every pixel); the root-conv wgrad (B6) on
+   its ragged edge and on its general kernel; for B1, B2 and B6 two
+   launches on the same inputs must agree bit for bit, and ``device_ms``
+   (replays of a CUDA graph of one call) stands beside ``ms``.
 3. predict: the port's predict path at full ResNet-50 width (Cityscapes
    taxonomy, 512x1024 input, 1024x2048 output, bf16, fused blocks) on
    seeded random weights; checks the kernel launch counts, compares with
@@ -34,7 +37,9 @@ Phases, each of which fails the run on its own:
    directory that resumes at 6 and stops at 8), then ``train_cli.main`` at
    256x512 for 2 steps: the run's artifacts, one B6 launch per step; step
    p50/p90, images/s, the host input's time per batch, idle share, peak
-   memory.
+   memory. Then ``predict_cli`` on train_cli's checkpoint, with and without
+   ``--restore_emas``: the exports, and the predictions against a model
+   holding the run's weights (or their unbiased EMA shadows).
 
 The next-to-last line is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it
@@ -245,12 +250,15 @@ def compare_loss(tax, args, out_hw, g3):
     grads = fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw)
     want_sums, want_dec, want_l1dec = fl.fused_loss_fwd_plain(*args, tax=tax, out_hw=out_hw)
     want_grads = fl.fused_loss_bwd_plain(g3, *args, tax=tax, out_hw=out_hw)
+    tap_dec, tap_l1dec = tap_decisions(tax, *args[:3], out_hw)
     torch.cuda.synchronize()
     return dict(
         sums_rel_err=float(((sums - want_sums).abs() / want_sums.abs().clamp_min(1.0)).max()),
         sums_max_abs_err=float((sums - want_sums).abs().max()),
         decisions_equal=float((dec == want_dec).float().mean()),
         l1_decisions_equal=float((l1dec == want_l1dec).float().mean()),
+        tap_decisions_equal=min(float((dec == tap_dec).float().mean()),
+                                float((l1dec == tap_l1dec).float().mean())),
         grad_rel_err=max(float((g - gw).abs().max() / gw.abs().max().clamp_min(1e-30))
                          for g, gw in zip(grads, want_grads)),
         grad_max_abs_err=max(float((g - gw).abs().max()) for g, gw in zip(grads, want_grads)))
@@ -259,7 +267,45 @@ def compare_loss(tax, args, out_hw, g3):
 def loss_ok(check):
     return (check["sums_rel_err"] < LOSS_SUM_REL_TOL
             and min(check["decisions_equal"], check["l1_decisions_equal"]) >= LOSS_DECISIONS_MIN
-            and check["grad_rel_err"] < LOSS_GRAD_REL_TOL)
+            and check["grad_rel_err"] < LOSS_GRAD_REL_TOL
+            and check.get("tap_decisions_equal", 1.0) == 1.0)
+
+
+def tap_decisions(tax, l1_lr, veh_lr, hum_lr, out_hw):
+    """(decisions, l1_decisions) from the 4-tap blend written as separate
+    tensor multiplies and adds, rows first (each rounded once, as the
+    kernels' blend), and torch's first-max argmax: what B1's decisions must
+    equal bit for bit."""
+    from iv2019_tpu_torch.ops import fused_loss as fl
+    from iv2019_tpu_torch.ops.segment_ops import gather_cids
+
+    dev = l1_lr.device
+    (H, W), (h, w) = out_hw, l1_lr.shape[1:3]
+    rlo, rhi, rw0, rw1, _, _ = (torch.as_tensor(t, device=dev) for t in fl._taps(h, H))
+    clo, chi, cw0, cw1, _, _ = (torch.as_tensor(t, device=dev) for t in fl._taps(w, W))
+
+    def argmax(lr):
+        rows = rw0[None, :, None, None] * lr[:, rlo.long()] + rw1[None, :, None, None] * lr[:, rhi.long()]
+        u = cw0[None, None, :, None] * rows[:, :, clo.long()] + cw1[None, None, :, None] * rows[:, :, chi.long()]
+        return u.argmax(-1).int()
+
+    d1, dv, dh = argmax(l1_lr), argmax(veh_lr), argmax(hum_lr)
+    dec = torch.where(
+        d1 == tax.cid_l1_vehicle, gather_cids(tax.l2_vehicle_cids2common_cids, dv),
+        torch.where(d1 == tax.cid_l1_human, gather_cids(tax.l2_human_cids2common_cids, dh),
+                    gather_cids(tax.l1_cids2common_cids, d1)))
+    return dec, d1
+
+
+def unaligned_labels(args, offset):
+    """The loss inputs with each label tensor replaced by an equal view that
+    starts ``offset`` elements (4-byte words) into a fresh buffer."""
+    out = list(args)
+    for k in range(3, 7):
+        t = out[k]
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+        out[k] = buf[offset:].view(t.shape).copy_(t)
+    return out
 
 
 def update_inputs(n, device, seed=0):
@@ -495,34 +541,56 @@ def train_kernels(device):
     if not loss_ok(check):
         raise AssertionError(f"fused loss departs from its plain version: {check}")
     edge_checks = []
-    for dataset, e_pp, e_weak, e_in, e_out in LOSS_EDGE_SHAPES:
+    # the edge shapes, then label views that start 1-3 elements off 16 bytes
+    # (B1 and B2 copy label rows from the address rounded down to 16 bytes)
+    unaligned = [(shape, offset) for shape in (LOSS_EDGE_SHAPES[0], LOSS_EDGE_SHAPES[2])
+                 for offset in (1, 2, 3)]
+    for (dataset, e_pp, e_weak, e_in, e_out), offset in [(s, 0) for s in LOSS_EDGE_SHAPES] + unaligned:
         e_tax = get_taxonomy(dataset)
         e_args = loss_inputs(np.random.RandomState(0), e_tax, e_pp, e_weak, e_in, e_out, device)
+        if offset:
+            e_args = unaligned_labels(e_args, offset)
         e_check = compare_loss(e_tax, e_args, e_out, torch.tensor([0.5, 0.07, 0.11], device=device))
-        e_check.update(dataset=dataset, n_pp=e_pp, n_weak=e_weak, in_hw=e_in, out_hw=e_out)
+        e_check.update(dataset=dataset, n_pp=e_pp, n_weak=e_weak, in_hw=e_in, out_hw=e_out,
+                       label_offset=offset)
         log(f"kernel fused_loss {json.dumps(e_check)}")
         if not loss_ok(e_check):
             raise AssertionError(f"fused loss departs from its plain version: {e_check}")
         edge_checks.append(e_check)
-    first = fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw)
-    # device memory one call takes besides its three outputs (the caching
-    # allocator hands out a cached block whole when less than 1 MiB of it
-    # would be left over, so up to 1 MiB per output shows here as rounding;
-    # the scratch this guards against was N x H x w x C floats, 100 MB here)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
-    second = fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw)
-    torch.cuda.synchronize()
-    scratch_bytes = (torch.cuda.max_memory_allocated() - before
-                     - sum(t.numel() * t.element_size() for t in second))
-    if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError("fused_loss_bwd: two launches on the same inputs differ")
-    if scratch_bytes > 8 * 2**20:
-        raise AssertionError(f"fused_loss_bwd allocates {scratch_bytes} bytes of scratch")
-    del first, second
+    check_off = compare_loss(tax, unaligned_labels(args, 3), out_hw, g3)
+    check_off.update(label_offset=3)
+    log(f"kernel fused_loss flagship, labels 3 elements off 16 bytes: {json.dumps(check_off)}")
+    if not loss_ok(check_off):
+        raise AssertionError(f"fused loss departs from its plain version: {check_off}")
+    edge_checks.append(check_off)
+
+    def scratch(fn):
+        """Device memory one call takes besides its outputs (the caching
+        allocator hands out a cached block whole when less than 1 MiB of it
+        would be left over, so up to 1 MiB per output shows here as
+        rounding), and whether it gave the bits of the call before it."""
+        first = fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        second = fn()
+        torch.cuda.synchronize()
+        nbytes = (torch.cuda.max_memory_allocated() - before
+                  - sum(t.numel() * t.element_size() for t in second))
+        return nbytes, all(torch.equal(a, b) for a, b in zip(first, second))
+
+    # B1's per-block partial sums are its only scratch (6 floats a block); the
+    # B2 scratch this guards against was N x H x w x C floats, 100 MB here
+    fwd_scratch, fwd_equal = scratch(lambda: fl.fused_loss_fwd(*args, tax=tax, out_hw=out_hw))
+    scratch_bytes, bwd_equal = scratch(lambda: fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw))
+    if not (fwd_equal and bwd_equal):
+        raise AssertionError(f"two launches on the same inputs differ: B1 {not fwd_equal}, "
+                             f"B2 {not bwd_equal}")
+    if max(scratch_bytes, fwd_scratch) > 8 * 2**20:
+        raise AssertionError(f"fused loss scratch: B1 {fwd_scratch}, B2 {scratch_bytes} bytes")
     heads = (tax.num_l1_classes, tax.num_vehicle_classes, tax.num_human_classes)
     plan = fl._bwd_plan(*in_hw, *out_hw, heads)
+    fplan = fl._fwd_plan(*in_hw, *out_hw, heads)
     n = args[0].shape[0]
     pixels = n * out_hw[0] * out_hw[1]
     c_tot = tax.num_l1_classes + tax.num_vehicle_classes + tax.num_human_classes
@@ -539,11 +607,15 @@ def train_kernels(device):
         dict(name="fused_loss_fwd", replaces=REPLACES["fused_loss_fwd"], **common,
              max_abs_err=check["sums_max_abs_err"],
              ms=time_ms(lambda: fl.fused_loss_fwd(*args, tax=tax, out_hw=out_hw)),
+             device_ms=device_ms(lambda: fl.fused_loss_fwd(*args, tax=tax, out_hw=out_hw)),
+             bit_equal=True, scratch_bytes=fwd_scratch, smem_bytes=fplan.smem_bytes,
+             blocks=fplan.slots(n), threads=fplan.threads, per_shape=edge_checks,
              plain_ms=time_ms(lambda: fl.fused_loss_fwd_plain(*args, tax=tax, out_hw=out_hw),
                               runs=5),
              bound_ms=fwd_bound[0], bound_by=fwd_bound[1], mbytes=fwd_bytes / 1e6,
              sums_rel_err=check["sums_rel_err"], decisions_equal=check["decisions_equal"],
-             l1_decisions_equal=check["l1_decisions_equal"]),
+             l1_decisions_equal=check["l1_decisions_equal"],
+             tap_decisions_equal=check["tap_decisions_equal"]),
         dict(name="fused_loss_bwd", replaces=REPLACES["fused_loss_bwd"], **common,
              max_abs_err=check["grad_max_abs_err"],
              ms=time_ms(lambda: fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw)),
@@ -636,7 +708,7 @@ PREDICT_GROUPS = (
 )
 # device-time groups of the train step's profile, first match wins
 STEP_GROUPS = (
-    ("port kernels B1-B3, B6", ("fwd_kernel", "bwd_walk_kernel", "update_kernel", "sum_partials",
+    ("port kernels B1-B3, B6", ("fwd_walk_kernel", "bwd_walk_kernel", "update_kernel", "sum_partials",
                                 "wgrad_root_kernel", "wgrad_root_reduce_kernel",
                                 "wgrad_general_kernel", "wgrad_general_reduce_kernel")),
     ("batchnorm", ("batchnorm", "batch_norm")),
@@ -1123,7 +1195,7 @@ def train_run_phase(device, step_busy_ms):
 
         cli_dir = os.path.join(tmp, "cli")
         _reset_counts()
-        train_cli.main([cli_dir, "cityscapes", "--synthetic_data", "--height_feature_extractor",
+        cli_state = train_cli.main([cli_dir, "cityscapes", "--synthetic_data", "--height_feature_extractor",
                         "256", "--width_feature_extractor", "512", "--Nb_per_pixel", "1",
                         "--Nb_per_bbox", "2", "--Nb_per_image", "1", "--Ntrain", "2", "--Ne", "1",
                         "--learning_rate_boundaries", "1", "--learning_rate_values", "0.01",
@@ -1138,7 +1210,77 @@ def train_run_phase(device, step_busy_ms):
                 or cli_launches != {"fused_loss_fwd": 2, "fused_loss_bwd": 2, "fused_update": 2,
                                     "root_conv_wgrad": 0}):
             raise AssertionError(f"train cli: {listing} {cli_records} {cli_launches}")
+        predict_from_run_phase(cli_dir, cli_state, problem)
     return launches
+
+
+def predict_from_run_phase(log_dir, state, problem, device="cuda"):
+    """``predict_cli`` on the checkpoint ``train_cli`` wrote in ``log_dir``
+    (256x512, step 2), with and without ``--restore_emas``: the exports, and
+    the predictions against those of a model holding the run's final
+    weights (or their unbiased EMA shadows, taken from the optimizer state
+    and the checkpoint's layout, not through the restore code)."""
+    import os
+
+    from PIL import Image
+
+    from iv2019_tpu_torch import predict_cli
+    from iv2019_tpu_torch.config import (PREDICT, build_argparser, resolve_dataset_name,
+                                         resolve_trained_model, settings_from_args)
+    from iv2019_tpu_torch.input.predict_input import predict_input
+    from iv2019_tpu_torch.models.model import build_model
+    from iv2019_tpu_torch.problem.problem_def import load_problem_def
+    from iv2019_tpu_torch.system import SemanticSegmentation
+
+    img_dir = os.path.join(log_dir, "images")
+    os.makedirs(img_dir)
+    sizes = {"a": (256, 512), "b": (300, 400)}
+    rng = np.random.RandomState(4)
+    for stem, hw in sizes.items():
+        Image.fromarray(rng.randint(0, 256, (*hw, 3), dtype=np.uint8)).save(
+            os.path.join(img_dir, f"{stem}.png"))
+    lids = set(load_problem_def(problem).cids2lids)
+    opt = state.opt_state
+    raw = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    layout = torch.load(os.path.join(log_dir, "checkpoints", "2", "state.pt"),
+                        weights_only=True)["layout"]
+    ema = dict(raw)
+    flat = opt.ema_biased / (1.0 - opt.ema_decay_product)
+    for name, shape, stride, offset in layout:
+        ema[name] = torch.as_strided(flat, shape, stride, offset)
+    out = {}
+    for flags, weights in (((), raw), (("--restore_emas",), ema)):
+        results = os.path.join(log_dir, "predictions" + "".join(flags))
+        argv = [log_dir, problem, img_dir, "--height_feature_extractor", "256",
+                "--width_feature_extractor", "512", "--fused_block", "--export_lids_images",
+                "--results_dir", results, "--device", str(device), *flags]
+        n = predict_cli.main(argv)
+        for stem, hw in sizes.items():
+            with Image.open(os.path.join(results, f"{stem}_result_lids.png")) as im:
+                got = np.asarray(im)
+            if got.shape != hw or not set(np.unique(got).tolist()) <= lids:
+                raise AssertionError(f"predict from the run {flags}: {stem} {got.shape}")
+        # the same images through SemanticSegmentation.predict (the CLI's
+        # path) and through a model that holds the weights
+        args = build_argparser(PREDICT).parse_args(argv)
+        settings = resolve_trained_model(resolve_dataset_name(
+            settings_from_args(args, PREDICT, predict_keys=predict_cli.PREDICT_KEYS), None), argv)
+        system = SemanticSegmentation({"predict": lambda s, _pd: predict_input(s)},
+                                      model_fn=build_model, settings=settings)
+        got = list(system.predict())
+        model = build_model(system.settings)
+        model.load_state_dict(weights)
+        want = list(predict_cli.predict(system.settings, model))
+        diff = max(float(np.abs(g[k] - w[k]).max()) for g, w in zip(got, want)
+                   for k in ("l1_probabilities", "l2_vehicle_probabilities"))
+        same = min(float((g["decisions"] == w["decisions"]).mean()) for g, w in zip(got, want))
+        out["restore_emas" if flags else "weights"] = dict(
+            images=n, max_abs_prob_diff=diff, decisions_equal=same)
+        if n != len(sizes) or len(got) != len(sizes) or diff > 1e-6 or same < 0.9999:
+            raise AssertionError(f"predict from the run {flags}: {n} images, "
+                                 f"probabilities differ by {diff}, decisions equal {same}")
+    log("predict from the train run's checkpoint: " + json.dumps(out))
+    return out
 
 
 def main():

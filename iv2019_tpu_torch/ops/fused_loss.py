@@ -21,17 +21,24 @@ is autograd through it. Each wrapper counts its launches in
 
 On the H100 both kernels are bound by bytes by the count (the weak labels,
 377 MB at the flagship step, are read once) and by instruction issue in
-practice (several hundred instructions per output pixel). B2 is one kernel:
-a block owns a chunk of stride-8 columns and a band of stride-8 rows of one
-image and walks down the output rows that touch the band; per row it blends
-the logit rows once, evaluates one pixel per thread (only what the pixel's
+practice (a few hundred instructions per output pixel). Both walk down the
+output rows of a block: the block stages the stride-8 logit rows its taps
+reach, blends them once per output row in shared memory, and takes each
+row's labels by one bulk copy a row ahead. B1's blocks partition the output
+pixels (a chunk of output columns by a band of output rows of one image);
+per pixel it does only what the pixel's outputs need and sums into its own
+slot, which a one-block pass adds in a fixed order. B2's block owns a chunk
+of stride-8 columns and a band of stride-8 rows and walks the output rows
+that touch them; it evaluates one pixel per thread (only what the pixel's
 gradient needs), contracts the gradients over the columns in shared memory
-and adds them into the two live stride-8 rows, which it stores when the walk
-has passed them. Every logit is summed by one thread in a fixed order: no
-atomics, no scratch in device memory, the same bits from run to run.
-``_bwd_plan`` computes the launch plan (chunk and band sizes, threads,
-shared-memory regions), which the kernel checks and the CPU tests hold to
-the tap tables.
+and adds them into the two live stride-8 rows, which it stores when the
+walk has passed them. No atomics, no scratch in device memory, the same
+bits from run to run. ``_fwd_plan`` and ``_bwd_plan`` compute the launch
+plans (chunk and band sizes, threads, shared-memory regions), which the
+kernels check and the CPU tests hold to the tap tables. Label tensors may
+start anywhere on 4 bytes: the kernels get each one's address rounded down
+to 16 bytes and the skew in words (``_label_pointers``), so a sliced view
+costs no copy.
 
 ``make_fused_hierarchical_loss`` returns the ``torch.autograd.Function``
 whose forward is B1 and whose backward is B2; ``define_losses_fused`` is the
@@ -65,18 +72,21 @@ __all__ = [
 ]
 
 # constants of csrc/fused_loss.cu
-_FWD_PIXELS_PER_BLOCK = 1024
 _WEAK_CLASSES = 15
+_LABEL_RING = 2
+_FWD_MAX_THREADS = 128
+_FWD_MAX_WARPS = _FWD_MAX_THREADS // 32
+_FWD_X_CHUNK = 128  # output columns per chunk, before the plan shrinks it
+_FWD_Y_BAND = 64    # output rows per band
 _BWD_MAX_THREADS = 320
-_BWD_LABEL_RING = 2
 _BWD_J_CHUNK = 16  # stride-8 columns per chunk, before the plan shrinks it
 _BWD_I_BAND = 8    # stride-8 rows per band
 _MAX_SMEM = 227 * 1024
 _ERRORS = {
     -1: "no kernel is compiled for these head widths (Cityscapes 14/7/3, Vistas 53/12/5)",
-    -2: "the backward's launch plan is over the device's shared memory",
+    -2: "the launch plan is over the device's shared memory",
     -3: "the partial-sum buffer is too small",
-    -4: "the backward's launch plan disagrees with the kernel's layout",
+    -4: "the launch plan or a label skew disagrees with the kernel's layout",
 }
 
 
@@ -187,6 +197,97 @@ def _pad4(v: int) -> int:
     return -(-v // 4) * 4
 
 
+def _label_buffer_words(px: int) -> int:
+    """Words of one label-row buffer for rows of ``px`` pixels
+    (``label_buffer_words``): a weak row, or the three per-pixel heads'
+    segments, each with up to 3 words of skew."""
+    return max(_pad4(px * _WEAK_CLASSES + 3), 3 * _pad4(px + 3))
+
+
+def _label_pointers(*tensors):
+    """(addresses rounded down to 16 bytes, skews in words) of the label
+    tensors: the kernels copy label rows in 16-byte pieces from the rounded
+    address, and element e of a tensor is word e + skew there."""
+    ptrs, skews = [], []
+    for t in tensors:
+        ptr = t.data_ptr()
+        if ptr % 4:
+            raise ValueError(f"label tensor at {ptr:#x} does not start on 4 bytes")
+        skew = ptr % 16 // 4 if t.numel() else 0
+        ptrs.append(ptr - 4 * skew)
+        skews.append(skew)
+    return ptrs, skews
+
+
+@dataclasses.dataclass(frozen=True)
+class _FwdPlan:
+    """The launch plan of B1 (``FwdPlan`` of csrc/fused_loss.cu, in its field
+    order up to ``smem_bytes``), and what the tests read of it."""
+
+    xc: int           # output columns per chunk
+    yb: int           # output rows per band
+    threads: int      # >= xc: one thread per output column of a chunk
+    cols_max: int     # most stride-8 columns a chunk stages
+    rows_max: int     # most stride-8 rows a band stages
+    label_words: int  # 4-byte words of one label-row buffer
+    smem_bytes: int
+    chunks: tuple     # (x0, x1, jlo, jhi): output columns, stride-8 columns staged
+    bands: tuple      # (y0, y1, ilo, ihi): output rows, stride-8 rows staged
+    scratch_bytes: int = 0  # device memory besides the outputs and partial sums: none
+
+    def as_ints(self):
+        return [self.xc, self.yb, self.threads, self.cols_max, self.rows_max, self.label_words,
+                self.smem_bytes]
+
+    def slots(self, n: int) -> int:
+        """Partial-sum slots (blocks) of a launch over ``n`` images."""
+        return n * len(self.chunks) * len(self.bands)
+
+    def smem_words(self, heads):
+        """Word offsets of the shared-memory regions, as ``fwd_smem_words``."""
+        cp = sum(_pad4(c) for c in heads)
+        sizes = [("lr", self.rows_max * self.cols_max * cp), ("rb", 2 * self.cols_max * cp),
+                 ("red", 6 * _FWD_MAX_WARPS), ("bars", 2 * _LABEL_RING)]
+        out, at = {}, 0
+        for name, words in sizes:
+            out[name], at = at, at + _pad4(words)
+        out["labels"], at = at, at + _LABEL_RING * self.label_words
+        out["total"] = at
+        return out
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_plan(h: int, w: int, out_h: int, out_w: int, heads: tuple,
+              xc: int = _FWD_X_CHUNK, yb: int = _FWD_Y_BAND) -> _FwdPlan:
+    """How B1 cuts (h, w) -> (out_h, out_w) into blocks: chunks of ``xc``
+    output columns by bands of ``yb`` output rows per image, which partition
+    the output pixels. Each block stages the stride-8 rows and columns its
+    pixels' taps reach. ``yb``, then ``xc``, halves until the staged logits
+    fit the shared memory."""
+    rlo, rhi, *_ = _taps(h, out_h)
+    clo, chi, *_ = _taps(w, out_w)
+    xc, yb = max(1, min(xc, out_w, _FWD_MAX_THREADS)), max(1, min(yb, out_h))
+    while True:
+        chunks = tuple((x0, min(x0 + xc, out_w), int(clo[x0]), int(chi[min(x0 + xc, out_w) - 1]))
+                       for x0 in range(0, out_w, xc))
+        bands = tuple((y0, min(y0 + yb, out_h), int(rlo[y0]), int(rhi[min(y0 + yb, out_h) - 1]))
+                      for y0 in range(0, out_h, yb))
+        plan = _FwdPlan(
+            xc=xc, yb=yb, threads=32 * -(-xc // 32),
+            cols_max=max(j1 - j0 + 1 for _, _, j0, j1 in chunks),
+            rows_max=max(i1 - i0 + 1 for _, _, i0, i1 in bands),
+            label_words=_label_buffer_words(xc), smem_bytes=0, chunks=chunks, bands=bands)
+        plan = dataclasses.replace(plan, smem_bytes=4 * plan.smem_words(heads)["total"])
+        if plan.smem_bytes <= _MAX_SMEM:
+            return plan
+        if yb > 1:
+            yb = -(-yb // 2)
+        elif xc > 1:
+            xc = -(-xc // 2)
+        else:
+            raise ValueError(f"fused_loss_fwd: no launch plan for {(h, w)} -> {(out_h, out_w)}")
+
+
 @dataclasses.dataclass(frozen=True)
 class _BwdPlan:
     """The launch plan of B2 (``WalkPlan`` of csrc/fused_loss.cu, in its
@@ -215,11 +316,11 @@ class _BwdPlan:
         cp, s = sum(_pad4(c) for c in heads), _bwd_stride(sum(heads))
         sizes = [("lr", self.rows_max * self.cols_max * cp), ("rb", self.cols_max * cp),
                  ("d", self.px_max * s), ("coef", self.jc * self.taps_max),
-                 ("cstart", self.jc), ("ccnt", self.jc), ("bars", 2 * _BWD_LABEL_RING)]
+                 ("cstart", self.jc), ("ccnt", self.jc), ("bars", 2 * _LABEL_RING)]
         out, at = {}, 0
         for name, words in sizes:
             out[name], at = at, at + _pad4(words)
-        out["labels"], at = at, at + _BWD_LABEL_RING * self.label_words
+        out["labels"], at = at, at + _LABEL_RING * self.label_words
         out["total"] = at
         return out
 
@@ -268,7 +369,7 @@ def _bwd_plan(h: int, w: int, out_h: int, out_w: int, heads: tuple,
             cols_max=max(int(chi[x1 - 1] - clo[x0]) + 1 for _, _, x0, x1 in chunks),
             rows_max=max(int(rhi[y1 - 1] - rlo[y0]) + 1 for _, _, y0, y1 in bands),
             taps_max=int((cend - cfirst).max()),
-            label_words=max(_pad4(px_max * _WEAK_CLASSES + 3), 3 * _pad4(px_max + 3)),
+            label_words=_label_buffer_words(px_max),
             smem_bytes=0, chunks=chunks, bands=bands)
         plan = dataclasses.replace(plan, smem_bytes=4 * plan.smem_words(heads)["total"])
         if plan.smem_bytes > _MAX_SMEM and ib > 1:
@@ -313,15 +414,27 @@ def _check_inputs(symbol, l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, ta
     return n, n_pp, h, w, H, W
 
 
+def _ints(values):
+    return (ctypes.c_int * len(values))(*values)
+
+
 def _common_args(l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, itab, ftab, tax):
-    return [l1_lr.data_ptr(), veh_lr.data_ptr(), hum_lr.data_ptr(), pp_l1.data_ptr(),
-            pp_veh.data_ptr(), pp_hum.data_ptr(), weak.data_ptr(), itab.data_ptr(),
-            ftab.data_ptr(), ctypes.cast(_host_tables(tax), ctypes.c_void_p)]
+    """The entry points' leading arguments: logits, labels (rounded
+    addresses), tables, host tables and the labels' skews. The ctypes arrays
+    live as long as the returned list."""
+    label_ptrs, skews = _label_pointers(pp_l1, pp_veh, pp_hum, weak)
+    return [l1_lr.data_ptr(), veh_lr.data_ptr(), hum_lr.data_ptr(), *label_ptrs,
+            itab.data_ptr(), ftab.data_ptr(), ctypes.cast(_host_tables(tax), ctypes.c_void_p),
+            _ints(skews)]
 
 
 def _head_args(tax: Taxonomy):
     return [tax.num_l1_classes, tax.num_vehicle_classes, tax.num_human_classes,
             tax.cid_l1_vehicle, tax.cid_l1_human]
+
+
+def _heads(tax: Taxonomy):
+    return (tax.num_l1_classes, tax.num_vehicle_classes, tax.num_human_classes)
 
 
 def fused_loss_fwd(l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, *, tax: Taxonomy,
@@ -340,19 +453,19 @@ def fused_loss_fwd(l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, *, tax: T
     n, n_pp, h, w, H, W = _check_inputs("fused_loss_fwd", l1_lr, veh_lr, hum_lr, pp_l1,
                                         pp_veh, pp_hum, weak, tax, out_hw)
     itab, ftab = _device_tables(h, w, H, W, l1_lr.device)
-    blocks = -(-H * W // _FWD_PIXELS_PER_BLOCK)
-    partials = torch.empty(n * blocks * 6, dtype=torch.float32, device=l1_lr.device)
+    plan = _fwd_plan(h, w, H, W, _heads(tax), _FWD_X_CHUNK, _FWD_Y_BAND)
+    partials = torch.empty(plan.slots(n) * 6, dtype=torch.float32, device=l1_lr.device)
     sums = torch.empty(6, dtype=torch.float32, device=l1_lr.device)
     dec = torch.empty((n, H, W), dtype=torch.int32, device=l1_lr.device)
     l1dec = torch.empty_like(dec)
     fn = _build.load("fused_loss").iv_fused_loss_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
                    + [ctypes.c_int] * 11 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    err = fn(*_common_args(l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, itab, ftab, tax),
-             partials.data_ptr(), partials.numel(), sums.data_ptr(), dec.data_ptr(),
-             l1dec.data_ptr(), n, n_pp, h, w, H, W, *_head_args(tax),
-             torch.cuda.current_stream(l1_lr.device).cuda_stream)
+    args = _common_args(l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, itab, ftab, tax)
+    err = fn(*args, _ints(plan.as_ints()), partials.data_ptr(), partials.numel(),
+             sums.data_ptr(), dec.data_ptr(), l1dec.data_ptr(), n, n_pp, h, w, H, W,
+             *_head_args(tax), torch.cuda.current_stream(l1_lr.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_loss_fwd (n,h,w,H,W)={(n, h, w, H, W)}: "
                            f"{_ERRORS.get(err, f'CUDA error {err}')}")
@@ -374,21 +487,15 @@ def fused_loss_bwd(g3, l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, *,
     if g3.device != l1_lr.device or g3.dtype != torch.float32 or tuple(g3.shape) != (3,) \
             or not g3.is_contiguous():
         raise ValueError(f"fused_loss_bwd: g3 must be contiguous float32 (3,) on {l1_lr.device}")
-    for name, t in (("pp_l1", pp_l1), ("pp_veh", pp_veh), ("pp_hum", pp_hum), ("weak", weak)):
-        if t.numel() and t.data_ptr() % 16:
-            raise ValueError(f"fused_loss_bwd: {name} must start on a 16-byte boundary "
-                             "(its rows are copied 16 bytes at a time)")
     itab, ftab = _device_tables(h, w, H, W, l1_lr.device)
-    heads = (tax.num_l1_classes, tax.num_vehicle_classes, tax.num_human_classes)
-    plan = _bwd_plan(h, w, H, W, heads, _BWD_J_CHUNK, _BWD_I_BAND)
+    plan = _bwd_plan(h, w, H, W, _heads(tax), _BWD_J_CHUNK, _BWD_I_BAND)
     grads = [torch.empty_like(t) for t in (l1_lr, veh_lr, hum_lr)]
     fn = _build.load("fused_loss").iv_fused_loss_bwd
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    plan_ints = (ctypes.c_int * 9)(*plan.as_ints())
-    err = fn(*_common_args(l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, itab, ftab, tax),
-             g3.data_ptr(), ctypes.cast(plan_ints, ctypes.c_void_p),
-             *(g.data_ptr() for g in grads), n, n_pp, h, w, H, W, *_head_args(tax),
+    args = _common_args(l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, itab, ftab, tax)
+    err = fn(*args, g3.data_ptr(), _ints(plan.as_ints()), *(g.data_ptr() for g in grads),
+             n, n_pp, h, w, H, W, *_head_args(tax),
              torch.cuda.current_stream(l1_lr.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_loss_bwd (n,h,w,H,W)={(n, h, w, H, W)}: "

@@ -2,13 +2,17 @@
 
 Usage:
   python -m iv2019_tpu_torch.predict_cli LOG_DIR PROBLEM_DEF PREDICT_DIR \\
-      --ckpt_path model.npz [--fused_block] [--device cpu] [export flags]
+      [--ckpt_path STEP|PATH/STEP|model.npz] [--restore_emas] [--fused_block]
+      [--device cpu] [export flags]
 
 Port of iv2019_tpu/predict_cli.py with the predict loop of
-iv2019_tpu/system.py:231-288. Weights come from a converted trained
-checkpoint (``--ckpt_path model.npz``, reference variable names, EMA
-shadows with ``--restore_emas``). Exports, per image, into
-``results_dir`` (default LOG_DIR/predictions):
+iv2019_tpu/system.py:231-288, through ``SemanticSegmentation.predict``.
+Weights come from the port's training run in LOG_DIR (the latest checkpoint
+under LOG_DIR/checkpoints, or the step ``--ckpt_path`` names) or from a
+converted trained checkpoint (``--ckpt_path model.npz``, reference variable
+names); ``--restore_emas`` takes the zero-debiased EMA shadows
+(system.py::restore_variables). Exports, per image, into ``results_dir``
+(default LOG_DIR/predictions):
 
 - ``--export_lids_images``: label-id PNGs via cids2lids
 - ``--export_color_decisions``: palette-colorized decisions
@@ -39,13 +43,8 @@ from iv2019_tpu_torch.config import (
 from iv2019_tpu_torch.input.predict_input import predict_input
 from iv2019_tpu_torch.models.model import build_model
 from iv2019_tpu_torch.ops.resize import resize_bilinear, resize_nearest
-from iv2019_tpu_torch.problem.problem_def import load_problem_def
+from iv2019_tpu_torch.system import SemanticSegmentation, restore_variables
 from iv2019_tpu_torch.train.step import PROB_KEYS, make_predict_step
-from iv2019_tpu_torch.utils.convert import (
-    flax_variables,
-    load_flax_variables,
-    restore_trained_from_npz,
-)
 
 PREDICT_KEYS = (
     "decisions",
@@ -77,25 +76,20 @@ def _export(item, out_dir, palette, cids2lids, settings, default_color) -> None:
             os.path.join(out_dir, f"{stem}_result_overlapped_color.png"))
 
 
-def restore_model(model, settings) -> int:
-    """Load the model's weights from ``settings.ckpt_path`` (an .npz)."""
-    npz = settings.ckpt_path
-    if not (npz and str(npz).endswith(".npz")):
-        raise SystemExit(
-            "the PyTorch port restores weights from --ckpt_path model.npz (a converted "
-            "trained checkpoint); restoring a training log dir is not ported yet")
-    params, batch_stats, n = restore_trained_from_npz(
-        flax_variables(model), npz, restore_emas=settings.restore_emas)
-    load_flax_variables(model, params, batch_stats)
-    print(f"restored {n} variables from converted checkpoint {npz}")
-    return n
+def restore_model(model, settings) -> None:
+    """Load the trained weights ``settings`` names into ``model``
+    (``system.restore_variables``: a checkpoint of the training run in
+    ``log_dir`` or a converted ``.npz``); raises FileNotFoundError, with
+    what to give instead, where there is none."""
+    print(f"restored {restore_variables(model, settings)}")
 
 
-def predict(settings, model) -> Iterator[dict]:
-    """Yields one numpy predictions dict per image (system.py:231-288)."""
+def predict(settings, model, features: Iterator[dict] = None) -> Iterator[dict]:
+    """Yields one numpy predictions dict per image of ``features`` (default
+    ``predict_input(settings)``), as system.py:231-288."""
     predict_fn = make_predict_step(settings, model=model)
     arbitrary = not (settings.height_system and settings.width_system)
-    for features in predict_input(settings):
+    for features in (predict_input(settings) if features is None else features):
         out = {k: v.cpu().numpy() for k, v in predict_fn(features["proimages"]).items()}
         item = {k: v[0] for k, v in out.items()}
         item["rawimages"] = features["rawimages"]
@@ -114,13 +108,12 @@ def main(argv):
     settings = resolve_dataset_name(settings, args.per_pixel_dataset_name)
     settings = resolve_trained_model(settings, argv)
 
-    pd = load_problem_def(settings.inference_problem_def_path
-                          or settings.training_problem_def_path)
+    # the weights are restored over the uninitialized model
+    system = SemanticSegmentation({"predict": lambda s, _pd: predict_input(s)},
+                                  model_fn=build_model, settings=settings)
+    pd = system.inference_problem_def
     palette = pd.palette()
     cids2lids = np.asarray(pd.cids2lids, np.int64)
-
-    model = build_model(settings)
-    restore_model(model, settings)
 
     results_dir = settings.results_dir or os.path.join(settings.log_dir, "predictions")
     os.makedirs(results_dir, exist_ok=True)
@@ -132,7 +125,7 @@ def main(argv):
     n = 0
     total = 0.0
     t0 = time.time()
-    for item in predict(settings, model):
+    for item in system.predict():
         dt = time.time() - t0
         total += dt
         sys.stdout.write(f"Time per image (input pipeline + network): {dt:.3f}s\r")

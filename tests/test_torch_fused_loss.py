@@ -359,3 +359,313 @@ def test_emulated_walk_matches_plain_bwd(case):
     got = _emulate_walk(g3, *args, tax, out_hw, jc, ib)
     for g, w_ in zip(got, want):
         assert float((g - w_).abs().max()) <= 1e-5 * float(w_.abs().max())
+
+
+# ---------------------------------------------------------------- B1's launch plan
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_fwd_plan_owns_every_pixel_once(shape):
+    """The chunks and bands partition the output pixels (no halo: each is
+    evaluated once), each block stages every stride-8 row and column its
+    pixels' taps reach, and there is one partial-sum slot per block."""
+    h, w, H, W, heads, _, _ = shape
+    plan = tfl._fwd_plan(h, w, H, W, heads)
+    owned = np.zeros((H, W), int)
+    for y0, y1, _, _ in plan.bands:
+        for x0, x1, _, _ in plan.chunks:
+            owned[y0:y1, x0:x1] += 1
+    assert (owned == 1).all()
+    for size, out_size, blocks in ((h, H, plan.bands), (w, W, plan.chunks)):
+        lo, hi, *_ = tfl._taps(size, out_size)
+        assert blocks[0][0] == 0 and blocks[-1][1] == out_size
+        for (o0, o1, s0, s1), nxt in zip(blocks, blocks[1:] + ((out_size,),)):
+            assert o0 < o1 == nxt[0]
+            assert (s0, s1) == (lo[o0], hi[o1 - 1])
+            assert s0 <= lo[o0:o1].min() and hi[o0:o1].max() <= s1 < size
+    assert plan.slots(16) == 16 * len(plan.chunks) * len(plan.bands)
+    assert plan.scratch_bytes == 0
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_fwd_plan_fits_the_block(shape):
+    """One thread per output column of a chunk, the staged tile holds the
+    taps' rows and columns, the block sums of every warp fit their region,
+    the label rows copy in whole 16-byte pieces inside their buffers at every
+    skew, and the shared memory is within the card's."""
+    h, w, H, W, heads, _, _ = shape
+    plan = tfl._fwd_plan(h, w, H, W, heads)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= tfl._FWD_MAX_THREADS
+    assert plan.xc <= plan.threads
+    for x0, x1, j0, j1 in plan.chunks:
+        assert x1 - x0 <= plan.xc and j1 - j0 + 1 <= plan.cols_max
+    for y0, y1, i0, i1 in plan.bands:
+        assert y1 - y0 <= plan.yb and i1 - i0 + 1 <= plan.rows_max
+    words = plan.smem_words(heads)
+    assert plan.smem_bytes == 4 * words["total"] <= MAX_SMEM
+    assert all(v % 4 == 0 for v in words.values())  # every region starts on 16 bytes
+    assert words["rb"] - words["lr"] >= plan.rows_max * plan.cols_max * sum(
+        tfl._pad4(c) for c in heads)
+    assert words["bars"] - words["red"] >= 6 * plan.threads // 32
+    sub = tfl._pad4(plan.xc + 3)
+    assert plan.label_words == tfl._label_buffer_words(plan.xc) >= 3 * sub
+    for per_px, room in ((15, plan.label_words), (1, sub)):
+        for skew in range(4):
+            for x0, x1, _, _ in plan.chunks:
+                e0 = (2 * H * W + (H - 1) * W + x0) * per_px + skew
+                e1 = e0 + (x1 - x0) * per_px
+                assert 4 * ((e1 - (e0 & ~3) + 3) // 4) <= room
+
+
+def test_fwd_plan_shrinks_to_fit():
+    """Vistas bands too tall for the shared memory halve, down to bands of
+    two rows at out == in (a stride-8 column per output column, and the
+    next one as the second tap)."""
+    big = tfl._fwd_plan(64, 128, 512, 1024, VISTAS, 128, 512)
+    assert big.yb < 512 and big.smem_bytes <= MAX_SMEM
+    same = tfl._fwd_plan(30, 200, 30, 200, VISTAS)
+    assert same.smem_bytes <= MAX_SMEM and same.cols_max == same.xc + 1 and same.yb == 2
+    assert tfl._fwd_plan(64, 128, 512, 1024, CITY).as_ints()[:3] == [128, 64, 128]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_label_pointers_round_down_to_16_bytes(offset):
+    """Views that start 1-3 elements off 16 bytes are taken as they are: the
+    kernels get the address rounded down and the skew in words."""
+    buf = torch.zeros(64, dtype=torch.int32)
+    base = buf[(-buf.data_ptr() // 4) % 4:]  # a view that starts on 16 bytes
+    views = [base[offset:offset + 8], base[offset:offset + 8].float(), torch.zeros(0)]
+    ptrs, skews = tfl._label_pointers(*views)
+    for t, ptr, skew in zip(views, ptrs, skews):
+        assert ptr % 16 == 0 and 0 <= skew <= 3
+        assert ptr + 4 * skew == t.data_ptr() or t.numel() == 0
+    assert skews[0] == offset and skews[2] == 0
+    odd = torch.frombuffer(bytearray(64), dtype=torch.int32, offset=1, count=4)
+    with pytest.raises(ValueError):
+        tfl._label_pointers(odd)
+
+
+# ---------------------------------------------------------------- B1's walk, emulated
+
+
+def _stage(flat, skew, e0, count, room):
+    """One label row as ``stage_labels`` copies it: from element e0 of
+    ``flat`` (a tensor whose memory starts ``skew`` words past 16 bytes),
+    whole 4-word pieces from the rounded-down word, the last words by plain
+    loads at the tensor's end. Returns (buffer, word of element e0 in it)."""
+    a, total = (e0 + skew) & ~3, flat.numel() + skew
+    e1 = e0 + skew + count
+    pieces = min((e1 - a + 3) // 4, (total - a) // 4)
+    assert 4 * pieces <= room and e1 - a <= room
+    memory = torch.cat([torch.zeros(skew, dtype=flat.dtype), flat])  # from the rounded address
+    buf = torch.full((room,), -12345, dtype=flat.dtype)
+    buf[:4 * pieces] = memory[a:a + 4 * pieces]
+    buf[4 * pieces:e1 - a] = memory[a + 4 * pieces:e1]  # the tail, at most 3 words
+    return buf, e0 + skew - a
+
+
+def _emulate_fwd_walk(l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, tax, out_hw,
+                      xc=128, yb=64, skews=(0, 0, 0, 0), skips=True):
+    """B1's walk in plain PyTorch, block by block: the staged logit tile and
+    its non-finite flags, the label rows as the bulk copies leave them, the
+    row blend, the column blend, per pixel only the heads its outputs need
+    (``skips``; else every head, weighted by 0 where unused), each thread's
+    sums over its rows, the block's fixed-order reduction into its slot.
+    Returns (sums (6,), decisions, l1_decisions). The arithmetic is torch's
+    (f32, each blend a separate multiply and add)."""
+    n, h, w, _ = l1_lr.shape
+    H, W = out_hw
+    heads = (tax.num_l1_classes, tax.num_vehicle_classes, tax.num_human_classes)
+    plan = tfl._fwd_plan(h, w, H, W, heads, xc, yb)
+    rlo, rhi, rw0, rw1, _, _ = tfl._taps(h, H)
+    clo, chi, cw0, cw1, _, _ = tfl._taps(w, W)
+    n_pp = pp_l1.shape[0]
+    masks = [torch.tensor(np.asarray(t)[:, None] == np.arange(c)[None], dtype=torch.float32)
+             for t, c in ((tax.per_bbox_cids2vehicle_cids, heads[1]),
+                          (tax.per_bbox_cids2human_cids, heads[2]))]
+    commons = [torch.as_tensor(np.asarray(t, np.int64)) for t in (
+        tax.l1_cids2common_cids, tax.l2_vehicle_cids2common_cids, tax.l2_human_cids2common_cids)]
+    cids = (tax.cid_l1_vehicle, tax.cid_l1_human)
+    sub = tfl._pad4(plan.xc + 3)
+    dec = torch.full((n, H, W), -1, dtype=torch.int32)
+    l1dec = torch.full_like(dec, -1)
+    slots = []
+
+    def sparse_ce(u, lab):
+        m = u.max(-1).values
+        pick = u.gather(-1, lab.long().clamp(0, u.shape[-1] - 1)[:, None])[:, 0]
+        return (m - pick) + torch.log(torch.exp(u - m[:, None]).sum(-1))
+
+    def dense_ce(u, lab):
+        m = u.max(-1).values
+        lse = m + torch.log(torch.exp(u - m[:, None]).sum(-1))
+        return (lab * (lse[:, None] - u)).sum(-1)
+
+    for img in range(n):
+        for y0, y1, ilo, ihi in plan.bands:
+            for x0, x1, jlo, jhi in plan.chunks:
+                px = x1 - x0
+                tiles = [t[img, ilo:ihi + 1, jlo:jhi + 1] for t in (l1_lr, veh_lr, hum_lr)]
+                assert tiles[0].shape[0] <= plan.rows_max and tiles[0].shape[1] <= plan.cols_max
+                bad = [not bool(torch.isfinite(t).all()) for t in tiles]
+                xs = np.arange(x0, x1)
+                wx0, wx1 = torch.tensor(cw0[xs])[:, None], torch.tensor(cw1[xs])[:, None]
+                acc = torch.zeros(6, plan.threads)
+                for y in range(y0, y1):
+                    u1, uv, uh = (
+                        wx0 * rb[clo[xs] - jlo] + wx1 * rb[chi[xs] - jlo]
+                        for rb in (float(rw0[y]) * t[rlo[y] - ilo] + float(rw1[y]) * t[rhi[y] - ilo]
+                                   for t in tiles))
+                    d1 = u1.argmax(-1)
+                    dv, dh = uv.argmax(-1), uh.argmax(-1)
+                    terms = torch.zeros(6, px)
+                    if img < n_pp:
+                        labs = []
+                        for k, t in enumerate((pp_l1, pp_veh, pp_hum)):
+                            buf, at = _stage(t.reshape(-1), skews[k], (img * H + y) * W + x0,
+                                             px, sub)
+                            labs.append(buf[at:at + px])
+                        for k, (u, lab) in enumerate(zip((u1, uv, uh), labs)):
+                            used = lab != heads[k] - 1
+                            if skips:
+                                ce = torch.zeros(px)
+                                ce[used] = sparse_ce(u[used], lab[used])
+                            else:
+                                ce = sparse_ce(u, lab) * used.float()
+                            terms[2 * k], terms[2 * k + 1] = ce, used.float()
+                    else:
+                        buf, at = _stage(weak.reshape(-1), skews[3],
+                                         ((img - n_pp) * H + y) * W * 15 + x0 * 15, px * 15,
+                                         plan.label_words)
+                        wk = buf[at:at + 15 * px].reshape(px, 15)
+                        for k, (u, mask, cid) in enumerate(zip((uv, uh), masks, cids), 1):
+                            lab = torch.zeros(px, mask.shape[1])
+                            for j in range(15):  # the weak classes in order
+                                lab = lab + wk[:, j:j + 1] * mask[j]
+                            gate = ((1.0 - lab[:, -1]) > 0.01) & (lab[:, :-1].amax(-1) >= 0.01)
+                            gate &= d1 == cid
+                            if skips:
+                                ce = torch.zeros(px)
+                                ce[gate] = dense_ce(u[gate], lab[gate])
+                            else:
+                                ce = dense_ce(u, lab) * gate.float()
+                            terms[2 * k], terms[2 * k + 1] = ce, gate.float()
+                    acc[:, :px] = acc[:, :px] + terms
+                    fused = torch.where(d1 == cids[0], commons[1][dv],
+                                        torch.where(d1 == cids[1], commons[2][dh], commons[0][d1]))
+                    assert (dec[img, y, x0:x1] == -1).all()  # each pixel once
+                    dec[img, y, x0:x1], l1dec[img, y, x0:x1] = fused.int(), d1.int()
+                # lanes by a shuffle tree, then warps in order
+                v = acc.reshape(6, -1, 32)
+                for off in (16, 8, 4, 2, 1):
+                    v = v + v[:, :, np.arange(32) ^ off]
+                block = v[:, 0, 0]
+                for k in range(1, v.shape[1]):
+                    block = block + v[:, k, 0]
+                for k, flag in ((0, bad[0] and img < n_pp), (2, bad[1]), (4, bad[2])):
+                    if flag:
+                        block[k] = float("nan")
+                slots.append(block)
+    sums = torch.stack(slots).double().sum(0).float()
+    assert (dec >= 0).all()
+    return sums, dec, l1dec
+
+
+def _case_args(dataset, n_pp, n_pb, n_pi, h, w, scale, seed=0):
+    """numpy inputs of one case as torch tensors; ragged shapes (scale None)
+    get random labels and Dirichlet/one-hot weak labels."""
+    if scale is None:
+        out_hw = {(11, 37): (50, 150), (11, 13): (41, 37)}[(h, w)]
+        jtax, lr, _, heads, weak, _ = _inputs(dataset, 2, n_pp, n_pb, n_pi, h, w, 4)
+        rng = np.random.RandomState(5)
+        heads = [rng.randint(0, c, (n_pp, *out_hw)).astype(np.int32) for c in (
+            jtax.num_l1_classes, jtax.num_vehicle_classes, jtax.num_human_classes)]
+        raw = rng.dirichlet(np.full(15, 0.3), (weak.shape[0], *out_hw)).astype(np.float32)
+        weak = np.where(rng.rand(*raw.shape[:3], 1) < 0.5, raw, np.eye(15, dtype=np.float32)[
+            rng.randint(0, 15, raw.shape[:3])]).astype(np.float32)
+    else:
+        jtax, lr, _, heads, weak, out_hw = _inputs(dataset, seed, n_pp, n_pb, n_pi, h, w, scale)
+    args = [torch.from_numpy(lr[k]) for k in LOGIT_KEYS] + [torch.from_numpy(x) for x in heads]
+    args.append(torch.from_numpy(weak))
+    return jtax, args, out_hw
+
+
+# CASES with one block per image, ragged shapes cut into several chunks and
+# bands (small chunks and bands: 3 x 5 and 5 x 3 blocks per image), label
+# skews of 1-3 words
+FWD_WALK_CASES = [(*case, 128, 64, (0, 0, 0, 0)) for case in CASES] + [
+    ("cityscapes", 1, 1, 1, 11, 37, None, 64, 12, (1, 2, 3, 1)),
+    ("cityscapes", 1, 2, 0, 11, 13, None, 15, 9, (3, 0, 1, 2)),
+]
+
+
+@pytest.mark.parametrize("case", FWD_WALK_CASES)
+def test_emulated_fwd_walk_matches_plain_and_pallas(case):
+    """The walk (chunks, bands, staged tiles, label rows at every skew, the
+    skips, the per-block slots) against the plain forward and the JAX Pallas
+    kernel in interpret mode: sums within 1e-5 relative (f32, another
+    summation order); decisions equal but for near-ties (>= 99.9%)."""
+    threads()
+    dataset, n_pp, n_pb, n_pi, h, w, scale, xc, yb, skews = case
+    jtax, args, out_hw = _case_args(dataset, n_pp, n_pb, n_pi, h, w, scale)
+    tax = get_taxonomy(dataset)
+    sums, dec, l1dec = _emulate_fwd_walk(*args, tax, out_hw, xc, yb, skews)
+    want_sums, want_dec, want_l1dec = tfl.fused_loss_fwd_plain(*args, tax=tax, out_hw=out_hw)
+    np.testing.assert_allclose(sums.numpy(), want_sums.numpy(), rtol=1e-5)
+    assert (dec == want_dec).float().mean() >= 0.999
+    assert (l1dec == want_l1dec).float().mean() >= 0.999
+    jfn = jfl.make_fused_hierarchical_loss(jtax, n_pp, args[6].shape[0], (h, w), out_hw,
+                                           interpret=True)
+    jout = jfn(*(jnp.asarray(a.numpy()) for a in args))
+    np.testing.assert_allclose(sums.numpy(), [float(jout[k]) for k in SUM_KEYS], rtol=1e-5)
+    assert (dec.numpy() == np.asarray(jout["decisions"])).mean() >= 0.999
+
+
+@pytest.mark.parametrize("case", FWD_WALK_CASES[:1] + FWD_WALK_CASES[3:])
+def test_emulated_fwd_decisions_equal_the_four_tap_blend(case):
+    """The walk's decisions are bit-equal to an argmax of the 4-tap blend
+    written as separate tensor multiplies and adds over the whole image
+    (chip_smoke.tap_decisions, which holds the kernel to the same on the
+    card): the row blend once per row changes no rounding."""
+    import chip_smoke
+
+    dataset, n_pp, n_pb, n_pi, h, w, scale, xc, yb, skews = case
+    _, args, out_hw = _case_args(dataset, n_pp, n_pb, n_pi, h, w, scale)
+    tax = get_taxonomy(dataset)
+    _, dec, l1dec = _emulate_fwd_walk(*args, tax, out_hw, xc, yb, skews)
+    want_dec, want_l1dec = chip_smoke.tap_decisions(tax, *args[:3], out_hw)
+    assert torch.equal(dec, want_dec) and torch.equal(l1dec, want_l1dec)
+
+
+@pytest.mark.parametrize("case", FWD_WALK_CASES[1:2] + FWD_WALK_CASES[3:])
+def test_emulated_fwd_skips_change_no_bit(case):
+    """Leaving out the terms of weight 0 (void labels, closed gates, the L2
+    head a weak pixel's decision does not name) gives the same bits as
+    adding them times 0, on finite logits."""
+    dataset, n_pp, n_pb, n_pi, h, w, scale, xc, yb, skews = case
+    _, args, out_hw = _case_args(dataset, n_pp, n_pb, n_pi, h, w, scale)
+    tax = get_taxonomy(dataset)
+    with_skips = _emulate_fwd_walk(*args, tax, out_hw, xc, yb, skews, skips=True)
+    without = _emulate_fwd_walk(*args, tax, out_hw, xc, yb, skews, skips=False)
+    assert all(torch.equal(a, b) for a, b in zip(with_skips, without))
+
+
+# (logit tensor, image, value): an inf in a per-pixel image's L1 logits, a
+# NaN in a weak image's vehicle logits, an inf in a weak image's L1 logits
+# (which no sum takes)
+NONFINITE = [(0, 0, float("inf")), (1, 3, float("nan")), (0, 2, float("-inf"))]
+
+
+@pytest.mark.parametrize("where", NONFINITE)
+def test_emulated_fwd_nonfinite_logits_show_where_plain_does(where):
+    """A non-finite logit makes exactly the sums non-finite that the plain
+    version's are: a diverged step is not hidden by the skips."""
+    k, img, value = where
+    _, args, out_hw = _case_args("cityscapes", 2, 1, 1, 4, 8, 8)
+    args[k] = args[k].clone()
+    args[k][img, 1, 2, 3] = value
+    tax = get_taxonomy("cityscapes")
+    sums, _, _ = _emulate_fwd_walk(*args, tax, out_hw, 16, 8)
+    want, _, _ = tfl.fused_loss_fwd_plain(*args, tax=tax, out_hw=out_hw)
+    assert torch.equal(torch.isfinite(sums), torch.isfinite(want))
+    assert not bool(torch.isfinite(want).all()) or k == 0 and img >= 2

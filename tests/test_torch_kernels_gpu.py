@@ -5,11 +5,12 @@ Imports no JAX, so it runs on the GPU machine, from the repo root:
 (tests/conftest.py imports JAX). Skips where there is no card: a CUDA
 kernel has no CPU mode. Tolerances as in chip_smoke.py (reasons there):
 fused units max |got - want| / max(1, |want|) < 2e-2; fused loss sums 1e-4
-relative, decisions >= 99.99% equal, gradients 1e-4 of the largest; update
-vectors 1e-6 of the largest, reg 1e-5 relative; root-conv wgrad within
-1e-4 of the largest |dW| (the same bf16 products, f32 sums in another
-order). The fused-loss backward and the root-conv wgrad must also give the
-same bits on two launches.
+relative, decisions >= 99.99% equal to the plain version's and 100% to
+the 4-tap blend done as separate tensor multiplies and adds, gradients
+1e-4 of the largest; update vectors 1e-6 of the largest, reg 1e-5
+relative; root-conv wgrad within 1e-4 of the largest |dW| (the same bf16
+products, f32 sums in another order). The fused-loss forward and backward
+and the root-conv wgrad must also give the same bits on two launches.
 """
 
 import numpy as np
@@ -131,21 +132,62 @@ def test_fused_loss_bwd_is_deterministic_on_card(dataset, n_pp, n_weak, in_hw, o
 
 
 @pytest.mark.gpu
-def test_fused_loss_bwd_refuses_unaligned_labels_on_card():
-    """The label rows are copied 16 bytes at a time: a label tensor that
-    starts off a 16-byte boundary is refused, not misread."""
+@pytest.mark.parametrize("dataset,n_pp,n_weak,in_hw,out_hw", [LOSS_SHAPES[0], LOSS_SHAPES[3],
+                                                             LOSS_SHAPES[8]])
+def test_fused_loss_fwd_is_deterministic_on_card(dataset, n_pp, n_weak, in_hw, out_hw):
+    """Two launches give the same sums and maps: each block sums into its
+    own slot in a fixed order and the slots are added in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import chip_smoke
+
+    tax = get_taxonomy(dataset)
+    args = chip_smoke.loss_inputs(np.random.RandomState(1), tax, n_pp, n_weak, in_hw, out_hw,
+                                  "cuda")
+    first = fl.fused_loss_fwd(*args, tax=tax, out_hw=out_hw)
+    second = fl.fused_loss_fwd(*args, tax=tax, out_hw=out_hw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("dataset,n_pp,n_weak,in_hw,out_hw", [LOSS_SHAPES[1], LOSS_SHAPES[8]])
+def test_fused_loss_takes_unaligned_labels_on_card(dataset, n_pp, n_weak, in_hw, out_hw, offset):
+    """Label views that start 1-3 elements off 16 bytes are read right by
+    both kernels (rows copied from the address rounded down, with a skew)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import chip_smoke
+
+    tax = get_taxonomy(dataset)
+    args = chip_smoke.loss_inputs(np.random.RandomState(1), tax, n_pp, n_weak, in_hw, out_hw,
+                                  "cuda")
+    shifted = chip_smoke.unaligned_labels(args, offset)
+    assert all(t.data_ptr() % 16 == 4 * offset for t in shifted[3:] if t.numel())
+    check = chip_smoke.compare_loss(tax, shifted, out_hw, torch.tensor([0.5, 0.07, 0.11],
+                                                                        device="cuda"))
+    assert chip_smoke.loss_ok(check), check
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,img,value", [(0, 0, float("inf")), (1, 3, float("nan")),
+                                         (0, 2, float("-inf"))])
+def test_fused_loss_fwd_nonfinite_logits_on_card(k, img, value):
+    """A non-finite logit makes exactly the sums non-finite that the plain
+    version's are (the skipped weight-0 terms do not hide it)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     import chip_smoke
 
     tax = get_taxonomy("cityscapes")
-    args = list(chip_smoke.loss_inputs(np.random.RandomState(1), tax, 1, 1, (4, 8), (32, 64),
+    args = list(chip_smoke.loss_inputs(np.random.RandomState(1), tax, 2, 2, (4, 8), (32, 64),
                                        "cuda"))
-    weak = args[6]
-    shifted = torch.empty(weak.numel() + 1, device="cuda")[1:].view_as(weak).copy_(weak)
-    args[6] = shifted
-    with pytest.raises(ValueError):
-        fl.fused_loss_bwd(torch.ones(3, device="cuda"), *args, tax=tax, out_hw=(32, 64))
+    args[k] = args[k].clone()
+    args[k][img, 1, 2, 3] = value
+    sums, _, _ = fl.fused_loss_fwd(*args, tax=tax, out_hw=(32, 64))
+    want, _, _ = fl.fused_loss_fwd_plain(*args, tax=tax, out_hw=(32, 64))
+    assert torch.equal(torch.isfinite(sums), torch.isfinite(want))
 
 
 @pytest.mark.gpu

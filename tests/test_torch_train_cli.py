@@ -136,6 +136,7 @@ def test_system_derives_what_the_jax_system_does(tmp_path):
     assert list(got.training_cids2evaluation_cids) == list(want.training_cids2evaluation_cids)
     assert got.eval_res_dir == want.eval_res_dir == os.path.join(str(tmp_path), "eval_04")
     assert got.settings.num_training_steps == want.settings.num_training_steps
-    for method in (got.predict, got.evaluate):
-        with pytest.raises(NotImplementedError, match="A10"):
-            method()
+    with pytest.raises(NotImplementedError, match="A10"):
+        got.evaluate()
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):  # the log dir holds no run
+        next(got.predict())

@@ -1,6 +1,7 @@
-"""Probe of the port's fused-loss backward (B2) and root-conv wgrad (B6) on one CUDA card.
+"""Probe of the port's fused-loss kernels (B1, B2) and root-conv wgrad (B6) on one CUDA card.
 
-    python3 tools/kernel_probe.py [--root TREE] [--quick] [--only b2|b6] [--jc N] [--ib N]
+    python3 tools/kernel_probe.py [--root TREE] [--quick] [--only b1|b2|b6] [--jc N] [--ib N]
+                                  [--xc N] [--yb N]
 
 Imports ``iv2019_tpu_torch`` and ``chip_smoke`` from TREE (default: the
 repository this file lies in), so two trees can be measured in turns on one
@@ -15,8 +16,10 @@ card, each in its own process. For each kernel it prints one JSON line:
   (``cuobjdump -sass`` on the built library), and what ``ptxas -v`` said.
 
 Before the flagship shape each kernel is checked at a few small and ragged
-ones. ``--quick`` stops after the checks (a first run of a new kernel);
-``--jc`` and ``--ib`` time B2 with another chunk or band size than its plan's.
+ones (B1 also with label tensors that start 1-3 elements off 16 bytes).
+``--quick`` stops after the checks (a first run of a new kernel); ``--jc``
+and ``--ib`` time B2, ``--xc`` and ``--yb`` B1, with another chunk or band
+size than its plan's.
 """
 
 from __future__ import annotations
@@ -48,7 +51,8 @@ def sass_counts(lib_path):
             counts[name] += 1
     try:
         names = subprocess.run([demangle, *counts], capture_output=True, text=True).stdout.split("\n")
-        short = [re.sub(r"\(anonymous namespace\)::|<unnamed>::|\(.*", "", n) for n in names]
+        short = [re.sub(r"\(anonymous namespace\)::|<unnamed>::|\((int|bool)\)|\(.*", "", n)
+                 for n in names]
         return dict(zip(short, counts.values()))
     except OSError:
         return dict(counts)
@@ -74,7 +78,9 @@ def main():
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--jc", type=int, help="B2: stride-8 columns per chunk, in place of the plan's")
     ap.add_argument("--ib", type=int, help="B2: stride-8 rows per band, in place of the plan's")
-    ap.add_argument("--only", choices=["b2", "b6"], help="one kernel (a fault in one launch "
+    ap.add_argument("--xc", type=int, help="B1: output columns per chunk, in place of the plan's")
+    ap.add_argument("--yb", type=int, help="B1: output rows per band, in place of the plan's")
+    ap.add_argument("--only", choices=["b1", "b2", "b6"], help="one kernel (a fault in one launch "
                     "ends the process, so a first run probes each in its own)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
@@ -98,7 +104,8 @@ def main():
     for stem, report in _build.build_all().items():
         if stem in ("fused_loss", "root_wgrad"):
             for line in report.splitlines():
-                if "registers" in line or "spill" in line or "warning" in line.lower():
+                if any(k in line for k in ("registers", "spill", "entry function")) \
+                        or "warning" in line.lower():
                     print(f"  {stem}: {line.strip()}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -107,11 +114,56 @@ def main():
         fl._BWD_J_CHUNK = args.jc
     if args.ib:
         fl._BWD_I_BAND = args.ib
-    if args.only != "b6":
+    if args.xc:
+        fl._FWD_X_CHUNK = args.xc
+    if args.yb:
+        fl._FWD_Y_BAND = args.yb
+    if args.only in (None, "b1"):
+        probe_b1(args, cs, fl, _build, get_taxonomy)
+    if args.only in (None, "b2"):
         probe_b2(args, cs, fl, _build, get_taxonomy)
-    if args.only != "b2":
+    if args.only in (None, "b6"):
         probe_b6(args, cs, rw, _build)
     return 0
+
+
+def probe_b1(args, cs, fl, _build, get_taxonomy):
+    import numpy as np
+    import torch
+
+    tax = get_taxonomy("cityscapes")
+    n_pp, n_weak = cs.TRAIN_NB[0], cs.TRAIN_NB[1] + cs.TRAIN_NB[2]
+    in_hw, out_hw = (cs.TRAIN_HW[0] // 8, cs.TRAIN_HW[1] // 8), cs.TRAIN_HW
+    largs = cs.loss_inputs(np.random.RandomState(3), tax, n_pp, n_weak, in_hw, out_hw, "cuda")
+    g3 = torch.tensor([1 / 1e6, 0.1 / 1e6, 0.1 / 1e6], device="cuda")
+
+    def fwd():
+        return fl.fused_loss_fwd(*largs, tax=tax, out_hw=out_hw)
+
+    small = [("cityscapes", 2, 2, (4, 8), (32, 64)), ("cityscapes", 0, 3, (5, 9), (37, 67)),
+             ("vistas", 1, 2, (9, 16), (36, 64)), ("cityscapes", 2, 1, (6, 7), (6, 7)),
+             ("vistas", 1, 1, (39, 54), (310, 427))]
+    for dataset, npp, nweak, ihw, ohw in small:
+        t = get_taxonomy(dataset)
+        sargs = cs.loss_inputs(np.random.RandomState(0), t, npp, nweak, ihw, ohw, "cuda")
+        variants = [("aligned", sargs)]
+        if hasattr(cs, "unaligned_labels"):
+            variants += [(f"labels {k} off", cs.unaligned_labels(sargs, k)) for k in (1, 2, 3)]
+        for label, vargs in variants:
+            c = cs.compare_loss(t, vargs, ohw, torch.tensor([0.5, 0.07, 0.11], device="cuda"))
+            print(json.dumps(dict(kernel="fused_loss_fwd", shape=[dataset, npp, nweak, ihw, ohw],
+                                  labels=label, ok=cs.loss_ok(c), sums_rel_err=c["sums_rel_err"],
+                                  tap_decisions_equal=c.get("tap_decisions_equal"))), flush=True)
+    check = cs.compare_loss(tax, largs, out_hw, g3)
+    first, second = fwd(), fwd()
+    torch.cuda.synchronize()
+    row = dict(kernel="fused_loss_fwd", check=check, ok=cs.loss_ok(check),
+               bit_equal=all(bool(torch.equal(a, b)) for a, b in zip(first, second)))
+    del first, second
+    if not args.quick:
+        row.update(ms=cs.time_ms(fwd), device_ms=cs.device_ms(fwd), kernels_ms=kernel_times(fwd))
+    row["sass"] = sass_counts(_build._library_path(_build.CSRC_DIR / "fused_loss.cu"))
+    print(json.dumps(row), flush=True)
 
 
 def probe_b2(args, cs, fl, _build, get_taxonomy):
