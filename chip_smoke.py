@@ -15,7 +15,11 @@ Phases, each of which fails the run on its own:
    multiplies and adds (equal on every pixel); the root-conv wgrad (B6) on
    its ragged edge and on its general kernel; for B1, B2 and B6 two
    launches on the same inputs must agree bit for bit, and ``device_ms``
-   (replays of a CUDA graph of one call) stands beside ``ms``.
+   (replays of a CUDA graph of one call) stands beside ``ms``. The fused
+   units (B4, B5) are also checked, and timed, at the feature maps
+   evaluation gives them (``EVAL_MAPS``: TTA scales 0.75 and 1.25, the
+   1024x2048 eval size, batch 2), on each trunk unit the dispatch rule
+   fuses there.
 3. predict: the port's predict path at full ResNet-50 width (Cityscapes
    taxonomy, 512x1024 input, 1024x2048 output, bf16, fused blocks) on
    seeded random weights; checks the kernel launch counts, compares with
@@ -39,7 +43,20 @@ Phases, each of which fails the run on its own:
    p50/p90, images/s, the host input's time per batch, idle share, peak
    memory. Then ``predict_cli`` on train_cli's checkpoint, with and without
    ``--restore_emas``: the exports, and the predictions against a model
-   holding the run's weights (or their unbiased EMA shadows).
+   holding the run's weights (or their unbiased EMA shadows); and with TTA
+   (scales 0.75/1.0/1.25 and the flip) and with 3 x 3 sliding windows over
+   512x1024: exports at each image's raw size, lids in cids2lids, B4/B5
+   launch counts exact.
+7. eval (inside the train run, on its checkpoints 3, 6 and 8 at full width,
+   ``--fused_block``): ``evaluate_cli --eval_all_ckpts`` at Nb 2, each
+   checkpoint's matrix against a fresh model holding its weights, eval_00's
+   files, B4/B5 launch counts exact (by the dispatch rule), peak memory of
+   three restores against one; then checkpoint 8 with TTA (6 forwards a
+   batch), with the flip alone against the by-hand mean of two forwards'
+   common-space probabilities, with 3 x 3 windows over 1024x2048 (uniform
+   and gaussian blend), and with one window the size of the image against
+   one forward's common-space argmax. Then, for plain, TTA and windowed
+   eval steps: ms per image, device busy and idle share, peak memory.
 
 The next-to-last line is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it
@@ -109,6 +126,12 @@ UNIT_SHAPES = {
     "fused_bottleneck": [("block2", 512, 128, 1, 3), ("block3", 1024, 256, 2, 5)],
     "fused_bottleneck_ct": [("block4", 2048, 512, 4, 2)],
 }
+# feature maps (images, h, w) that evaluation gives the fused units beyond
+# the flagship's: TTA scales 0.75 and 1.25 of 512x1024, the 1024x2048 eval
+# size, and batch 2 (--Nb 2) at 64x128
+EVAL_MAPS = [(1, 48, 96), (1, 80, 160), (1, 128, 256), (2, 64, 128)]
+# (unit, C, M, rate, identity units per forward) of the ResNet-50 trunk
+TRUNK_UNITS = [("block2", 512, 128, 1, 3), ("block3", 1024, 256, 2, 5), ("block4", 2048, 512, 4, 2)]
 REPLACES = {
     "fused_bottleneck": "iv2019_tpu/ops/pallas_block.py:120",
     "fused_bottleneck_ct": "iv2019_tpu/ops/pallas_block.py:354",
@@ -144,6 +167,19 @@ WGRAD_REL_TOL = 1e-4
 WGRAD_SHAPE = ((sum(TRAIN_NB), 3) + TRAIN_HW, 64, 7)
 # the train run: steps of the first run, of the resumed run, checkpoint cadence
 RUN_STEPS, RESUME_STEPS, RUN_SAVE_EVERY = 6, 8, 3
+# evaluation from the train run: examples and batch of the --eval_all_ckpts
+# sweep; TTA scales; the native size the windows tile (3 x 3 windows of
+# 512x1024 at overlap 0.5)
+EVAL_NEVAL, EVAL_NB = 16, 2
+TTA_SCALES = (0.75, 1.0, 1.25)
+WINDOW_EVAL_SIZE = (1024, 2048)
+# evaluate's matrices against an independent computation on the card (a
+# fresh model holding the checkpoint's weights, or the common-space argmax
+# done by hand): equal but for 0.01% of pixels, each moving two entries
+EVAL_CM_TOL = 1e-4
+# a second set of the fused optimizer's flat buffers (26.2M f32 x 4 = 0.42
+# GB) must not stay behind per restored checkpoint
+EVAL_PEAK_GROWTH_GIB = 0.2
 
 
 def log(*args):
@@ -341,6 +377,35 @@ def update_ok(check):
     return check["vec_rel_err"] <= UPDATE_REL_TOL and check["reg_rel_err"] <= UPDATE_REG_REL_TOL
 
 
+def fused_wrapper(n, h, w, c, m, rate):
+    """The wrapper the JAX dispatch rule picks for an identity unit, or None."""
+    from iv2019_tpu_torch.ops import fused_block as fb
+
+    if fb.fused_bottleneck_supported(n, h, w, c, m, rate):
+        return "fused_bottleneck"
+    if fb.pick_ct_config(n, h, w, c, m, rate) is not None:
+        return "fused_bottleneck_ct"
+    return None
+
+
+def launches_per_forward(n, h, w):
+    """B4 and B5 launches of one forward whose trunk feature map is
+    (n, h, w), by the dispatch rule: 8 and 2 at 64x128; at larger maps the
+    rule sends block3 units to B5 and leaves block4 units unfused."""
+    out = {"fused_bottleneck": 0, "fused_bottleneck_ct": 0}
+    for _, c, m, rate, count in TRUNK_UNITS:
+        name = fused_wrapper(n, h, w, c, m, rate)
+        if name is not None:
+            out[name] += count
+    return out
+
+
+def add_launches(total, n, h, w, forwards=1):
+    for k, v in launches_per_forward(n, h, w).items():
+        total[k] = total.get(k, 0) + v * forwards
+    return total
+
+
 def unfused_cudnn(x, u, rate):
     """The same unit as three cuDNN convs + bias + relu (channels_last bf16).
 
@@ -437,9 +502,54 @@ def kernel_phase(device):
             kernel1_ms=mean("kernel1_ms"), kernel2_ms=mean("kernel2_ms"),
             library_device_ms=mean("library_device_ms"), per_shape=rows,
         ))
+    for r in results:
+        r["eval_shapes"] = []
+    by_name = {r["name"]: r for r in results}
+    for row in eval_unit_checks(device):
+        by_name[row["wrapper"]]["eval_shapes"].append(row)
     results.extend(train_kernels(device))
     results.append(wgrad_kernel(device))
     return results
+
+
+def eval_unit_checks(device):
+    """B4/B5 against their plain version at the feature maps evaluation
+    gives them (EVAL_MAPS), on each trunk unit the rule fuses there, with
+    ``ms`` and ``device_ms``."""
+    from iv2019_tpu_torch.ops import fused_block as fb
+
+    rng = np.random.RandomState(5)
+    rows = []
+    for n, h, w in EVAL_MAPS:
+        for unit, c, m, rate, _ in TRUNK_UNITS:
+            name = fused_wrapper(n, h, w, c, m, rate)
+            if name is None:
+                log(f"kernel eval shape {unit} at {n}x{h}x{w}: not fused by the rule")
+                continue
+            wrapper = getattr(fb, name)
+            u = random_unit(rng, c, m, device)
+            x = torch.tensor(rng.normal(0, 1, (n, h, w, c)), dtype=torch.bfloat16, device=device)
+            args = (x, u["w1"], u["b1"], u["w2"], u["b2"], u["w3"], u["b3"])
+            got = wrapper(*args, rate=rate).float()
+            want = fb.bottleneck_plain(*args, rate=rate).float()
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            rel = float((diff / want.abs().clamp_min(1.0)).max())
+            flops = 2 * n * h * w * (c * m + 9 * m * m + m * c)
+            nbytes = 2 * x.numel() * 2 + sum(t.numel() * t.element_size() for t in args[1:])
+            b = bound(nbytes, flops, PEAK_BF16_FLOPS)
+            row = dict(wrapper=name, unit=unit, n=n, h=h, w=w, C=c, M=m, rate=rate,
+                       max_abs_err=float(diff.max()), max_rel_err=rel,
+                       ms=time_ms(lambda: wrapper(*args, rate=rate)),
+                       device_ms=device_ms(lambda: wrapper(*args, rate=rate)),
+                       bound_ms=b[0], bound_by=b[1])
+            log(f"kernel eval shape {json.dumps(row)}")
+            if not rel < KERNEL_REL_TOL:
+                raise AssertionError(f"{name} {unit} at {n}x{h}x{w}: max rel err {rel} >= "
+                                     f"{KERNEL_REL_TOL}")
+            rows.append(row)
+            del x, got, want, args, u
+    return rows
 
 
 def wgrad_inputs(x_shape, cout, k, channels_last, seed=0):
@@ -1103,7 +1213,8 @@ def train_run_phase(device, step_busy_ms):
     """The training run through its entry points (see the module
     docstring). ``step_busy_ms``: the device time of one B6 train step
     (train phase profile), for the run's idle share. Returns the launch
-    counts of the two SemanticSegmentation runs."""
+    counts of the two SemanticSegmentation runs and those of the
+    ``--eval_all_ckpts`` sweep."""
     import os
     import tempfile
 
@@ -1192,6 +1303,9 @@ def train_run_phase(device, step_busy_ms):
                      host_waits_resumed_run=_waits_by_file(syncs), launches=launches,
                      last_total=records[-1]["total"])
         log("train run: " + json.dumps(stats))
+        torch.cuda.empty_cache()
+        eval_launches = eval_phase(log_dir, problem)
+        torch.cuda.empty_cache()
 
         cli_dir = os.path.join(tmp, "cli")
         _reset_counts()
@@ -1211,7 +1325,258 @@ def train_run_phase(device, step_busy_ms):
                                     "root_conv_wgrad": 0}):
             raise AssertionError(f"train cli: {listing} {cli_records} {cli_launches}")
         predict_from_run_phase(cli_dir, cli_state, problem)
-    return launches
+    return launches, eval_launches
+
+
+def _fb_counts():
+    from iv2019_tpu_torch.ops import fused_block as fb
+
+    return {"fused_bottleneck": fb.fused_bottleneck.launches,
+            "fused_bottleneck_ct": fb.fused_bottleneck_ct.launches}
+
+
+def _reset_fb():
+    from iv2019_tpu_torch.ops import fused_block as fb
+
+    fb.fused_bottleneck.launches = fb.fused_bottleneck_ct.launches = 0
+
+
+def tta_maps(h, w, scales, flip):
+    """The trunk feature maps of the TTA members of an h x w image: each
+    scale rounded to a multiple of 8 pixels, twice with the flip."""
+    maps = [(max(int(round(h * s / 8)) * 8, 8) // 8, max(int(round(w * s / 8)) * 8, 8) // 8)
+            for s in scales]
+    return [m for m in maps for _ in range(2 if flip else 1)]
+
+
+def _eval_settings(argv):
+    """The settings evaluate_cli builds from ``argv``, finalized."""
+    from iv2019_tpu_torch.config import (EVAL, build_argparser, resolve_dataset_name,
+                                         resolve_trained_model, settings_from_args)
+
+    args = build_argparser(EVAL).parse_args(argv)
+    return resolve_trained_model(resolve_dataset_name(settings_from_args(args, EVAL), None),
+                                 argv).finalize()
+
+
+def _run_evaluate(argv):
+    """evaluate_cli.main(argv) with the B4/B5 counts set to 0 just before and
+    read just after; the metrics and the run's numbers."""
+    from iv2019_tpu_torch import evaluate_cli
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _reset_fb()
+    t0 = time.perf_counter()
+    metrics = evaluate_cli.main(argv)
+    wall_s = time.perf_counter() - t0
+    launches = _fb_counts()
+    torch.cuda.synchronize()
+    return metrics, dict(wall_s=wall_s, launches=launches,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         left_allocated_mib=(torch.cuda.memory_allocated() - before) / 2**20)
+
+
+def _checkpoint_model(settings, log_dir, step):
+    """A fresh model of ``settings`` holding checkpoint ``step``'s weights,
+    read from its state.pt (not through the restore code)."""
+    import os
+
+    from iv2019_tpu_torch.models.model import build_model
+
+    snap = torch.load(os.path.join(log_dir, "checkpoints", str(step), "state.pt"),
+                      map_location="cpu", weights_only=True)
+    model = build_model(settings)
+    model.load_state_dict(snap["model"])
+    return model
+
+
+def _eval_batches(settings, problem):
+    from iv2019_tpu_torch.input.cityscapes import synthetic_eval_batches
+    from iv2019_tpu_torch.problem.problem_def import load_problem_def
+
+    n = max(settings.Neval // max(settings.Nb, 1), 1)
+    for _, b in zip(range(n), synthetic_eval_batches(settings, load_problem_def(problem))):
+        yield (torch.as_tensor(b["proimages"], device="cuda"),
+               torch.as_tensor(b["prolabels"], device="cuda"))
+
+
+def _step_matrix(settings, model, problem):
+    """The untrimmed matrix of make_eval_step over the run's eval batches."""
+    from iv2019_tpu_torch.train.step import make_eval_step
+
+    step = make_eval_step(settings, model=model)
+    return sum(step(x, lab) for x, lab in _eval_batches(settings, problem)).cpu().numpy()
+
+
+def _common_argmax_matrix(settings, model, problem, flip):
+    """By hand on the card: the eval argmax of one forward's common-space
+    probabilities (with ``flip``, their mean with the flipped forward's),
+    untrimmed, summed over the run's eval batches."""
+    from iv2019_tpu_torch.models.model import hierarchical_common_probabilities
+    from iv2019_tpu_torch.ops.confusion import confusion_matrix
+    from iv2019_tpu_torch.ops.segment_ops import remap_probabilities
+    from iv2019_tpu_torch.problem.problem_def import replace_voids
+    from iv2019_tpu_torch.problem.taxonomy import get_taxonomy
+    from iv2019_tpu_torch.train.step import settings_eval_map
+
+    tax = get_taxonomy(settings.per_pixel_dataset_name)
+    tcids2ecids = replace_voids(settings_eval_map(settings))
+    cm = 0
+    for x, lab in _eval_batches(settings, problem):
+        with torch.inference_mode():
+            p = hierarchical_common_probabilities(model(x), tax)
+            if flip:
+                pf = hierarchical_common_probabilities(model(torch.flip(x, dims=(2,))), tax)
+                p = (p + torch.flip(pf, dims=(2,))) / 2
+            decs = torch.argmax(remap_probabilities(p, tcids2ecids), -1).int()
+            cm = cm + confusion_matrix(lab, decs, max(tcids2ecids) + 1)
+    return cm.cpu().numpy()
+
+
+def _eval_step_numbers(argv, log_dir, problem, label, runs):
+    """ms per image (p50 over ``runs`` steps on one device batch), device
+    busy ms and idle share of one step (profile_call), and the step's peak
+    memory beyond what was allocated before it."""
+    from iv2019_tpu_torch.train.step import make_eval_step
+
+    settings = _eval_settings(argv)
+    model = _checkpoint_model(settings, log_dir, 8)
+    step = make_eval_step(settings, model=model)
+    x, lab = next(_eval_batches(settings, problem))
+    step(x, lab)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        step(x, lab)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50, p90 = _p50_p90(times)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    step(x, lab)
+    torch.cuda.synchronize()
+    peak_gib = (torch.cuda.max_memory_allocated() - before) / 2**30
+    profile = profile_call(lambda: step(x, lab), f"eval step ({label})", p50,
+                           groups=PREDICT_GROUPS)
+    n = x.shape[0]
+    out = dict(images_per_step=n, input_hw=list(x.shape[1:3]), step_p50_ms=p50, step_p90_ms=p90,
+               ms_per_image=p50 / n, images_per_s=n / p50 * 1e3,
+               device_busy_ms=profile["device_busy_ms"], idle_share=profile["idle_share"],
+               kernels=profile["kernels"], device_ms_by_group=profile["device_ms_by_group"],
+               host_waits=profile["host_waits"], step_peak_gib=peak_gib)
+    log(f"eval step ({label}): " + json.dumps(out))
+    return out
+
+
+def eval_phase(log_dir, problem):
+    """evaluate_cli on the full-width run's checkpoints 3, 6 and 8 (see the
+    module docstring); every check fails the run on its own."""
+    import os
+
+    hw = ["--height_feature_extractor", "512", "--width_feature_extractor", "1024"]
+    base = [log_dir, str(EVAL_NEVAL), problem, "--synthetic_data", "--fused_block", *hw]
+    problems = []
+    out = {}
+
+    # the --eval_all_ckpts sweep, and checkpoint 8 alone for the peak memory
+    sweep_argv = base + ["--Nb", str(EVAL_NB), "--eval_all_ckpts"]
+    metrics, run = _run_evaluate(sweep_argv)
+    _, alone = _run_evaluate(base + ["--Nb", str(EVAL_NB), "--ckpt_path", "8"])
+    settings = _eval_settings(sweep_argv)
+    steps = [m["global_step"] for m in metrics]
+    batches = EVAL_NEVAL // EVAL_NB
+    want = add_launches({}, EVAL_NB, 64, 128, forwards=len(steps) * batches)
+    pixels = EVAL_NEVAL * 512 * 1024
+    matrices = []
+    for m in metrics:
+        full = _step_matrix(settings, _checkpoint_model(settings, log_dir, m["global_step"]),
+                            problem)
+        labels = sum(int(((lab >= 0) & (lab < full.shape[0])).sum())
+                     for _, lab in _eval_batches(settings, problem))
+        diff = int(np.abs(m["confusion_matrix"] - full[:-1, :-1]).sum())
+        matrices.append(dict(step=m["global_step"], mean_iou=float(m["mean_iou"]),
+                             diff_entries=diff, fresh_sum=int(full.sum()), labels=labels))
+        if full.sum() != labels or diff > 2 * EVAL_CM_TOL * pixels:
+            problems.append(f"checkpoint {m['global_step']}: matrix sums to {full.sum()} of "
+                            f"{labels} labels, differs from a fresh model by {diff} entries")
+    eval_dir = os.path.join(log_dir, "eval_00")
+    if steps != [3, 6, 8]:
+        problems.append(f"--eval_all_ckpts evaluated steps {steps}")
+    if not all(os.path.isfile(os.path.join(eval_dir, f)) for f in (
+            "settings.txt", "all_metrics.txt", "all_metrics.p")):
+        problems.append(f"eval_00 holds {sorted(os.listdir(eval_dir))}")
+    if run["launches"] != want:
+        problems.append(f"sweep launches {run['launches']}, expected {want}")
+    if run["peak_gib"] - alone["peak_gib"] > EVAL_PEAK_GROWTH_GIB:
+        problems.append(f"peak memory of three restores {run['peak_gib']:.3f} GiB against "
+                        f"{alone['peak_gib']:.3f} GiB for one")
+    out["eval_all_ckpts"] = dict(run, steps=steps, matrices=matrices, one_checkpoint=alone)
+
+    # test-time augmentation: 6 forwards a batch
+    tta_argv = [log_dir, "4", problem, "--synthetic_data", "--fused_block", *hw, "--Nb", "1",
+                "--ckpt_path", "8", "--eval_scales", *map(str, TTA_SCALES), "--eval_flip"]
+    metrics, run = _run_evaluate(tta_argv)
+    want = {}
+    for h, w in tta_maps(512, 1024, TTA_SCALES, True):
+        add_launches(want, 1, h, w, forwards=4)
+    if run["launches"] != want:
+        problems.append(f"TTA launches {run['launches']}, expected {want}")
+    out["tta"] = dict(run, mean_iou=float(metrics[0]["mean_iou"]))
+
+    # the flip alone against the by-hand mean of two forwards
+    flip_argv = [log_dir, "4", problem, "--synthetic_data", "--fused_block", *hw, "--Nb", "1",
+                 "--ckpt_path", "8", "--eval_scales", "1.0", "--eval_flip"]
+    metrics, run = _run_evaluate(flip_argv)
+    flip_settings = _eval_settings(flip_argv)
+    full = _common_argmax_matrix(flip_settings, _checkpoint_model(flip_settings, log_dir, 8),
+                                 problem, flip=True)
+    diff = int(np.abs(metrics[0]["confusion_matrix"] - full[:-1, :-1]).sum())
+    if diff > 2 * EVAL_CM_TOL * 4 * 512 * 1024 or run["launches"] != add_launches({}, 1, 64, 128, 8):
+        problems.append(f"flip: {diff} entries off the by-hand mean, launches {run['launches']}")
+    out["flip"] = dict(run, diff_entries=diff)
+
+    # sliding windows over 1024x2048, uniform and gaussian
+    win_argv = [log_dir, "2", problem, "--synthetic_data", "--fused_block", *hw, "--Nb", "1",
+                "--ckpt_path", "8", "--eval_size", *map(str, WINDOW_EVAL_SIZE), "--sliding_window"]
+    for blend in ("uniform", "gaussian"):
+        metrics, run = _run_evaluate(win_argv + ["--window_blend", blend])
+        want = add_launches({}, 1, 64, 128, forwards=2 * 9)
+        if run["launches"] != want:
+            problems.append(f"windows ({blend}) launches {run['launches']}, expected {want}")
+        out[f"windows_{blend}"] = dict(run, mean_iou=float(metrics[0]["mean_iou"]))
+
+    # one window the size of the image: one forward's common-space argmax
+    one_argv = [log_dir, "2", problem, "--synthetic_data", "--fused_block", *hw, "--Nb", "1",
+                "--ckpt_path", "8", "--eval_size", "512", "1024", "--sliding_window"]
+    metrics, run = _run_evaluate(one_argv)
+    one_settings = _eval_settings(one_argv)
+    model = _checkpoint_model(one_settings, log_dir, 8)
+    full = _common_argmax_matrix(one_settings, model, problem, flip=False)
+    plain = _step_matrix(_eval_settings(one_argv[:-4]), model, problem)
+    diff = int(np.abs(metrics[0]["confusion_matrix"] - full[:-1, :-1]).sum())
+    if diff > 2 * EVAL_CM_TOL * 2 * 512 * 1024:
+        problems.append(f"one window: {diff} entries off one forward's common-space argmax")
+    # the plain step's fused decisions: not expected equal (near-ties of the heads)
+    out["one_window"] = dict(run, diff_entries=diff, diff_entries_plain_step=int(
+        np.abs(metrics[0]["confusion_matrix"] - plain[:-1, :-1]).sum()))
+    del model
+    log("eval from the train run: " + json.dumps(out))
+    if problems:
+        raise AssertionError("eval: " + "; ".join(problems))
+
+    # per image, device busy and idle share of one step of each kind
+    torch.cuda.empty_cache()
+    steps_out = {
+        "plain": _eval_step_numbers(sweep_argv[:-1] + ["--ckpt_path", "8"], log_dir, problem,
+                                    "plain", 10),
+        "tta": _eval_step_numbers(tta_argv, log_dir, problem, "TTA", 5),
+        "windows": _eval_step_numbers(win_argv, log_dir, problem, "windows", 5),
+    }
+    log("eval steps: " + json.dumps(steps_out))
+    return out["eval_all_ckpts"]["launches"]
 
 
 def predict_from_run_phase(log_dir, state, problem, device="cuda"):
@@ -1279,6 +1644,31 @@ def predict_from_run_phase(log_dir, state, problem, device="cuda"):
         if n != len(sizes) or len(got) != len(sizes) or diff > 1e-6 or same < 0.9999:
             raise AssertionError(f"predict from the run {flags}: {n} images, "
                                  f"probabilities differ by {diff}, decisions equal {same}")
+    # the ensembles: TTA at 256x512, and 3 x 3 windows of 256x512 over the
+    # images resized to 512x1024; each run's launches by the dispatch rule
+    ensembles = {"tta": ["--eval_scales", *map(str, TTA_SCALES), "--eval_flip"],
+                 "windows": ["--eval_size", "512", "1024", "--sliding_window"]}
+    for name, flags in ensembles.items():
+        results = os.path.join(log_dir, f"predictions_{name}")
+        argv = [log_dir, problem, img_dir, "--height_feature_extractor", "256",
+                "--width_feature_extractor", "512", "--fused_block", "--export_lids_images",
+                "--results_dir", results, "--device", str(device), *flags]
+        _reset_fb()
+        n = predict_cli.main(argv)
+        launches = _fb_counts()
+        want = {}
+        maps = tta_maps(256, 512, TTA_SCALES, True) if name == "tta" else [(32, 64)] * 9
+        for h, w in maps:
+            add_launches(want, 1, h, w, forwards=len(sizes))
+        for stem, hw in sizes.items():
+            with Image.open(os.path.join(results, f"{stem}_result_lids.png")) as im:
+                got = np.asarray(im)
+            if got.shape != hw or not set(np.unique(got).tolist()) <= lids:
+                raise AssertionError(f"predict {name}: {stem} {got.shape} {np.unique(got)}")
+        out[name] = dict(images=n, launches=launches)
+        if n != len(sizes) or launches != want:
+            raise AssertionError(f"predict {name}: {n} images, launches {launches}, "
+                                 f"expected {want}")
     log("predict from the train run's checkpoint: " + json.dumps(out))
     return out
 
@@ -1312,11 +1702,16 @@ def main():
     torch.cuda.empty_cache()
     step_busy_ms = train_phase(device)
     torch.cuda.empty_cache()
-    # the train path's kernels report the launches of this slice's main
-    # path, the training run; the train phase's are printed above
-    launches.update(train_run_phase(device, step_busy_ms))
+    # the train path's kernels report the launches of the training run (the
+    # train phase's are printed above), B4/B5 those of the predict requests
+    # and, as eval_launches, those of the --eval_all_ckpts sweep
+    run_launches, eval_launches = train_run_phase(device, step_busy_ms)
+    launches.update(run_launches)
     for r in results:
         r["launches"] = launches[r["name"]]
+        if r["name"] in eval_launches:
+            # B4/B5 on this slice's path: the --eval_all_ckpts sweep
+            r["eval_launches"] = eval_launches[r["name"]]
     log(f"chip_smoke: {time.time() - t0:.1f} s from the build to the end")
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {

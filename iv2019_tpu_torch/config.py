@@ -1,17 +1,17 @@
-"""Settings and the predict and train command lines of the PyTorch port.
+"""Settings and the predict, evaluate and train command lines of the PyTorch port.
 
 A copy of the fields of ``iv2019_tpu/config.py`` that the predict, evaluate,
 train-step and training-run paths read, with the same names and defaults
 (but for ``mode``, which defaults to ``predict`` here), ``finalize()`` with
-its epoch-to-step math, ``dump()`` in the same format, and the predict and
-train flags, plus one field and flag of the port's own: ``--device``
+its epoch-to-step math, ``validate()`` with the same messages, ``dump()``
+in the same format, and the predict, evaluate and train flags (with the
+test-time-augmentation, sliding-window and plotting flags of both inference
+command lines), plus one field and flag of the port's own: ``--device``
 (``cuda`` unless the caller asks for ``cpu``). The train command line
 accepts the flags of paths the port does not have yet (gradient
 accumulation, augmentations, multi-process and multi-device training,
 spatial partitions); ``validate()`` raises ``NotImplementedError`` when one
 of them is set. ``root_wgrad_pallas`` has no flag, as in the JAX package.
-Flags of inference paths the port does not have yet (test-time
-augmentation, sliding window, plotting) are not accepted.
 """
 
 from __future__ import annotations
@@ -140,12 +140,29 @@ class Settings:
     # (ops/fused_block.py), BatchNorm folded into the convs
     fused_block: bool = False
 
-    # -- inference / evaluation -------------------------------------------
+    # -- inference / evaluation (iv2019_tpu/config.py:217-254) -------------
     ckpt_path: Optional[str] = None
+    eval_all_ckpts: bool = False
+    Neval: int = 500
     replace_voids: bool = False
+    # test-time augmentation: average the factorized common-space
+    # probabilities over these input scales (and a horizontal flip)
+    eval_scales: tuple[float, ...] = (1.0,)
+    eval_flip: bool = False
+    # evaluate at this size instead of (hf, wf); with sliding_window, tile it
+    # with (hf, wf) windows at window_overlap and stitch the probabilities
+    eval_size: Optional[tuple[int, int]] = None
+    sliding_window: bool = False
+    window_overlap: float = 0.5
+    window_blend: str = "uniform"  # | gaussian
     restore_emas: bool = False
     predict_dir: str = ""
     results_dir: Optional[str] = None
+    plotting: bool = False
+    plotting_overlapped: bool = False
+    plot_l1_confidence: bool = False
+    plot_l2_confidence: bool = False
+    timeout: float = 10.0  # accepted, no effect (figures are saved, not shown)
     preserve_aspect_ratio: bool = False
     export_color_decisions: bool = False
     export_overlapped_color_decisions: bool = False
@@ -199,6 +216,31 @@ class Settings:
             raise ValueError(f"unknown upsampling_method {self.upsampling_method}")
         if bool(self.fov_expansion_kernel_rate) != bool(self.fov_expansion_kernel_size):
             raise ValueError("Both or neither of fov_expansion_kernel_{rate,size} must be set.")
+        if any(s <= 0 for s in self.eval_scales):
+            raise ValueError(f"eval_scales must be positive, got {self.eval_scales}")
+        if (self.eval_flip or tuple(self.eval_scales) != (1.0,)) and self.spatial_partitions > 1:
+            raise ValueError("eval_scales/eval_flip (TTA) does not compose with "
+                             "spatial_partitions > 1; run TTA eval on the data mesh.")
+        if not 0.0 <= self.window_overlap < 1.0:
+            raise ValueError(f"window_overlap must be in [0, 1), got {self.window_overlap}")
+        if self.window_blend not in ("uniform", "gaussian"):
+            raise ValueError(f"window_blend must be 'uniform' or 'gaussian', got "
+                             f"{self.window_blend!r}")
+        if self.eval_size is not None:
+            eh, ew = self.eval_size
+            if eh <= 0 or ew <= 0:
+                raise ValueError(f"eval_size must be positive, got {self.eval_size}")
+        if self.sliding_window:
+            if self.eval_size is None:
+                raise ValueError("--sliding_window needs --eval_size H W (the native "
+                                 "resolution to tile with (hf, wf) windows).")
+            eh, ew = self.eval_size
+            if eh < self.height_feature_extractor or ew < self.width_feature_extractor:
+                raise ValueError(f"eval_size {self.eval_size} must be >= the window size "
+                                 f"({self.height_feature_extractor}, "
+                                 f"{self.width_feature_extractor}).")
+            if self.spatial_partitions > 1:
+                raise ValueError("sliding_window does not compose with spatial_partitions > 1.")
         if self.grad_accum_steps < 1:
             raise ValueError("grad_accum_steps must be >= 1.")
         for name in ("Nb_per_pixel", "Nb_per_bbox", "Nb_per_image"):
@@ -381,27 +423,79 @@ def _add_train_arguments(p: argparse.ArgumentParser) -> None:
 
 
 def _add_inference_arguments(p: argparse.ArgumentParser) -> None:
+    """iv2019_tpu/config.py:619-643."""
     p.add_argument("log_dir", type=str)
     p.add_argument("training_problem_def_path", type=str)
     p.add_argument("predict_dir", type=str)
     p.add_argument("--ckpt_path", type=str, default=None)
     p.add_argument("--inference_problem_def_path", type=str, default=None)
     p.add_argument("--replace_voids", action="store_true")
+    p.add_argument("--Nb", type=int, default=1)
     p.add_argument("--restore_emas", action="store_true")
     p.add_argument("--train_void_class", action="store_true")
     p.add_argument("--results_dir", type=str, default=None)
     p.add_argument("--per_pixel_dataset_name", type=str, default=None,
                    choices=["cityscapes", "vistas"],
                    help="training dataset (default: read from log_dir/settings.txt)")
+    p.add_argument("--plotting", action="store_true")
+    p.add_argument("--plotting_overlapped", action="store_true")
+    p.add_argument("--plot_l1_confidence", action="store_true")
+    p.add_argument("--plot_l2_confidence", action="store_true")
+    p.add_argument("--timeout", type=float, default=10.0)
     p.add_argument("--export_color_decisions", action="store_true")
     p.add_argument("--export_overlapped_color_decisions", action="store_true")
     p.add_argument("--export_lids_images", action="store_true")
     p.add_argument("--preserve_aspect_ratio", action="store_true")
+    _add_tta_arguments(p)
+
+
+def _add_tta_arguments(p: argparse.ArgumentParser) -> None:
+    """Test-time augmentation and native-resolution flags of evaluate and
+    predict (iv2019_tpu/config.py:646-672)."""
+    p.add_argument("--eval_scales", type=float, nargs="*", default=[1.0],
+                   help="test-time augmentation: average factorized probabilities over "
+                        "these input scales (e.g. 0.75 1.0 1.25) before the argmax")
+    p.add_argument("--eval_flip", action="store_true",
+                   help="test-time augmentation: also average with the horizontally-flipped "
+                        "input")
+    p.add_argument("--eval_size", type=int, nargs=2, default=None, metavar=("H", "W"),
+                   help="run inference at this resolution instead of resizing inputs to "
+                        "(hf, wf)")
+    p.add_argument("--sliding_window", action="store_true",
+                   help="tile the eval_size image with (hf, wf) windows at --window_overlap "
+                        "overlap and stitch probabilities")
+    p.add_argument("--window_overlap", type=float, default=0.5,
+                   help="fractional overlap between adjacent sliding windows (default 0.5)")
+    p.add_argument("--window_blend", type=str, default="uniform",
+                   choices=["uniform", "gaussian"],
+                   help="how overlapping windows combine: equal averaging or a "
+                        "center-peaked Gaussian weight")
+
+
+def _add_evaluate_arguments(p: argparse.ArgumentParser) -> None:
+    """iv2019_tpu/config.py:675-694."""
+    p.add_argument("log_dir", type=str)
+    p.add_argument("Neval", type=int)
+    p.add_argument("training_problem_def_path", type=str)
+    p.add_argument("--eval_all_ckpts", action="store_true")
+    p.add_argument("--ckpt_path", type=str, default=None)
+    p.add_argument("--evaluation_problem_def_path", type=str, default=None)
+    _add_tta_arguments(p)
+    p.add_argument("--replace_voids", action="store_true")
+    p.add_argument("--train_void_class", action="store_true")
+    p.add_argument("--Nb", type=int, default=1)
+    p.add_argument("--restore_emas", action="store_true")
+    p.add_argument("--tfrecords_path", type=str, default="")
+    p.add_argument("--dataset_directory", type=str, default="")
+    p.add_argument("--per_pixel_dataset_name", type=str, default=None,
+                   choices=["cityscapes", "vistas"],
+                   help="training dataset (default: read from log_dir/settings.txt)")
+    p.add_argument("--synthetic_data", action="store_true")
 
 
 def build_argparser(mode: str = PREDICT) -> argparse.ArgumentParser:
-    if mode not in (PREDICT, TRAIN):
-        raise NotImplementedError(f"the port has no {mode} command line yet")
+    if mode not in (PREDICT, EVAL, TRAIN):
+        raise ValueError(f"unknown mode {mode!r}")
     p = argparse.ArgumentParser()
     _add_system_arguments(p)
     _add_model_arguments(p)
@@ -409,6 +503,8 @@ def build_argparser(mode: str = PREDICT) -> argparse.ArgumentParser:
         _add_train_system_arguments(p)
         _add_train_model_arguments(p)
         _add_train_arguments(p)
+    elif mode == EVAL:
+        _add_evaluate_arguments(p)
     else:
         _add_inference_arguments(p)
     return p
@@ -491,7 +587,8 @@ def resolve_dataset_name(settings: Settings, explicit: Optional[str]) -> Setting
 def settings_from_args(args: argparse.Namespace, mode: str, **extra: Any) -> Settings:
     field_names = {f.name for f in dataclasses.fields(Settings)}
     kw = {k: v for k, v in vars(args).items() if k in field_names and v is not None}
-    for k in ("learning_rate_boundaries", "learning_rate_values", "predict_keys"):
+    for k in ("learning_rate_boundaries", "learning_rate_values", "predict_keys", "eval_scales",
+              "eval_size"):
         if isinstance(kw.get(k), list):
             kw[k] = tuple(kw[k])
     if isinstance(kw.get("augmentations"), str):

@@ -1,14 +1,19 @@
-"""Cityscapes / Vistas per-pixel training input (TFRecord KEYS2FEATURES_v5).
+"""Cityscapes / Vistas per-pixel input (TFRecord KEYS2FEATURES_v5).
 
-Port of the training half of iv2019_tpu/input/cityscapes.py (reference
-input_cityscapes.py / input_vistas.py): TFRecord -> decode the PNG/JPEG
-image and PNG label (PIL) -> lids2cids with voids replaced -> resize
-(optionally aspect-preserving + a shared random crop) to (hf, wf) ->
-shuffle(2000) + repeat -> batch -> [-1, 1) scaling. With
-``settings.synthetic_data``, random batches of the same shapes and dtypes
-(``synthetic_train_batches``), the same numbers as the JAX package's for
-the same seed. Single process only: the JAX package's multi-host record
-striding is not ported (ROADMAP.md queue A).
+Port of iv2019_tpu/input/cityscapes.py (reference input_cityscapes.py /
+input_vistas.py):
+
+- train: TFRecord -> decode the PNG/JPEG image and PNG label (PIL) ->
+  lids2cids with voids replaced -> resize (optionally aspect-preserving + a
+  shared random crop) to (hf, wf) -> shuffle(2000) + repeat -> batch ->
+  [-1, 1) scaling;
+- evaluate: one pass over the records, plain decode -> lids2cids -> plain
+  resize to ``eval_size`` (default (hf, wf)) -> batch.
+
+With ``settings.synthetic_data``, random batches of the same shapes and
+dtypes (``synthetic_train_batches``, ``synthetic_eval_batches``), the same
+numbers as the JAX package's for the same seed. Single process only: the
+JAX package's multi-host record striding is not ported (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from iv2019_tpu_torch.input import core
 from iv2019_tpu_torch.input.tfrecord import parse_example, read_tfrecords
 from iv2019_tpu_torch.problem.problem_def import ProblemDef
 
-__all__ = ["synthetic_train_batches", "train_input"]
+__all__ = ["evaluate_input", "synthetic_eval_batches", "synthetic_train_batches", "train_input"]
 
 
 def _decode(buf: bytes) -> np.ndarray:
@@ -73,6 +78,28 @@ def train_input(settings: Settings, problem_def: ProblemDef, tfrecords_path: Opt
         yield batch
 
 
+def evaluate_input(settings: Settings, problem_def: ProblemDef,
+                   tfrecords_path: Optional[str] = None) -> Iterator[dict]:
+    """One pass of eval batches: plain resize to ``eval_size`` or (hf, wf),
+    labels nearest-resized with the images (reference
+    input_cityscapes.py:190-246)."""
+    if settings.synthetic_data:
+        yield from synthetic_eval_batches(settings, problem_def)
+        return
+    path = tfrecords_path or settings.tfrecords_path
+    lut = problem_def.lids2cids_voids_replaced()
+    hw = settings.eval_size or (settings.height_feature_extractor, settings.width_feature_extractor)
+
+    def _pre(record: bytes) -> dict:
+        image, label, im_path, la_path = _parse_record(record)
+        proimage, prolabel = core.resize_images_and_labels(
+            core.convert_image_dtype(image), core.map_lids_to_cids(label, lut), hw)
+        return {"proimages": core.from_0_1_to_m1_1(proimage), "prolabels": prolabel,
+                "rawimagespaths": im_path, "rawlabelspaths": la_path}
+
+    yield from core.batched(core.parallel_map(_pre, read_tfrecords(path)), settings.Nb)
+
+
 def synthetic_train_batches(settings: Settings, problem_def: ProblemDef,
                             seed: int = 0) -> Iterator[dict]:
     """Random batches with the real pipeline's shapes and dtypes."""
@@ -81,6 +108,23 @@ def synthetic_train_batches(settings: Settings, problem_def: ProblemDef,
     n = settings.Nb
     nc = problem_def.output_num_classes(settings.train_void_class)
     while True:
+        yield {
+            "proimages": rng.uniform(-1, 1, (n, h, w, 3)).astype(np.float32),
+            "prolabels": rng.randint(0, nc, (n, h, w)).astype(np.int32),
+            "rawimagespaths": ["synthetic"] * n,
+            "rawlabelspaths": ["synthetic"] * n,
+        }
+
+
+def synthetic_eval_batches(settings: Settings, problem_def: ProblemDef, seed: int = 0,
+                           num_batches: int = 8) -> Iterator[dict]:
+    """``num_batches`` random eval batches at ``eval_size`` or (hf, wf)."""
+    rng = np.random.RandomState(seed)
+    h, w = settings.eval_size or (settings.height_feature_extractor,
+                                  settings.width_feature_extractor)
+    n = settings.Nb
+    nc = problem_def.output_num_classes(settings.train_void_class)
+    for _ in range(num_batches):
         yield {
             "proimages": rng.uniform(-1, 1, (n, h, w, 3)).astype(np.float32),
             "prolabels": rng.randint(0, nc, (n, h, w)).astype(np.int32),

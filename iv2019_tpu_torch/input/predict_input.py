@@ -4,7 +4,8 @@ Port of iv2019_tpu/input/dataset_agnostic.py:37-73 and the helpers it uses
 from iv2019_tpu/input/core.py: recursive glob over png/jpg/jpeg/ppm, PIL
 decode to RGB, uint8 -> [0, 1), TF1 bilinear resize with
 ``align_corners=False`` (optionally aspect-preserving 'max' then a random
-crop), [-1, 1) scaling. Decoding runs on the host, one image at a time.
+crop), [-1, 1) scaling. ``eval_size``, where set, replaces (hf, wf) as the
+size images are resized to. Decoding runs on the host, one image at a time.
 """
 
 from __future__ import annotations
@@ -40,9 +41,11 @@ def preprocess(raw: np.ndarray, hw: Sequence[int], preserve_aspect_ratio: bool =
 
 
 def predict_input(settings: Settings) -> Iterator[dict]:
-    """Yields {'proimages' (1, hf, wf, 3), 'rawimages', 'rawimagespaths'}
-    per image, in sorted path order (batch size 1: raw sizes differ)."""
-    hw = (settings.height_feature_extractor, settings.width_feature_extractor)
+    """Yields {'proimages' (1, h, w, 3), 'rawimages', 'rawimagespaths'}
+    per image, in sorted path order (batch size 1: raw sizes differ);
+    (h, w) is ``eval_size`` or (hf, wf)."""
+    hw = settings.eval_size or (settings.height_feature_extractor,
+                                settings.width_feature_extractor)
     for path in find_images(settings.predict_dir):
         with Image.open(path) as img:
             raw = np.asarray(img if img.mode == "RGB" else img.convert("RGB"))

@@ -17,6 +17,9 @@ settings.
 
 Public tensors are NHWC, like the JAX package's: ``forward`` takes
 (N, H, W, 3) images in [-1, 1) and returns the same ten-key dict.
+``hierarchical_common_probabilities`` turns the three heads' distributions
+into one over the common label space (models/model.py:42-73), the
+distribution that test-time augmentation and sliding windows average.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -31,10 +35,11 @@ from iv2019_tpu_torch.config import Settings
 from iv2019_tpu_torch.models.layers import BottleneckV1, ConvNormRelu, Norm
 from iv2019_tpu_torch.models.resnet import FEATURE_EXTRACTOR_BLOCKS, RESNET50_BLOCKS, ResNetV1
 from iv2019_tpu_torch.ops.resize import resize_bilinear_mxu
-from iv2019_tpu_torch.ops.segment_ops import gather_cids
+from iv2019_tpu_torch.ops.segment_ops import gather_cids, segment_sum_channels
 from iv2019_tpu_torch.problem.taxonomy import Taxonomy, get_taxonomy
 
-__all__ = ["HierarchicalSegmentationModel", "build_model", "init_model", "resolve_device"]
+__all__ = ["HierarchicalSegmentationModel", "build_model", "hierarchical_common_probabilities",
+           "init_model", "resolve_device"]
 
 _HEADS = ("l1", "l2_vehicle", "l2_human")
 
@@ -45,6 +50,29 @@ def resolve_device(name: str) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
     return device
+
+
+def hierarchical_common_probabilities(preds: dict, tax: Taxonomy) -> torch.Tensor:
+    """Factorized per-pixel probabilities over the common label space (f32).
+
+    The probabilistic counterpart of the argmax decision fusion: P(common c)
+    collects the L1 mass of every L1 class but the two metaclasses mapped
+    to c, plus P(L1=vehicle) * P(vehicle subclass -> c) and P(L1=human) *
+    P(human subclass -> c). Sums to 1 over the common space.
+    """
+    l1 = preds["l1_probabilities"].float()
+    veh = preds["l2_vehicle_probabilities"].float()
+    hum = preds["l2_human_probabilities"].float()
+    keep = np.ones(tax.num_l1_classes, np.float32)
+    keep[tax.cid_l1_vehicle] = 0.0
+    keep[tax.cid_l1_human] = 0.0
+    n = tax.num_common_classes
+    base = segment_sum_channels(l1 * torch.as_tensor(keep, device=l1.device),
+                                tax.l1_cids2common_cids, n)
+    p_veh = segment_sum_channels(veh, tax.l2_vehicle_cids2common_cids, n)
+    p_hum = segment_sum_channels(hum, tax.l2_human_cids2common_cids, n)
+    return (base + l1[..., tax.cid_l1_vehicle:tax.cid_l1_vehicle + 1] * p_veh
+            + l1[..., tax.cid_l1_human:tax.cid_l1_human + 1] * p_hum)
 
 
 class HierarchicalSegmentationModel(nn.Module):

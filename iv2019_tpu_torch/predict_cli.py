@@ -3,7 +3,8 @@
 Usage:
   python -m iv2019_tpu_torch.predict_cli LOG_DIR PROBLEM_DEF PREDICT_DIR \\
       [--ckpt_path STEP|PATH/STEP|model.npz] [--restore_emas] [--fused_block]
-      [--device cpu] [export flags]
+      [--device cpu] [--eval_scales S ... --eval_flip]
+      [--eval_size H W [--sliding_window]] [export and plotting flags]
 
 Port of iv2019_tpu/predict_cli.py with the predict loop of
 iv2019_tpu/system.py:231-288, through ``SemanticSegmentation.predict``.
@@ -17,8 +18,19 @@ names); ``--restore_emas`` takes the zero-debiased EMA shadows
 - ``--export_lids_images``: label-id PNGs via cids2lids
 - ``--export_color_decisions``: palette-colorized decisions
 - ``--export_overlapped_color_decisions``: 0.5-alpha blend of raw + color
+- ``--plotting [--plot_l1_confidence --plot_l2_confidence]``: one figure
+  per image, raw | colorized decisions | optional confidence panel (max
+  over classes of p^50, the nipy_spectral colormap), as ``plot_NNNNN.png``
+- ``--plotting_overlapped``: the overlapped blend as
+  ``plot_overlapped_NNNNN.png``
 
-With no export flag the colorized decisions are written. Without
+The reference shows its plots in live windows; here they are saved
+(matplotlib's Agg backend, imported only under a plotting flag), so
+``--timeout`` is accepted and has no effect. With no export or plotting
+flag the colorized decisions are written. ``--eval_scales``/``--eval_flip``
+average the heads over a scale/flip ensemble, ``--sliding_window`` stitches
+them from (hf, wf) windows of the ``--eval_size`` image
+(train/step.py::make_predict_step). Without
 ``--height_system``/``--width_system`` the outputs are resized on the host
 to each image's raw size.
 """
@@ -55,6 +67,15 @@ PREDICT_KEYS = (
 )
 
 
+def _confidence_panel(item) -> np.ndarray:
+    """[max_c l1_p^50 | max_c l2v_p^50] (reference predict.py:113-118)."""
+    panels = []
+    for key in ("l1_probabilities", "l2_vehicle_probabilities"):
+        p = np.asarray(item[key], np.float32)
+        panels.append(np.amax(np.power(p, 50), axis=2))
+    return np.concatenate(panels, axis=1)
+
+
 def _overlapped(item, palette) -> np.ndarray:
     color = palette[np.clip(item["decisions"], 0, len(palette) - 1)]
     raw = np.asarray(item["rawimages"])
@@ -74,6 +95,29 @@ def _export(item, out_dir, palette, cids2lids, settings, default_color) -> None:
     if settings.export_overlapped_color_decisions and "rawimages" in item:
         Image.fromarray(_overlapped(item, palette)).save(
             os.path.join(out_dir, f"{stem}_result_overlapped_color.png"))
+
+
+def _plot_frame(item, out_dir, palette, settings, n, plt) -> None:
+    """One frame of the plotting modes, written as a PNG."""
+    if settings.plotting_overlapped:
+        plt.imsave(os.path.join(out_dir, f"plot_overlapped_{n:05}.png"), _overlapped(item, palette))
+        return
+    with_conf = settings.plot_l1_confidence or settings.plot_l2_confidence
+    ncols = 3 if with_conf else 2
+    fig, axs = plt.subplots(1, ncols, figsize=(5 * ncols, 4))
+    axs[0].imshow(np.asarray(item["rawimages"]))
+    axs[0].set_title("input")
+    axs[1].imshow(palette[np.clip(item["decisions"], 0, len(palette) - 1)])
+    axs[1].set_title("decisions")
+    if with_conf:
+        conf = axs[2].imshow(_confidence_panel(item), cmap="nipy_spectral")
+        axs[2].set_title("confidence (p^50)")
+        fig.colorbar(conf, ax=axs[2], ticks=[])
+    for ax in axs:
+        ax.axis("off")
+    fig.tight_layout()
+    fig.savefig(os.path.join(out_dir, f"plot_{n:05}.png"))
+    plt.close(fig)
 
 
 def restore_model(model, settings) -> None:
@@ -118,9 +162,16 @@ def main(argv):
     results_dir = settings.results_dir or os.path.join(settings.log_dir, "predictions")
     os.makedirs(results_dir, exist_ok=True)
     default_color = not (
-        settings.export_lids_images or settings.export_color_decisions
+        settings.plotting or settings.plotting_overlapped
+        or settings.export_lids_images or settings.export_color_decisions
         or settings.export_overlapped_color_decisions
     )
+    plt = None
+    if settings.plotting or settings.plotting_overlapped:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt  # noqa: PLC0415
 
     n = 0
     total = 0.0
@@ -131,6 +182,8 @@ def main(argv):
         sys.stdout.write(f"Time per image (input pipeline + network): {dt:.3f}s\r")
         sys.stdout.flush()
         _export(item, results_dir, palette, cids2lids, settings, default_color)
+        if plt is not None:
+            _plot_frame(item, results_dir, palette, settings, n, plt)
         n += 1
         t0 = time.time()
     print(f"\nTotal time (input pipeline + network): {total:.3f}s; "

@@ -1,38 +1,46 @@
-"""The SemanticSegmentation system of the PyTorch port: training and prediction.
+"""The SemanticSegmentation system of the PyTorch port: train, evaluate, predict.
 
-Port of iv2019_tpu/system.py:112-288,388-490 (reference
-system_factory.py:27-461): ``SemanticSegmentation(input_fns, model_fn,
-settings)`` loads the problem definitions and derives ``output_Nclasses``,
-the training-to-inference and training-to-evaluation cid maps, the
-finalized settings and the ``eval_NN`` directory numbering; ``train()``
-writes ``settings.txt`` (refusing to overwrite one), snapshots the port's
-code into ``all_code.zip`` and runs train/loop.py; ``predict()`` restores
-the trained weights (``restore_variables``: a checkpoint of the port's
-training run, or a converted ``.npz``) and yields one predictions dict per
-image. ``evaluate`` and ``--eval_all_ckpts`` are not ported yet (ROADMAP.md
-A10a).
+Port of iv2019_tpu/system.py (reference system_factory.py:27-461), on one
+device: ``SemanticSegmentation(input_fns, model_fn, settings)`` loads the
+problem definitions and derives ``output_Nclasses``, the
+training-to-inference and training-to-evaluation cid maps, the finalized
+settings and the ``eval_NN`` directory numbering; ``train()`` writes
+``settings.txt`` (refusing to overwrite one), snapshots the port's code into
+``all_code.zip`` and runs train/loop.py; ``evaluate()`` writes
+``eval_NN/settings.txt`` and, for each checkpoint ``checkpoint_steps``
+names (all of them with ``--eval_all_ckpts``), restores the trained weights
+and sums the eval step's confusion matrices over ``Neval // Nb`` batches,
+returning one metrics dict per checkpoint; ``predict()`` restores the
+trained weights and yields one predictions dict per image. Weights come
+from ``restore_variables``: a checkpoint of the port's training run, or a
+converted ``.npz``.
 """
 
 from __future__ import annotations
 
 import glob
+import itertools
 import os
 from os.path import exists, isdir, join, split
 from typing import Callable, Iterator, Mapping, Optional, Union
 
+import numpy as np
 import torch
 
 from iv2019_tpu_torch.config import Settings
+from iv2019_tpu_torch.input.prefetch import device_prefetch
 from iv2019_tpu_torch.models.model import build_model, init_model
 from iv2019_tpu_torch.problem.problem_def import load_problem_def
 from iv2019_tpu_torch.train.fused_update import FusedSGDM
 from iv2019_tpu_torch.train.state import create_fused_train_state
+from iv2019_tpu_torch.train.step import make_eval_step
 from iv2019_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
 from iv2019_tpu_torch.utils.convert import (
     flax_variables,
     load_flax_variables,
     restore_trained_from_npz,
 )
+from iv2019_tpu_torch.utils.metrics import print_metrics_from_confusion_matrix
 from iv2019_tpu_torch.utils.util_zip import zipit
 
 __all__ = ["SemanticSegmentation", "checkpoint_steps", "restore_variables"]
@@ -44,11 +52,77 @@ def build_initialized_model(settings: Settings) -> torch.nn.Module:
     return init_model(build_model(settings), torch.Generator().manual_seed(0))
 
 
+def _group_eval_batches(batches, group: int):
+    """Concatenate consecutive eval batches into multiples of ``group`` rows
+    (iv2019_tpu/system.py:45-109, copied as is; one device is group 1).
+
+    Batches whose array shapes match are stacked along the leading axis; a
+    shape change flushes the buffer. A final (or flushed) partial group is
+    padded up to ``group`` rows with zero images and out-of-range labels
+    (-1 for signed, the maximum for unsigned), which the confusion matrix
+    drops.
+    """
+    if group <= 1:
+        yield from batches
+        return
+
+    def _sig(b):
+        return tuple(
+            (k, v.shape[1:], v.dtype.str) for k, v in sorted(b.items())
+            if isinstance(v, np.ndarray)
+        )
+
+    def _pad_rows(v: np.ndarray, n: int) -> np.ndarray:
+        pad = np.zeros((n,) + v.shape[1:], v.dtype)
+        if np.issubdtype(v.dtype, np.integer):
+            pad[:] = -1 if np.issubdtype(v.dtype, np.signedinteger) else np.iinfo(v.dtype).max
+        return np.concatenate([v, pad], axis=0)
+
+    def _flush(buf, pad_to=0):
+        out = {}
+        for k, v in buf[0].items():
+            if isinstance(v, np.ndarray):
+                cat = np.concatenate([b[k] for b in buf], axis=0) if len(buf) > 1 else v
+                short = pad_to - cat.shape[0]
+                out[k] = _pad_rows(cat, short) if short > 0 else cat
+            elif isinstance(v, (list, tuple)):
+                out[k] = [x for b in buf for x in b[k]]
+            else:
+                out[k] = v if len(buf) == 1 else [b[k] for b in buf]
+        return out
+
+    def _rows(b):
+        return next(
+            (v.shape[0] for v in b.values() if isinstance(v, np.ndarray)), 1
+        )
+
+    buf: list[dict] = []
+    sig = None
+    for b in batches:
+        s = _sig(b)
+        if buf and s != sig:
+            yield _flush(buf, pad_to=group)
+            buf = []
+        buf.append(b)
+        sig = s
+        if sum(_rows(x) for x in buf) >= group:
+            yield _flush(buf)
+            buf = []
+    if buf:
+        yield _flush(buf, pad_to=group)
+
+
 def checkpoint_steps(settings: Settings) -> list[Union[int, str, None]]:
-    """The checkpoints to restore (JAX system.py:388, without
-    ``--eval_all_ckpts``): ``ckpt_path`` as a converted ``.npz``, a step
-    number or a path ending in one; without it the latest step of
-    ``log_dir/checkpoints`` (None if there is none)."""
+    """The checkpoints to restore (JAX system.py:388-405): with
+    ``eval_all_ckpts`` every saved step of ``log_dir/checkpoints`` in step
+    order; else ``ckpt_path`` as a converted ``.npz``, a step number or a
+    path ending in one; without it the latest saved step (None if there is
+    none)."""
+    ckpt_dir = join(settings.log_dir, "checkpoints")
+    if settings.eval_all_ckpts:
+        steps = CheckpointManager(settings.log_dir).all_steps() if isdir(ckpt_dir) else []
+        print(f"\n{len(steps)} checkpoint(s) will be evaluated.\n")
+        return steps
     if settings.ckpt_path is not None:
         if str(settings.ckpt_path).endswith(".npz"):
             return [settings.ckpt_path]
@@ -56,7 +130,6 @@ def checkpoint_steps(settings: Settings) -> list[Union[int, str, None]]:
             return [int(settings.ckpt_path)]
         except ValueError:
             return [int(os.path.basename(str(settings.ckpt_path).rstrip("/")))]
-    ckpt_dir = join(settings.log_dir, "checkpoints")
     return [CheckpointManager(settings.log_dir).latest_step() if isdir(ckpt_dir) else None]
 
 
@@ -100,8 +173,10 @@ class SemanticSegmentation:
     """A semantic-segmentation system on one device.
 
     Args:
-      input_fns: {'train': f(settings, problem_def) -> iterator of host
-        batches} (input/heterogeneous.py:train_input is the default one).
+      input_fns: {'train' | 'eval' | 'predict': f(settings, problem_def) ->
+        iterator of host batches} (input/heterogeneous.py:train_input,
+        input/cityscapes.py:evaluate_input; predict takes the inference
+        problem definition).
       model_fn: f(settings) -> model with its initial weights; default
         ``build_initialized_model``.
       settings: a Settings (config.build_argparser for the command line).
@@ -174,6 +249,42 @@ class SemanticSegmentation:
         restore_model(model, s)
         yield from predict(s, model, self._input_fns["predict"](s, self.inference_problem_def))
 
-    def evaluate(self):
-        raise NotImplementedError("SemanticSegmentation.evaluate is not ported yet "
-                                  "(ROADMAP.md A10a)")
+    def evaluate(self) -> list[dict]:
+        """One metrics dict per checkpoint of ``checkpoint_steps`` (JAX
+        system.py:292-384): ``global_step``, the int64 ``confusion_matrix``
+        over ``Neval // Nb`` batches of ``input_fns['eval'](settings,
+        evaluation_problem_def)`` (without the void row and column unless
+        ``train_void_class``), and the metrics of
+        ``print_metrics_from_confusion_matrix``, which it also prints."""
+        s = self._settings
+        os.makedirs(self.eval_res_dir, exist_ok=True)
+        s.dump(join(self.eval_res_dir, "settings.txt"))
+        steps = checkpoint_steps(s)
+        model = self._model_fn(s.replace(mode="eval"))
+        device = next(model.parameters()).device
+        eval_fn = make_eval_step(s, model=model, tcids2ecids=self.training_cids2evaluation_cids)
+        labels = list(self.evaluation_problem_def.cids2labels)
+        void_exists = -1 in self.evaluation_problem_def.lids2cids
+        if void_exists and not s.train_void_class:
+            labels = labels[:-1]
+        # one epoch: Neval examples (reference system_factory.py:338-342)
+        num_eval_steps = max(int(s.Neval / max(s.Nb, 1)), 1)
+        all_metrics = []
+        for step in steps:
+            print(f"restored {restore_variables(model, s, step)}")
+            cm = None
+            batches = itertools.islice(self._input_fns["eval"](s, self.evaluation_problem_def),
+                                       num_eval_steps)
+            for batch in device_prefetch(_group_eval_batches(batches, 1), device):
+                bcm = eval_fn(batch["proimages"], batch["prolabels"])
+                cm = bcm if cm is None else cm + bcm
+            if cm is None:
+                raise ValueError("the eval input yielded no batch")
+            cm = cm.cpu().numpy().astype(np.int64)
+            # void row/col trim (system_factory.py:399-405)
+            if void_exists and not s.train_void_class:
+                cm = cm[:-1, :-1]
+            metrics = {"global_step": step, "confusion_matrix": cm}
+            metrics.update(print_metrics_from_confusion_matrix(cm, labels, printcmd=True))
+            all_metrics.append(metrics)
+        return all_metrics

@@ -1,7 +1,6 @@
 """Train, predict and evaluate steps of the PyTorch port.
 
-Port of iv2019_tpu/train/step.py without its test-time-augmentation and
-sliding-window branches:
+Port of iv2019_tpu/train/step.py:
 
 - ``make_train_step``: one training step of the mixed [pp | pb | pi] batch
   (step.py:104-433): train-mode forward, the hierarchical losses (fused
@@ -16,44 +15,52 @@ sliding-window branches:
   optional void replacement -> nearest resize to the label size -> the
   batch confusion matrix (step.py:436-486).
 
-The predict and eval steps run on the model's device, under
-``torch.inference_mode``.
+Both inference steps also have the JAX package's two ensembles, chosen by
+the settings as there (step.py:459-471,866-874):
+
+- test-time augmentation (``eval_scales``, ``eval_flip``): one forward per
+  scale and flip, each member's probabilities resized back and summed;
+- sliding windows (``sliding_window`` with ``eval_size``): per scale and
+  flip, (hf, wf) windows at ``window_overlap`` overlap, each window's
+  probabilities (times a ``window_blend`` weight) added into an f32 canvas
+  that is divided by the per-pixel weight sum. JAX's ``lax.scan`` over the
+  window origins is a Python loop over the same origins in the same order.
+
+Evaluation averages the factorized common-space distribution
+(models/model.py::hierarchical_common_probabilities) and takes the argmax in
+the evaluation label space; prediction averages each head on its own and
+fuses the argmaxes as the model does. The predict and eval steps run on the
+model's device, under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from iv2019_tpu_torch.config import Settings
 from iv2019_tpu_torch.losses.hierarchical import define_losses
-from iv2019_tpu_torch.models.model import build_model
+from iv2019_tpu_torch.models.model import build_model, hierarchical_common_probabilities
 from iv2019_tpu_torch.ops.confusion import batch_mean_iou, confusion_matrix
 from iv2019_tpu_torch.ops.fused_loss import define_losses_fused, fused_loss_available
-from iv2019_tpu_torch.ops.resize import resize_bilinear, resize_nearest
+from iv2019_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_mxu, resize_nearest
 from iv2019_tpu_torch.ops.segment_ops import gather_cids, remap_probabilities, segment_sum_channels
 from iv2019_tpu_torch.problem.problem_def import load_problem_def, replace_voids
 from iv2019_tpu_torch.problem.taxonomy import get_taxonomy
 from iv2019_tpu_torch.train.fused_update import FusedSGDM
 from iv2019_tpu_torch.train.state import TrainState
 
-__all__ = ["PROB_KEYS", "forward", "make_eval_step", "make_predict_step", "make_train_step",
-           "settings_eval_map"]
+__all__ = ["PROB_KEYS", "make_eval_step", "make_predict_step", "make_train_step",
+           "settings_eval_map", "window_origins", "window_weight"]
 
 PROB_KEYS = ("l1_probabilities", "l2_vehicle_probabilities", "l2_human_probabilities")
 
 
 def _device_of(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
-
-
-def forward(model: torch.nn.Module, images) -> dict:
-    """Eval-mode forward of NHWC images (tensor or numpy) on the model's device."""
-    images = torch.as_tensor(images, dtype=torch.float32, device=_device_of(model))
-    with torch.inference_mode():
-        return model(images)
 
 
 def _summary_weight_masks(labels, l1_decisions, tax, weak_ix):
@@ -222,8 +229,169 @@ def _pad_channels(probs: torch.Tensor, num: int) -> torch.Tensor:
     return F.pad(probs, (0, pad)) if pad > 0 else probs
 
 
+def _as_images(model: torch.nn.Module, images) -> torch.Tensor:
+    return torch.as_tensor(images, dtype=torch.float32, device=_device_of(model))
+
+
+def _members(settings: Settings) -> list[tuple[float, bool]]:
+    """(scale, flipped) of each ensemble member, in the JAX package's order."""
+    flips = (False, True) if settings.eval_flip else (False,)
+    return [(s, f) for s in tuple(settings.eval_scales or (1.0,)) for f in flips]
+
+
+def _scaled_size(h: int, w: int, scale: float, stride: int, floor_hw=(None, None)):
+    """The stride-multiple size of a scaled image, at least ``floor_hw``
+    (default one stride)."""
+    fh, fw = floor_hw
+    return (max(int(round(h * scale / stride)) * stride, fh or stride),
+            max(int(round(w * scale / stride)) * stride, fw or stride))
+
+
+def _flip_w(x: torch.Tensor) -> torch.Tensor:
+    return torch.flip(x, dims=(2,))
+
+
+def _ensemble_sums(settings: Settings, model, probs_fn: Callable) -> Optional[Callable]:
+    """images -> for each tensor ``probs_fn(model(...))`` returns, its sum
+    over the ensemble's members at the input size: sliding windows with
+    ``sliding_window``, else test-time augmentation when ``eval_scales`` is
+    not (1.0,) or ``eval_flip`` is set; None for a plain forward
+    (step.py:459-471,866-874)."""
+    members = _members(settings)
+    if settings.sliding_window:
+        return _window_sums(settings, model, probs_fn, members)
+    if members != [(1.0, False)]:
+        return _tta_sums(settings, model, probs_fn, members)
+    return None
+
+
+def _tta_sums(settings: Settings, model, probs_fn, members) -> Callable:
+    """Each member rescales the image to a stride multiple (and flips it),
+    and its probabilities are flipped back and resized to the input size
+    (step.py:489-536,730-764)."""
+    stride = settings.stride_feature_extractor
+
+    def compute(images):
+        h, w = images.shape[1], images.shape[2]
+        acc = None
+        for scale, do_flip in members:
+            sh, sw = _scaled_size(h, w, scale, stride)
+            im = _flip_w(images) if do_flip else images
+            if (sh, sw) != (h, w):
+                im = resize_bilinear_mxu(im, (sh, sw), align_corners=True)
+            member = []
+            for p in probs_fn(model(im)):
+                if do_flip:
+                    p = _flip_w(p)
+                if (sh, sw) != (h, w):
+                    p = resize_bilinear_mxu(p, (h, w), align_corners=True)
+                member.append(p)
+            acc = member if acc is None else [a + m for a, m in zip(acc, member)]
+        return acc
+
+    return compute
+
+
+def window_origins(full: int, win: int, overlap: float) -> list[int]:
+    """Window start offsets covering [0, full): windows of ``win`` advance by
+    ``win * (1 - overlap)``, the last one flush with the edge (step.py:539)."""
+    if win >= full:
+        return [0]
+    stride = max(int(round(win * (1.0 - overlap))), 1)
+    origins = list(range(0, full - win + 1, stride))
+    if origins[-1] != full - win:
+        origins.append(full - win)
+    return origins
+
+
+def window_weight(wh: int, ww: int, blend: str) -> np.ndarray:
+    """(wh, ww, 1) f32 weight of each window pixel (step.py:556): 1 for
+    ``uniform``; for ``gaussian`` a separable bump with sigma = size / 8,
+    peak 1, floored at 1e-3."""
+    if blend == "uniform":
+        return np.ones((wh, ww, 1), np.float32)
+    if blend != "gaussian":
+        raise ValueError(f"unknown window_blend {blend!r}")
+
+    def axis(n):
+        c = (n - 1) / 2.0
+        sigma = n / 8.0
+        return np.exp(-0.5 * ((np.arange(n) - c) / sigma) ** 2)
+
+    w = axis(wh)[:, None] * axis(ww)[None, :]
+    return np.maximum(w / w.max(), 1e-3).astype(np.float32)[..., None]
+
+
+def _window_plans(settings: Settings, full_hw, scales):
+    """Per scale (sh, sw, origins, count): the image rescaled to a stride
+    multiple of at least the window, the (y, x) window origins (int32), and
+    the per-pixel sum of window weights (f32 (sh, sw, 1)); and the weight
+    map (step.py:581-610)."""
+    wh, ww = settings.height_feature_extractor, settings.width_feature_extractor
+    stride = settings.stride_feature_extractor
+    eh, ew = full_hw
+    weight = window_weight(wh, ww, settings.window_blend)
+    plans = []
+    for s in scales:
+        sh, sw = _scaled_size(eh, ew, s, stride, (wh, ww))
+        oys = window_origins(sh, wh, settings.window_overlap)
+        oxs = window_origins(sw, ww, settings.window_overlap)
+        origins = np.array([(y, x) for y in oys for x in oxs], np.int32)
+        count = np.zeros((sh, sw, 1), np.float32)
+        for oy, ox in origins:
+            count[oy:oy + wh, ox:ox + ww] += weight
+        plans.append((sh, sw, origins, count))
+    return plans, weight
+
+
+def _window_sums(settings: Settings, model, probs_fn, members) -> Callable:
+    """Each member rescales the eval_size image (at least to the window) and
+    flips it, adds each (hf, wf) window's weighted probabilities into f32
+    canvases, divides them by the per-pixel weight sums, flips back and
+    resizes to eval_size (step.py:613-696,767-840)."""
+    wh, ww = settings.height_feature_extractor, settings.width_feature_extractor
+    eh, ew = settings.eval_size
+    scales = list(dict.fromkeys(s for s, _ in members))
+    plans, wmap = _window_plans(settings, (eh, ew), scales)
+    device = _device_of(model)
+    weight = torch.as_tensor(wmap, device=device)
+    plans = {s: (sh, sw, origins.tolist(), torch.as_tensor(count, device=device))
+             for s, (sh, sw, origins, count) in zip(scales, plans)}
+
+    def compute(images):
+        acc = None
+        for scale, do_flip in members:
+            sh, sw, origins, count = plans[scale]
+            im = _flip_w(images) if do_flip else images
+            if (sh, sw) != (eh, ew):
+                im = resize_bilinear_mxu(im, (sh, sw), align_corners=True)
+            canvases = None
+            for oy, ox in origins:
+                probs = probs_fn(model(im[:, oy:oy + wh, ox:ox + ww]))
+                if canvases is None:
+                    canvases = [torch.zeros((images.shape[0], sh, sw, p.shape[-1]),
+                                            dtype=torch.float32, device=device) for p in probs]
+                for canvas, p in zip(canvases, probs):
+                    canvas[:, oy:oy + wh, ox:ox + ww] += p.float() * weight
+            member = []
+            for canvas in canvases:
+                p = canvas / count
+                if do_flip:
+                    p = _flip_w(p)
+                if (sh, sw) != (eh, ew):
+                    p = resize_bilinear_mxu(p, (eh, ew), align_corners=True)
+                member.append(p)
+            acc = member if acc is None else [a + m for a, m in zip(acc, member)]
+        return acc
+
+    return compute
+
+
 def make_eval_step(settings: Settings, model=None, tcids2ecids=None) -> Callable:
-    """Returns eval_step(images, prolabels) -> (K', K') int64 confusion matrix."""
+    """Returns eval_step(images, prolabels) -> (K', K') int64 confusion matrix.
+
+    With an ensemble (``_ensemble_sums``) the decisions are the argmax, in
+    the evaluation label space, of the summed common-space probabilities."""
     settings = settings.replace(mode="eval")
     model = model or build_model(settings)
     if tcids2ecids is None:
@@ -233,33 +401,74 @@ def make_eval_step(settings: Settings, model=None, tcids2ecids=None) -> Callable
     tax = get_taxonomy(settings.per_pixel_dataset_name)
     # L1 -> common -> eval, so the probability remap matches the fused decisions
     l1_cids2ecids = [tcids2ecids[c] for c in tax.l1_cids2common_cids]
+    ensemble = _ensemble_sums(settings, model,
+                              lambda preds: [hierarchical_common_probabilities(preds, tax)])
 
     def eval_step(images, prolabels) -> torch.Tensor:
-        preds = forward(model, images)
-        prolabels = torch.as_tensor(prolabels, device=preds["decisions"].device)
-        decs = gather_cids(tcids2ecids, preds["decisions"])
-        if settings.replace_voids:
-            l1_probs = remap_probabilities(preds["l1_probabilities"], l1_cids2ecids)
-            decs = _replace_void_decisions(_pad_channels(l1_probs, num_eval_classes), decs)
-        decs = resize_nearest(decs, prolabels.shape[1:3], align_corners=True)
-        return confusion_matrix(prolabels, decs, num_eval_classes)
+        images = _as_images(model, images)
+        prolabels = torch.as_tensor(prolabels, device=images.device)
+        with torch.inference_mode():
+            if ensemble is None:
+                preds = model(images)
+                decs = gather_cids(tcids2ecids, preds["decisions"])
+                probs_e = (_pad_channels(remap_probabilities(preds["l1_probabilities"],
+                                                             l1_cids2ecids), num_eval_classes)
+                           if settings.replace_voids else None)
+            else:
+                (common,) = ensemble(images)
+                probs_e = _pad_channels(remap_probabilities(common, tcids2ecids),
+                                        num_eval_classes)
+                decs = torch.argmax(probs_e, dim=-1).int()
+            if settings.replace_voids:
+                decs = _replace_void_decisions(probs_e, decs)
+            decs = resize_nearest(decs, prolabels.shape[1:3], align_corners=True)
+            return confusion_matrix(prolabels, decs, num_eval_classes)
 
     return eval_step
 
 
 def make_predict_step(settings: Settings, output_size: Optional[tuple[int, int]] = None,
                       model=None) -> Callable:
-    """Returns predict_step(images) -> dict of the four predict outputs (NHWC)."""
+    """Returns predict_step(images) -> dict of the four predict outputs (NHWC).
+
+    With an ensemble (``_ensemble_sums``) the head probabilities are the
+    members' means and the decisions their argmaxes fused as the model fuses
+    them (step.py:866-913); sliding windows take only eval_size images."""
     settings = settings.replace(mode="predict")
     model = model or build_model(settings)
     if output_size is None and settings.height_system and settings.width_system:
         output_size = (settings.height_system, settings.width_system)
     tax = get_taxonomy(settings.per_pixel_dataset_name)
+    ensemble = _ensemble_sums(settings, model, lambda preds: [preds[k] for k in PROB_KEYS])
+    num_members = len(_members(settings))
+
+    def _fuse(l1p, vehp, hump):
+        # the model's two-level decision fusion over the averaged heads
+        l1_decs = torch.argmax(l1p, -1).int()
+        return torch.where(
+            l1_decs == tax.cid_l1_vehicle,
+            gather_cids(tax.l2_vehicle_cids2common_cids, torch.argmax(vehp, -1)),
+            torch.where(
+                l1_decs == tax.cid_l1_human,
+                gather_cids(tax.l2_human_cids2common_cids, torch.argmax(hump, -1)),
+                gather_cids(tax.l1_cids2common_cids, l1_decs),
+            ),
+        )
 
     def predict_step(images) -> dict:
-        preds = forward(model, images)
-        out = {k: preds[k] for k in PROB_KEYS + ("decisions",)}
+        images = _as_images(model, images)
+        if settings.sliding_window and tuple(images.shape[1:3]) != tuple(settings.eval_size):
+            raise ValueError(f"sliding-window predict compiled for eval_size {settings.eval_size} "
+                             f"but got images of {tuple(images.shape[1:3])}; the predict "
+                             "pipeline must resize to eval_size")
         with torch.inference_mode():
+            if ensemble is None:
+                preds = model(images)
+                out = {k: preds[k] for k in PROB_KEYS + ("decisions",)}
+            else:
+                heads = [a / num_members for a in ensemble(images)]
+                out = dict(zip(PROB_KEYS, heads))
+                out["decisions"] = _fuse(*heads)
             if output_size is not None:
                 for k in PROB_KEYS:
                     out[k] = resize_bilinear(out[k], output_size, align_corners=True)

@@ -35,7 +35,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "iv2019_tpu_torch.input.prefetch", "iv2019_tpu_torch.utils.checkpoint",
                  "iv2019_tpu_torch.utils.tb_writer", "iv2019_tpu_torch.utils.util_zip",
                  "iv2019_tpu_torch.train.loop", "iv2019_tpu_torch.system",
-                 "iv2019_tpu_torch.train_cli"):
+                 "iv2019_tpu_torch.train_cli", "iv2019_tpu_torch.evaluate_cli",
+                 "iv2019_tpu_torch.input.tfrecord_writer", "iv2019_tpu_torch.input.vistas",
+                 "iv2019_tpu_torch.tools.make_tfrecords"):
         assert name in result["imported"], name
     loaded = result["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.") or m == "jaxlib"

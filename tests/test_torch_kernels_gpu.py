@@ -10,7 +10,9 @@ the 4-tap blend done as separate tensor multiplies and adds, gradients
 1e-4 of the largest; update vectors 1e-6 of the largest, reg 1e-5
 relative; root-conv wgrad within 1e-4 of the largest |dW| (the same bf16
 products, f32 sums in another order). The fused-loss forward and backward
-and the root-conv wgrad must also give the same bits on two launches.
+and the root-conv wgrad must also give the same bits on two launches. The
+fused units are also checked at the feature maps evaluation gives them, and
+one evaluate on the card is held to the same evaluate on the CPU.
 """
 
 import numpy as np
@@ -286,3 +288,57 @@ def test_root_wgrad_is_deterministic_on_card(x_shape, cout, k, channels_last):
     first, second = root_conv_wgrad(x, dy, k, 2), root_conv_wgrad(x, dy, k, 2)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+def _eval_unit_cases():
+    """(wrapper, unit, n, h, w, C, M, rate) of every trunk unit the dispatch
+    rule fuses at the feature maps evaluation gives the fused units (TTA
+    scales 0.75 and 1.25, the 1024x2048 eval size, batch 2)."""
+    import chip_smoke
+
+    return [(chip_smoke.fused_wrapper(n, h, w, c, m, rate), unit, n, h, w, c, m, rate)
+            for n, h, w in chip_smoke.EVAL_MAPS for unit, c, m, rate, _ in chip_smoke.TRUNK_UNITS
+            if chip_smoke.fused_wrapper(n, h, w, c, m, rate) is not None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrapper,unit,n,h,w,c,m,rate", _eval_unit_cases())
+def test_kernel_matches_plain_on_card_at_eval_shapes(wrapper, unit, n, h, w, c, m, rate):
+    _check_unit(wrapper, n, h, w, c, m, rate)
+
+
+@pytest.mark.gpu
+def test_evaluate_on_card_matches_the_cpu(tmp_path, monkeypatch):
+    """evaluate_cli on a 2-step small-stack run at 64x64 with --fused_block
+    (bf16; B5 fuses three units a forward there): on the card it launches
+    the kernel and its matrix equals the CPU's (plain version) but for the
+    pixels whose decision flipped, each moving two entries. The flip rule
+    of the f32 parity tests (0.1%) is for f32; here both sides compute in
+    bf16 and round each conv output once, in other orders, on a 2-step
+    net whose heads are near-uniform: 0.16% flipped on an H100 80GB HBM3,
+    so the bound is 0.5%."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from iv2019_tpu_torch import evaluate_cli, train_cli
+    from iv2019_tpu_torch.models import resnet
+
+    # the small stack of tests/torch_parity.py (which imports JAX)
+    monkeypatch.setitem(resnet.FEATURE_EXTRACTOR_BLOCKS, "resnet_v1_50",
+                        ((2, 128, 128), (2, 256, 128), (2, 256, 128)))
+    log = tmp_path / "log"
+    train_cli.main([str(log), "cityscapes", "--synthetic_data", "--device", "cpu",
+                    "--height_feature_extractor", "64", "--width_feature_extractor", "64",
+                    "--feature_dims_decreased", "64", "--Nb_per_pixel", "1",
+                    "--Nb_per_bbox", "1", "--Nb_per_image", "1", "--Ntrain", "2", "--Ne", "1",
+                    "--learning_rate_boundaries", "1", "--learning_rate_values", "0.01",
+                    "--input_seed", "3"])
+    problem = "iv2019_tpu_torch/problem_definitions/cityscapes/problem01.json"
+    argv = [str(log), "8", problem, "--synthetic_data", "--fused_block", "--Nb", "2",
+            "--height_feature_extractor", "64", "--width_feature_extractor", "64"]
+    before = tb.fused_bottleneck_ct.launches
+    (on_card,) = evaluate_cli.main(argv)
+    assert tb.fused_bottleneck_ct.launches - before == 3 * 4
+    (on_cpu,) = evaluate_cli.main(argv + ["--device", "cpu"])
+    assert on_card["global_step"] == on_cpu["global_step"] == 2
+    diff = np.abs(on_card["confusion_matrix"] - on_cpu["confusion_matrix"]).sum()
+    assert diff <= 2 * 0.005 * 8 * 64 * 64

@@ -7,6 +7,8 @@ with the JAX pipeline's to 1e-6 (uint8 scaling by 1/255 vs the reference's
 native decode, same TF1 resize tables).
 """
 
+import os
+
 import numpy as np
 import pytest
 from PIL import Image
@@ -246,12 +248,22 @@ def test_checkpoint_steps_without_a_run(tmp_path):
         checkpoint_steps(Settings(log_dir=str(tmp_path), ckpt_path="latest"))
 
 
-def test_system_evaluate_still_refuses(trained):
+def test_system_evaluate_still_refuses(trained, small_trunk):
+    """SemanticSegmentation.evaluate runs on the trained run: the latest
+    checkpoint over synthetic eval batches, one metrics dict."""
     from iv2019_tpu_torch.config import Settings
+    from iv2019_tpu_torch.input.cityscapes import evaluate_input
+    from iv2019_tpu_torch.models.model import build_model
     from iv2019_tpu_torch.system import SemanticSegmentation
 
     _, log, _ = trained
-    system = SemanticSegmentation({}, settings=Settings(
-        log_dir=str(log), training_problem_def_path=PROBLEM))
-    with pytest.raises(NotImplementedError, match="A10a"):
-        system.evaluate()
+    system = SemanticSegmentation({"eval": evaluate_input}, model_fn=build_model, settings=Settings(
+        log_dir=str(log), training_problem_def_path=PROBLEM, device="cpu",
+        compute_dtype="float32", feature_dims_decreased=SMALL_FDIMS, height_feature_extractor=64,
+        width_feature_extractor=64, synthetic_data=True, Neval=2, Nb=1))
+    (metrics,) = system.evaluate()
+    assert metrics["global_step"] == 2
+    assert metrics["confusion_matrix"].shape == (19, 19)
+    assert 0 < metrics["confusion_matrix"].sum() <= 2 * 64 * 64
+    assert {"global_accuracy", "mean_accuracy", "mean_iou"} <= metrics.keys()
+    assert os.path.isfile(os.path.join(system.eval_res_dir, "settings.txt"))

@@ -136,7 +136,10 @@ def test_system_derives_what_the_jax_system_does(tmp_path):
     assert list(got.training_cids2evaluation_cids) == list(want.training_cids2evaluation_cids)
     assert got.eval_res_dir == want.eval_res_dir == os.path.join(str(tmp_path), "eval_04")
     assert got.settings.num_training_steps == want.settings.num_training_steps
-    with pytest.raises(NotImplementedError, match="A10"):
-        got.evaluate()
+    # evaluate runs: with no saved step to sweep it writes eval_04's settings
+    sweep = SemanticSegmentation({}, settings=settings.replace(
+        training_problem_def_path=port_json, eval_all_ckpts=True))
+    assert sweep.evaluate() == []
+    assert os.path.isfile(os.path.join(str(tmp_path), "eval_04", "settings.txt"))
     with pytest.raises(FileNotFoundError, match="no checkpoint"):  # the log dir holds no run
         next(got.predict())

@@ -130,10 +130,11 @@ def flax_path_to_tf_name(path):
     return _cnr_name(module, rest)
 
 
-def write_trained_npz(path, variables, seed=7, with_ema=True):
+def write_trained_npz(path, variables, seed=7, with_ema=True, own_values=False):
     """An .npz of the reference's trained-checkpoint names for ``variables``:
-    raw values, EMA shadows for every param (not BN moving stats), and
-    optimizer junk. Returns the path."""
+    raw values (random, or with ``own_values`` the variables' own), EMA
+    shadows for every param (not BN moving stats), and optimizer junk.
+    Returns the path."""
     rng = np.random.RandomState(seed)
     arrays = {"global_step": np.asarray(10)}
     flat = flax.traverse_util.flatten_dict(
@@ -143,6 +144,8 @@ def write_trained_npz(path, variables, seed=7, with_ema=True):
         value = (rng.randn(*v.shape) * 0.05).astype(np.float32)
         if p[-1] == "var":
             value = np.abs(value) + 0.5
+        if own_values:
+            value = np.asarray(v, np.float32)
         arrays[name] = value
         if with_ema and p[0] == "params":
             arrays[f"exponential_moving_averages/{name}/ExponentialMovingAverage"] = value + 1.0
