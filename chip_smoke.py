@@ -6,7 +6,9 @@ Phases, each of which fails the run on its own:
 
 1. build: compiles the port's CUDA sources (``iv2019_tpu_torch/csrc``).
 2. kernels: each hand-written kernel against its plain PyTorch version at
-   the shapes the flagship predict and train paths give it, with times;
+   the shapes the flagship predict and train paths give it, with times
+   (B1, B2 and B6 at one microbatch of the real-format run, 2 + 6 images,
+   and at the synthetic run's 4 + 12);
    for the fused units also the device times of their two kernels apart,
    the achieved TFLOP/s and the share of the bound. The fused-loss kernels
    (B1, B2) are also checked at ragged shapes, at the Vistas head widths
@@ -58,6 +60,28 @@ Phases, each of which fails the run on its own:
    one forward's common-space argmax. Then, for plain, TTA and windowed
    eval steps: ms per image, device busy and idle share, peak memory.
 
+8. real-format train: the training run on input in the real formats,
+   written by the port's ``tools/synthetic_scenes.py`` at 512x1024 (per-pixel
+   TFRecords, JPEG weak images, bbox and image-label pickles): decode +
+   resize per image with the native helpers and with PIL + numpy in turns
+   (fails if ``g++`` is here and the helpers did not build); the host input
+   per batch with dense host labels and with ``rasterize_on_device`` +
+   ``compact_image_labels``, in turns, and the bytes each ships;
+   ``SemanticSegmentation.train`` for 8 steps of 4 + 8 + 4 with those two,
+   all four augmentations, ``grad_accum_steps=2`` and ``root_wgrad_pallas``:
+   launch counts exact (B1, B2, B6 twice a step, B3 once), step p50/p90,
+   images/s, idle share against the device busy of the same step on one
+   batch, peak memory; on that batch the device rasterizer (bit-equal on two
+   launches and to its CPU run), each augmentation's apply on the card
+   against the CPU with the same draws, and accum=2 steps against accum=1
+   steps on their halves (two identical halves against one step on that
+   half; the batch's two halves against the mean of a step on each); then
+   ``train_cli`` at 256x512 for 2 steps with ``--augmentations
+   color,blur,flip,scale --grad_accum_steps 2``. The kernel line's
+   ``launches`` of B1, B2, B3 and B6 are this run's, and their other numbers
+   those of phase 2 at this run's shapes (``train_run_launches`` and
+   ``train_run_shape``: phase 6's).
+
 The next-to-last line is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it
 exits non-zero and prints no result.
@@ -65,6 +89,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import io
 import json
 import subprocess
 import sys
@@ -151,6 +176,10 @@ LOSS_EDGE_SHAPES = [("cityscapes", 0, 3, (5, 9), (37, 67)),
 TRAIN_NB = (4, 8, 4)
 TRAIN_HW = (512, 1024)
 TRAIN_STEPS = 8  # timed steps, after one warm-up step
+# the real-format run's grad_accum_steps, and the microbatch each of its
+# B1, B2 and B6 launches sees: the flagship batch split in two
+REAL_ACCUM = 2
+MICRO_NB = tuple(n // REAL_ACCUM for n in TRAIN_NB)
 # f32 operations per output pixel of the fused loss, counted from the
 # kernels' arithmetic: the 4-tap upsample (9 per logit), max, exp, sum and
 # the CE terms (~6 per logit), plus the weak projection and gates (~40);
@@ -163,8 +192,10 @@ UPDATE_OPS_PER_PARAM = 14
 # of the f32 sums differs, over up to 2.1M products per output (measured
 # 7.6e-6 of the largest |dW| at the flagship shape, 2.3e-7 at 2x36x70).
 WGRAD_REL_TOL = 1e-4
-# the flagship train step's root conv: x (16, 3, 512, 1024), dy (16, 64, 256, 512)
+# the root conv of the flagship train step, x (16, 3, 512, 1024) and dy
+# (16, 64, 256, 512), and of one real-format microbatch (8 images)
 WGRAD_SHAPE = ((sum(TRAIN_NB), 3) + TRAIN_HW, 64, 7)
+MICRO_WGRAD_SHAPE = ((sum(MICRO_NB), 3) + TRAIN_HW, 64, 7)
 # the train run: steps of the first run, of the resumed run, checkpoint cadence
 RUN_STEPS, RESUME_STEPS, RUN_SAVE_EVERY = 6, 8, 3
 # evaluation from the train run: examples and batch of the --eval_all_ckpts
@@ -180,6 +211,26 @@ EVAL_CM_TOL = 1e-4
 # a second set of the fused optimizer's flat buffers (26.2M f32 x 4 = 0.42
 # GB) must not stay behind per restored checkpoint
 EVAL_PEAK_GROWTH_GIB = 0.2
+# the real-format train phase: scenes written at the flagship size (enough
+# for 10 steps of 4 + 8 + 4 without repeating), steps of the
+# SemanticSegmentation run (all with grad_accum_steps=2), batches of the
+# host-input measurement per configuration and turn, images of the decode
+# measurement
+REAL_TRAIN_IMAGES, REAL_WEAK_IMAGES = 40, 80
+REAL_AUGMENTATIONS = ("color", "blur", "flip", "scale")
+REAL_STEPS, REAL_INPUT_BATCHES, REAL_DECODE_IMAGES = 8, 3, 8
+# an accum=2 step against accum=1 steps on its halves (two identical
+# halves against one step on that half; the run's batch against the mean of
+# one step on each half): each microbatch is one half, so the BatchNorm
+# statistics, losses and gradients are the same computation (only the
+# running statistics, excluded, take two updates). The averaged gradients
+# are held to the train phase's bf16 bound (one bf16 ulp of the largest
+# |gradient|, as B6's dW against cuDNN's), the losses to 1e-5 relative
+HALVES_LOSS_REL_TOL = 1e-5
+# an augmentation's apply on the card against the same apply on the CPU
+# with the same draws: labels equal, images within 1e-5 (exp, the
+# reductions and HSV round in other orders on the card)
+AUGMENT_IMAGE_ATOL = 1e-5
 
 
 def log(*args):
@@ -581,28 +632,16 @@ def compare_wgrad(x_shape, cout, k, channels_last, seed=0):
                 max_abs_err=err, rel_err=err / float(want.abs().max()), launches=launches)
 
 
-def wgrad_kernel(device):
-    """B6 at the flagship step's shape, on the root kernel's ragged edge (a
-    200-pixel row fills no 128-pixel chunk; dy in NCHW memory), and on the
-    general kernel (W = 70 is no multiple of 8), dy in NHWC and in NCHW
-    memory; two launches bit for bit; times at the flagship shape, against
-    cuDNN's wgrad of the same conv (``torch.nn.grad.conv2d_weight``) as the
-    library call."""
+def wgrad_times(x_shape, cout, k, check):
+    """B6 at one train shape: two launches bit for bit, and its times
+    beside its bound, its plain version's and cuDNN's wgrad of the same conv
+    (``torch.nn.grad.conv2d_weight``, the library call)."""
     from iv2019_tpu_torch.ops import root_wgrad as rw
 
-    x_shape, cout, k = WGRAD_SHAPE
-    checks = [compare_wgrad(x_shape, cout, k, True),
-              compare_wgrad((2, 3, 20, 400), cout, k, False),
-              compare_wgrad((2, 3, 36, 70), cout, k, True),
-              compare_wgrad((2, 3, 36, 70), cout, k, False)]
-    for check in checks:
-        log(f"kernel root_conv_wgrad {json.dumps(check)}")
-        if not check["rel_err"] <= WGRAD_REL_TOL:
-            raise AssertionError(f"root_conv_wgrad departs from its plain version: {check}")
     x, dy = wgrad_inputs(x_shape, cout, k, True)
     first, second = rw.root_conv_wgrad(x, dy, k, 2), rw.root_conv_wgrad(x, dy, k, 2)
     if not torch.equal(first, second):
-        raise AssertionError("root_conv_wgrad: two launches on the same inputs differ")
+        raise AssertionError(f"root_conv_wgrad: two launches on the same inputs differ at {x_shape}")
     del first, second
     n, c, h, w = x_shape
     pixels = n * (h // 2) * (w // 2)
@@ -610,19 +649,40 @@ def wgrad_kernel(device):
     b = bound(nbytes, 2 * k * k * c * cout * pixels, PEAK_BF16_FLOPS)
     w_shape = (cout, c, k, k)
     row = dict(
-        name="root_conv_wgrad", route="cuda", source="iv2019_tpu_torch/csrc/root_wgrad.cu",
-        replaces=REPLACES["root_conv_wgrad"], launches=None,
-        max_abs_err=checks[0]["max_abs_err"], rel_err=checks[0]["rel_err"],
+        shape=list(x_shape), max_abs_err=check["max_abs_err"], rel_err=check["rel_err"],
         ms=time_ms(lambda: rw.root_conv_wgrad(x, dy, k, 2)),
         device_ms=device_ms(lambda: rw.root_conv_wgrad(x, dy, k, 2)), bit_equal=True,
         plain_ms=time_ms(lambda: rw.root_conv_wgrad_reference(x, dy, k, 2), runs=5),
         bound_ms=b[0], bound_by=b[1],
         library_ms=time_ms(lambda: torch.nn.grad.conv2d_weight(x, w_shape, dy, 2, (k - 1) // 2)),
-        mbytes=nbytes / 1e6, gflop=2 * k * k * c * cout * pixels / 1e9,
-        per_shape=checks)
-    log(f"kernel root_conv_wgrad ms {row['ms']:.4f} device {row['device_ms']:.4f} plain {row['plain_ms']:.4f} cudnn "
-        f"{row['library_ms']:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']})")
+        mbytes=nbytes / 1e6, gflop=2 * k * k * c * cout * pixels / 1e9)
+    log(f"kernel root_conv_wgrad {n} images ms {row['ms']:.4f} device {row['device_ms']:.4f} "
+        f"plain {row['plain_ms']:.4f} cudnn {row['library_ms']:.4f} "
+        f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
     return row
+
+
+def wgrad_kernel(device):
+    """B6 at one real-format microbatch's shape (the kernel line's numbers)
+    and at the flagship step's (``train_run_shape``), on the root kernel's
+    ragged edge (a 200-pixel row fills no 128-pixel chunk; dy in NCHW
+    memory), and on the general kernel (W = 70 is no multiple of 8), dy in
+    NHWC and in NCHW memory; bit-equality and times at the two train
+    shapes."""
+    x_shape, cout, k = WGRAD_SHAPE
+    checks = [compare_wgrad(MICRO_WGRAD_SHAPE[0], cout, k, True),
+              compare_wgrad(x_shape, cout, k, True),
+              compare_wgrad((2, 3, 20, 400), cout, k, False),
+              compare_wgrad((2, 3, 36, 70), cout, k, True),
+              compare_wgrad((2, 3, 36, 70), cout, k, False)]
+    for check in checks:
+        log(f"kernel root_conv_wgrad {json.dumps(check)}")
+        if not check["rel_err"] <= WGRAD_REL_TOL:
+            raise AssertionError(f"root_conv_wgrad departs from its plain version: {check}")
+    return dict(name="root_conv_wgrad", route="cuda", source="iv2019_tpu_torch/csrc/root_wgrad.cu",
+                replaces=REPLACES["root_conv_wgrad"], launches=None,
+                **wgrad_times(MICRO_WGRAD_SHAPE[0], cout, k, checks[0]),
+                train_run_shape=wgrad_times(x_shape, cout, k, checks[1]), per_shape=checks)
 
 
 def bound(nbytes, ops, peak_ops):
@@ -630,26 +690,108 @@ def bound(nbytes, ops, peak_ops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def train_kernels(device):
-    """B1, B2 and B3 against their plain versions at the train step's
-    shapes: 16 images at 64x128 -> 512x1024, Cityscapes heads, one-hot weak
-    labels; the update over the full model's parameter count. No single
-    PyTorch call computes any of them, so library_ms is null."""
-    from iv2019_tpu_torch.models.model import HierarchicalSegmentationModel
-    from iv2019_tpu_torch.ops import fused_loss as fl
-    from iv2019_tpu_torch.ops import fused_update as fu
-    from iv2019_tpu_torch.problem.taxonomy import get_taxonomy
+def _scratch(fn):
+    """Device memory one call takes besides its outputs (the caching
+    allocator hands out a cached block whole when less than 1 MiB of it
+    would be left over, so up to 1 MiB per output shows here as rounding),
+    and whether it gave the bits of the call before it."""
+    first = fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    second = fn()
+    torch.cuda.synchronize()
+    nbytes = (torch.cuda.max_memory_allocated() - before
+              - sum(t.numel() * t.element_size() for t in second))
+    return nbytes, all(torch.equal(a, b) for a, b in zip(first, second))
 
-    tax = get_taxonomy("cityscapes")
-    n_pp, n_weak = TRAIN_NB[0], TRAIN_NB[1] + TRAIN_NB[2]
+
+def loss_shape(tax, n_pp, n_weak, device):
+    """B1 and B2 on n_pp per-pixel and n_weak weak images at 64x128 ->
+    512x1024: against their plain versions (also with labels 3 elements off
+    16 bytes), two launches bit for bit, the scratch each takes, and their
+    times beside their bounds. Returns the fwd and bwd rows' fields."""
+    from iv2019_tpu_torch.ops import fused_loss as fl
+
     in_hw, out_hw = (TRAIN_HW[0] // 8, TRAIN_HW[1] // 8), TRAIN_HW
     args = loss_inputs(np.random.RandomState(3), tax, n_pp, n_weak, in_hw, out_hw, device)
     # cotangents of the sums at the scale of 1 / (labelled pixels)
     g3 = torch.tensor([1 / 1e6, 0.1 / 1e6, 0.1 / 1e6], device=device)
-    check = compare_loss(tax, args, out_hw, g3)
-    log(f"kernel fused_loss {json.dumps(check)}")
-    if not loss_ok(check):
-        raise AssertionError(f"fused loss departs from its plain version: {check}")
+    shape = dict(n_pp=n_pp, n_weak=n_weak, in_hw=list(in_hw), out_hw=list(out_hw))
+    checks = []
+    for offset in (0, 3):
+        check = compare_loss(tax, unaligned_labels(args, offset) if offset else args, out_hw, g3)
+        check.update(shape, label_offset=offset)
+        log(f"kernel fused_loss {json.dumps(check)}")
+        if not loss_ok(check):
+            raise AssertionError(f"fused loss departs from its plain version: {check}")
+        checks.append(check)
+    # B1's per-block partial sums are its only scratch (6 floats a block); the
+    # B2 scratch this guards against was N x H x w x C floats, 100 MB at 16
+    # images
+    fwd_scratch, fwd_equal = _scratch(lambda: fl.fused_loss_fwd(*args, tax=tax, out_hw=out_hw))
+    bwd_scratch, bwd_equal = _scratch(lambda: fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw))
+    if not (fwd_equal and bwd_equal):
+        raise AssertionError(f"two launches on the same inputs differ at {shape}: "
+                             f"B1 {not fwd_equal}, B2 {not bwd_equal}")
+    if max(bwd_scratch, fwd_scratch) > 8 * 2**20:
+        raise AssertionError(f"fused loss scratch at {shape}: B1 {fwd_scratch}, "
+                             f"B2 {bwd_scratch} bytes")
+    heads = (tax.num_l1_classes, tax.num_vehicle_classes, tax.num_human_classes)
+    plan = fl._bwd_plan(*in_hw, *out_hw, heads)
+    fplan = fl._fwd_plan(*in_hw, *out_hw, heads)
+    n = n_pp + n_weak
+    pixels = n * out_hw[0] * out_hw[1]
+    c_tot = sum(heads)
+    in_bytes = sum(t.numel() * t.element_size() for t in args)
+    logit_bytes = sum(t.numel() * t.element_size() for t in args[:3])
+    fwd_bytes, bwd_bytes = in_bytes + 2 * pixels * 4, in_bytes + logit_bytes
+    fwd_bound = bound(fwd_bytes, pixels * (LOSS_FWD_OPS_PER_LOGIT * c_tot + LOSS_OPS_PER_PIXEL),
+                      PEAK_F32_FLOPS)
+    bwd_bound = bound(bwd_bytes, pixels * (LOSS_BWD_OPS_PER_LOGIT * c_tot + LOSS_OPS_PER_PIXEL),
+                      PEAK_F32_FLOPS)
+    fwd = dict(
+        shape, max_abs_err=checks[0]["sums_max_abs_err"],
+        ms=time_ms(lambda: fl.fused_loss_fwd(*args, tax=tax, out_hw=out_hw)),
+        device_ms=device_ms(lambda: fl.fused_loss_fwd(*args, tax=tax, out_hw=out_hw)),
+        bit_equal=True, scratch_bytes=fwd_scratch, smem_bytes=fplan.smem_bytes,
+        blocks=fplan.slots(n), threads=fplan.threads,
+        plain_ms=time_ms(lambda: fl.fused_loss_fwd_plain(*args, tax=tax, out_hw=out_hw), runs=5),
+        bound_ms=fwd_bound[0], bound_by=fwd_bound[1], mbytes=fwd_bytes / 1e6,
+        sums_rel_err=checks[0]["sums_rel_err"], decisions_equal=checks[0]["decisions_equal"],
+        l1_decisions_equal=checks[0]["l1_decisions_equal"],
+        tap_decisions_equal=checks[0]["tap_decisions_equal"])
+    bwd = dict(
+        shape, max_abs_err=checks[0]["grad_max_abs_err"],
+        ms=time_ms(lambda: fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw)),
+        device_ms=device_ms(lambda: fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw)),
+        bit_equal=True, scratch_bytes=bwd_scratch, smem_bytes=plan.smem_bytes,
+        blocks=len(plan.chunks) * len(plan.bands) * n, threads=plan.threads,
+        plain_ms=time_ms(lambda: fl.fused_loss_bwd_plain(g3, *args, tax=tax, out_hw=out_hw),
+                         runs=5),
+        bound_ms=bwd_bound[0], bound_by=bwd_bound[1], mbytes=bwd_bytes / 1e6,
+        grad_rel_err=checks[0]["grad_rel_err"])
+    for name, r in (("fused_loss_fwd", fwd), ("fused_loss_bwd", bwd)):
+        log(f"kernel {name} {n_pp}+{n_weak} images ms {r['ms']:.4f} device {r['device_ms']:.4f} "
+            f"plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} ({r['bound_by']})")
+    return fwd, bwd
+
+
+def train_kernels(device):
+    """B1, B2 and B3 against their plain versions at the train paths'
+    shapes, Cityscapes heads, one-hot weak labels: B1 and B2 on one
+    microbatch of the real-format run (2 + 6 images at 64x128 -> 512x1024,
+    the kernel line's numbers) and on the synthetic run's whole batch (4 +
+    12 images, ``train_run_shape``), and at ragged edge shapes; the update
+    over the full model's parameter count. No single PyTorch call computes
+    any of them, so library_ms is null."""
+    from iv2019_tpu_torch.models.model import HierarchicalSegmentationModel
+    from iv2019_tpu_torch.ops import fused_update as fu
+    from iv2019_tpu_torch.problem.taxonomy import get_taxonomy
+
+    tax = get_taxonomy("cityscapes")
+    path = loss_shape(tax, MICRO_NB[0], MICRO_NB[1] + MICRO_NB[2], device)
+    flagship = loss_shape(tax, TRAIN_NB[0], TRAIN_NB[1] + TRAIN_NB[2], device)
     edge_checks = []
     # the edge shapes, then label views that start 1-3 elements off 16 bytes
     # (B1 and B2 copy label rows from the address rounded down to 16 bytes)
@@ -667,78 +809,14 @@ def train_kernels(device):
         if not loss_ok(e_check):
             raise AssertionError(f"fused loss departs from its plain version: {e_check}")
         edge_checks.append(e_check)
-    check_off = compare_loss(tax, unaligned_labels(args, 3), out_hw, g3)
-    check_off.update(label_offset=3)
-    log(f"kernel fused_loss flagship, labels 3 elements off 16 bytes: {json.dumps(check_off)}")
-    if not loss_ok(check_off):
-        raise AssertionError(f"fused loss departs from its plain version: {check_off}")
-    edge_checks.append(check_off)
-
-    def scratch(fn):
-        """Device memory one call takes besides its outputs (the caching
-        allocator hands out a cached block whole when less than 1 MiB of it
-        would be left over, so up to 1 MiB per output shows here as
-        rounding), and whether it gave the bits of the call before it."""
-        first = fn()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        second = fn()
-        torch.cuda.synchronize()
-        nbytes = (torch.cuda.max_memory_allocated() - before
-                  - sum(t.numel() * t.element_size() for t in second))
-        return nbytes, all(torch.equal(a, b) for a, b in zip(first, second))
-
-    # B1's per-block partial sums are its only scratch (6 floats a block); the
-    # B2 scratch this guards against was N x H x w x C floats, 100 MB here
-    fwd_scratch, fwd_equal = scratch(lambda: fl.fused_loss_fwd(*args, tax=tax, out_hw=out_hw))
-    scratch_bytes, bwd_equal = scratch(lambda: fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw))
-    if not (fwd_equal and bwd_equal):
-        raise AssertionError(f"two launches on the same inputs differ: B1 {not fwd_equal}, "
-                             f"B2 {not bwd_equal}")
-    if max(scratch_bytes, fwd_scratch) > 8 * 2**20:
-        raise AssertionError(f"fused loss scratch: B1 {fwd_scratch}, B2 {scratch_bytes} bytes")
-    heads = (tax.num_l1_classes, tax.num_vehicle_classes, tax.num_human_classes)
-    plan = fl._bwd_plan(*in_hw, *out_hw, heads)
-    fplan = fl._fwd_plan(*in_hw, *out_hw, heads)
-    n = args[0].shape[0]
-    pixels = n * out_hw[0] * out_hw[1]
-    c_tot = tax.num_l1_classes + tax.num_vehicle_classes + tax.num_human_classes
-    in_bytes = sum(t.numel() * t.element_size() for t in args)
-    logit_bytes = sum(t.numel() * t.element_size() for t in args[:3])
-    fwd_bytes, bwd_bytes = in_bytes + 2 * pixels * 4, in_bytes + logit_bytes
-    fwd_bound = bound(fwd_bytes, pixels * (LOSS_FWD_OPS_PER_LOGIT * c_tot + LOSS_OPS_PER_PIXEL),
-                      PEAK_F32_FLOPS)
-    bwd_bound = bound(bwd_bytes, pixels * (LOSS_BWD_OPS_PER_LOGIT * c_tot + LOSS_OPS_PER_PIXEL),
-                      PEAK_F32_FLOPS)
     common = dict(route="cuda", source="iv2019_tpu_torch/csrc/fused_loss.cu", launches=None,
-                  library_ms=None)
+                  library_ms=None, per_shape=edge_checks)
     results = [
-        dict(name="fused_loss_fwd", replaces=REPLACES["fused_loss_fwd"], **common,
-             max_abs_err=check["sums_max_abs_err"],
-             ms=time_ms(lambda: fl.fused_loss_fwd(*args, tax=tax, out_hw=out_hw)),
-             device_ms=device_ms(lambda: fl.fused_loss_fwd(*args, tax=tax, out_hw=out_hw)),
-             bit_equal=True, scratch_bytes=fwd_scratch, smem_bytes=fplan.smem_bytes,
-             blocks=fplan.slots(n), threads=fplan.threads, per_shape=edge_checks,
-             plain_ms=time_ms(lambda: fl.fused_loss_fwd_plain(*args, tax=tax, out_hw=out_hw),
-                              runs=5),
-             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], mbytes=fwd_bytes / 1e6,
-             sums_rel_err=check["sums_rel_err"], decisions_equal=check["decisions_equal"],
-             l1_decisions_equal=check["l1_decisions_equal"],
-             tap_decisions_equal=check["tap_decisions_equal"]),
-        dict(name="fused_loss_bwd", replaces=REPLACES["fused_loss_bwd"], **common,
-             max_abs_err=check["grad_max_abs_err"],
-             ms=time_ms(lambda: fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw)),
-             device_ms=device_ms(lambda: fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw)),
-             bit_equal=True, scratch_bytes=scratch_bytes, smem_bytes=plan.smem_bytes,
-             blocks=len(plan.chunks) * len(plan.bands) * n, threads=plan.threads,
-             per_shape=edge_checks,
-             plain_ms=time_ms(lambda: fl.fused_loss_bwd_plain(g3, *args, tax=tax, out_hw=out_hw),
-                              runs=5),
-             bound_ms=bwd_bound[0], bound_by=bwd_bound[1], mbytes=bwd_bytes / 1e6,
-             grad_rel_err=check["grad_rel_err"]),
+        dict(name="fused_loss_fwd", replaces=REPLACES["fused_loss_fwd"], **common, **path[0],
+             train_run_shape=flagship[0]),
+        dict(name="fused_loss_bwd", replaces=REPLACES["fused_loss_bwd"], **common, **path[1],
+             train_run_shape=flagship[1]),
     ]
-    del args
 
     num_params = sum(p.numel() for p in HierarchicalSegmentationModel(tax).parameters())
     uargs = update_inputs(num_params, device)
@@ -1673,6 +1751,348 @@ def predict_from_run_phase(log_dir, state, problem, device="cuda"):
     return out
 
 
+def _batch_bytes(batch):
+    return sum(v.nbytes for v in batch.values() if isinstance(v, np.ndarray))
+
+
+def _real_settings(data, problem, device, log_dir="", **kw):
+    """The flagship train settings on the scenes' files with the slice's
+    four options and B6."""
+    from iv2019_tpu_torch.config import Settings
+
+    (npp, npb, npi), (h, w) = TRAIN_NB, TRAIN_HW
+    base = dict(
+        device=device.type, mode="train", log_dir=log_dir, training_problem_def_path=problem,
+        tfrecords_path_per_pixel=data["tfrecords_train"],
+        openimages_image_dir=data["openimages_image_dir"],
+        openimages_bboxes_path=data["openimages_bboxes_path"],
+        openimages_image_labels_path=data["openimages_image_labels_path"], input_seed=0,
+        rasterize_on_device=True, compact_image_labels=True, augmentations=REAL_AUGMENTATIONS,
+        grad_accum_steps=REAL_ACCUM, root_wgrad_pallas=True, height_feature_extractor=h,
+        width_feature_extractor=w, Nb=npp, Nb_per_pixel=npp, Nb_per_bbox=npb, Nb_per_image=npi)
+    return Settings(**dict(base, **kw)).finalize()
+
+
+def host_input_turns(data, problem, device):
+    """ms per batch of the host input alone (one consumer thread, as the
+    loop's prefetcher runs it) with dense host labels and with
+    rasterize_on_device + compact_image_labels, in turns; bytes a batch
+    ships to the card."""
+    from iv2019_tpu_torch.input.heterogeneous import train_input
+    from iv2019_tpu_torch.problem.problem_def import load_problem_def
+
+    pd = load_problem_def(problem)
+    configs = {"dense": dict(rasterize_on_device=False, compact_image_labels=False),
+               "on_device": dict(rasterize_on_device=True, compact_image_labels=True)}
+    iters = {k: train_input(_real_settings(data, problem, device, **kw), pd)
+             for k, kw in configs.items()}
+    out = {k: dict(ms=[], bytes=_batch_bytes(next(it))) for k, it in iters.items()}
+    for turn in range(2):
+        for k in ("dense", "on_device") if turn == 0 else ("on_device", "dense"):
+            t0 = time.perf_counter()
+            for _ in range(REAL_INPUT_BATCHES):
+                next(iters[k])
+            out[k]["ms"].append((time.perf_counter() - t0) / REAL_INPUT_BATCHES * 1e3)
+    for it in iters.values():
+        it.close()
+    stats = {k: dict(ms_per_batch=float(np.mean(v["ms"])), ms_per_turn=v["ms"],
+                     mb_per_batch=v["bytes"] / 1e6) for k, v in out.items()}
+    log("real-format host input: " + json.dumps(stats))
+    return stats
+
+
+def decode_turns(data):
+    """Decode + u8 -> f32 + resize of one weak JPEG (512x1024) to 256x512
+    (the train CLI's size: at the run's own 512x1024 both rules skip the
+    resize), native helpers against PIL + numpy, in turns; fails if g++
+    exists and fastops did not build."""
+    import os
+    import shutil
+
+    from PIL import Image
+
+    from iv2019_tpu_torch import native
+    from iv2019_tpu_torch.input.core import _INV_255, decode_image
+    from iv2019_tpu_torch.ops.resize import resize_bilinear
+
+    built = native.available()
+    native.decode_available()
+    status = native.status()
+    log(f"native helpers: {status}; g++ {shutil.which('g++')}")
+    if not built:
+        if shutil.which("g++"):
+            raise AssertionError(f"g++ is here but fastops did not build: {status}")
+        return dict(native_status=status)
+    image_dir = data["openimages_image_dir"]
+    names = sorted(os.listdir(image_dir))[:REAL_DECODE_IMAGES]
+    hw = (TRAIN_HW[0] // 2, TRAIN_HW[1] // 2)
+
+    def with_native(buf):
+        raw = decode_image(buf, force_rgb=True)
+        return native.resize_bilinear_f32(native.u8_to_f32(raw), hw)
+
+    def with_numpy(buf):
+        with Image.open(io.BytesIO(buf)) as img:
+            raw = np.asarray(img.convert("RGB"))
+        return resize_bilinear(raw.astype(np.float32) * _INV_255, hw)
+
+    times = {"native": [], "numpy": []}
+    worst = 0.0
+    for i, name in enumerate(names):
+        with open(os.path.join(image_dir, name), "rb") as f:
+            buf = f.read()
+        results = {}
+        for key in ("native", "numpy") if i % 2 == 0 else ("numpy", "native"):
+            fn = with_native if key == "native" else with_numpy
+            t0 = time.perf_counter()
+            results[key] = fn(buf)
+            times[key].append((time.perf_counter() - t0) * 1e3)
+        worst = max(worst, float(np.abs(results["native"] - results["numpy"]).max()))
+    stats = {k: dict(p50_ms=_p50_p90(v)[0], mean_ms=float(np.mean(v))) for k, v in times.items()}
+    stats.update(native_status=status, images=len(names), max_abs_diff=worst)
+    log("real-format decode + resize per image: " + json.dumps(stats))
+    if worst > 1e-6:
+        raise AssertionError(f"native decode + resize departs from PIL + numpy by {worst}")
+    return stats
+
+
+def _device_batch(batch, device):
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()
+            if isinstance(v, np.ndarray)}
+
+
+def rasterize_check(batch):
+    """The device rasterizer on the run's boxes: bit-equal on two launches
+    and to its CPU run."""
+    from iv2019_tpu_torch.ops.rasterize import rasterize_bboxes
+
+    h, w = TRAIN_HW
+    cids, coords = batch["bbox_cids"], batch["bbox_coords"]
+    a = rasterize_bboxes(cids, coords, h, w)
+    b = rasterize_bboxes(cids, coords, h, w)
+    cpu = rasterize_bboxes(cids.cpu(), coords.cpu(), h, w)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: rasterize_bboxes(cids, coords, h, w), runs=10)
+    out = dict(boxes=int((cids >= 0).sum()), relaunch_equal=bool(torch.equal(a, b)),
+               cpu_equal=bool(torch.equal(a.cpu(), cpu)), ms=ms, shape=list(a.shape))
+    log("real-format rasterizer: " + json.dumps(out))
+    if not (out["relaunch_equal"] and out["cpu_equal"]):
+        raise AssertionError(f"device rasterizer: {out}")
+    return out
+
+
+def augment_checks(batch):
+    """Each augmentation's apply on the card against the same apply on the
+    CPU with the same draws, at the run's per-pixel shapes; the color and
+    blur branches each forced in turn."""
+    from iv2019_tpu_torch.ops import augment
+    from iv2019_tpu_torch.problem.taxonomy import get_taxonomy
+
+    unlabeled = len(get_taxonomy("cityscapes").per_pixel_cids2l1_cids) - 1
+    images, labels = batch["proimages_per_pixel"], batch["prolabels_per_pixel"]
+    n, h, w = images.shape[:3]
+    base = augment.draw_augmentations(0, 0, REAL_AUGMENTATIONS, n, h, w)
+    cases = [("color", dict(col_r=k)) for k in range(4)] + [
+        ("blur", dict(blu_r=0)), ("blur", dict(blu_r=1)), ("flip", {}), ("scale", {})]
+    results = []
+    for name, forced in cases:
+        draws = dict(base, **forced)
+        t0 = time.perf_counter()
+        gi, gl = augment.apply_augmentations(images, labels, (name,), draws, unlabeled)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        ci, cl = augment.apply_augmentations(images.cpu(), labels.cpu(), (name,), draws,
+                                             unlabeled)
+        err = float((gi.cpu() - ci).abs().max())
+        same = bool(torch.equal(gl.cpu(), cl))
+        results.append(dict(name=name, **forced, max_abs_err=err, labels_equal=same,
+                            card_ms=card_ms))
+    log("real-format augmentations, card against CPU: " + json.dumps(results))
+    bad = [r for r in results if not (r["labels_equal"] and r["max_abs_err"] <= AUGMENT_IMAGE_ATOL)]
+    if bad:
+        raise AssertionError(f"augmentations on the card depart from the CPU: {bad}")
+    return results
+
+
+def halves_check(data, problem, batch, device):
+    """accum=2 steps against accum=1 steps from the same weights, without
+    augmentations (their draws differ per microbatch): on a batch of two
+    identical halves against one accum=1 step on that half, and on the
+    run's batch against the mean of two accum=1 steps, one on each of its
+    halves (a step that trained on one microbatch alone, or on one twice,
+    passes the first and fails the second). BatchNorm normalizes per
+    microbatch, so each half is the same computation in both: the averaged
+    gradients and the losses."""
+    from iv2019_tpu_torch.system import build_initialized_model
+    from iv2019_tpu_torch.train.fused_update import FusedSGDM
+    from iv2019_tpu_torch.train.state import create_fused_train_state
+    from iv2019_tpu_torch.train.step import make_train_step
+
+    keys = ("total", "l1_segmentation", "l2_vehicle_segmentation", "l2_human_segmentation")
+    sizes = {f"Nb_per_{k}": n for k, n in zip(("pixel", "bbox", "image"), MICRO_NB)}
+
+    def step(accum, b):
+        kw = {} if accum == REAL_ACCUM else dict(sizes, Nb=sizes["Nb_per_pixel"])
+        s = _real_settings(data, problem, device, augmentations=(), grad_accum_steps=accum, **kw)
+        model = build_initialized_model(s)
+        opt = FusedSGDM(s, model)
+        _, m = make_train_step(s, fused_opt=opt)(create_fused_train_state(opt), b)
+        torch.cuda.synchronize()
+        out = opt.grads.detach().clone(), {k: float(m[k]) for k in keys}
+        del model, opt
+        torch.cuda.empty_cache()
+        return out
+
+    halves = [{k: v.chunk(REAL_ACCUM)[i] for k, v in batch.items()} for i in range(REAL_ACCUM)]
+    singles = [step(1, half) for half in halves]
+    # the mean as the step takes it: the microbatches' gradients summed in
+    # order, divided once
+    mean_grad = sum(g for g, _ in singles) / REAL_ACCUM
+    mean_losses = {k: sum(m[k] for _, m in singles) / REAL_ACCUM for k in keys}
+    cases = {
+        "identical_halves": (step(REAL_ACCUM, {k: torch.cat([v] * REAL_ACCUM)
+                                               for k, v in halves[0].items()}), singles[0]),
+        "two_halves": (step(REAL_ACCUM, batch), (mean_grad, mean_losses)),
+    }
+    res = {}
+    for name, ((g2, m2), (g1, m1)) in cases.items():
+        top = float(g1.abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+        res[name] = dict(
+            max_abs_grad=top, bf16_ulp=ulp, grad_max_abs_diff=float((g1 - g2).abs().max()),
+            loss_rel_err={k: abs(m1[k] - m2[k]) / max(abs(m1[k]), 1e-12) for k in keys})
+    # a step on the first half alone would be this far from the mean
+    res["first_half_from_mean_max_abs_diff"] = float((singles[0][0] - mean_grad).abs().max())
+    log("real-format accum=2 against accum=1 on each half: " + json.dumps(res))
+    bad = [name for name in cases
+           if not (res[name]["grad_max_abs_diff"] <= res[name]["bf16_ulp"]
+                   and max(res[name]["loss_rel_err"].values()) <= HALVES_LOSS_REL_TOL)]
+    if bad or res["first_half_from_mean_max_abs_diff"] <= res["two_halves"]["bf16_ulp"]:
+        raise AssertionError(f"accum=2 departs from accum=1 on its halves ({bad}), or the "
+                             f"two halves do not tell microbatches apart: {res}")
+    return res
+
+
+def real_format_phase(device):
+    """The training run on real-format input (see the module docstring).
+    Returns the run's launch counts."""
+    import os
+    import tempfile
+
+    from iv2019_tpu_torch import train_cli
+    from iv2019_tpu_torch.input.heterogeneous import train_input
+    from iv2019_tpu_torch.problem.problem_def import load_problem_def
+    from iv2019_tpu_torch.system import SemanticSegmentation, build_initialized_model
+    from iv2019_tpu_torch.tools.synthetic_scenes import generate
+    from iv2019_tpu_torch.train.fused_update import FusedSGDM
+    from iv2019_tpu_torch.train.state import create_fused_train_state
+    from iv2019_tpu_torch.train.step import make_train_step
+
+    problem = os.path.join(os.path.dirname(os.path.abspath(train_cli.__file__)),
+                           "problem_definitions", "cityscapes", "problem01.json")
+    (h, w), images = TRAIN_HW, sum(TRAIN_NB)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = generate(os.path.join(tmp, "data"), n_train=REAL_TRAIN_IMAGES, n_val=0,
+                        n_weak=REAL_WEAK_IMAGES, h=h, w=w)
+        log(f"real-format data: {REAL_TRAIN_IMAGES} per-pixel and {REAL_WEAK_IMAGES} weak "
+            f"scenes at {h}x{w} in {time.perf_counter() - t0:.1f} s")
+        decode = decode_turns(data)
+        host = host_input_turns(data, problem, device)
+
+        # the run through its entry point, with the four options and B6
+        settings = _real_settings(data, problem, device, os.path.join(tmp, "run"),
+                                  save_checkpoints_steps=REAL_STEPS,
+                                  save_summaries_steps=REAL_STEPS)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        state = SemanticSegmentation({"train": train_input}, settings=settings).train(
+            max_steps=REAL_STEPS, log_every=1)
+        run_s = time.perf_counter() - t0
+        launches = _counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        records = _read_jsonl(os.path.join(settings.log_dir, "train_metrics.jsonl"))
+        want = {"fused_loss_fwd": REAL_ACCUM * REAL_STEPS, "fused_loss_bwd": REAL_ACCUM * REAL_STEPS,
+                "fused_update": REAL_STEPS, "root_conv_wgrad": REAL_ACCUM * REAL_STEPS}
+        log(f"real-format run: launches {launches}, steps {[r['step'] for r in records]}")
+        if launches != want:
+            raise AssertionError(f"real-format run: launches {launches}, expected {want}")
+        if ([r["step"] for r in records] != list(range(1, REAL_STEPS + 1))
+                or not all(np.isfinite(v) for r in records for v in r.values())
+                or int(state.step) != REAL_STEPS
+                or not os.path.isfile(os.path.join(settings.log_dir, "checkpoints",
+                                                   str(REAL_STEPS), "state.pt"))):
+            raise AssertionError(f"real-format run: records {records}")
+        del state
+        torch.cuda.empty_cache()
+
+        # the same step on one batch of the run's input: steady step time,
+        # device busy (for the run's idle share), then the card checks
+        host_batch = next(train_input(settings, load_problem_def(problem)))
+        batch = _device_batch(host_batch, device)
+        model = build_initialized_model(settings)
+        opt = FusedSGDM(settings, model)
+        holder = {"state": create_fused_train_state(opt)}
+        step = make_train_step(settings, fused_opt=opt)
+
+        def one_step():
+            holder["state"], metrics = step(holder["state"], batch)
+            return metrics
+
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            one_step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        const_p50, const_p90 = _p50_p90(times[1:])
+        profile = profile_call(one_step, "real-format accum=2 step", const_p50, top=12,
+                               groups=STEP_GROUPS)
+        log("real-format step profile: " + json.dumps(profile))
+        del model, opt, holder, step
+        torch.cuda.empty_cache()
+        raster = rasterize_check(batch)
+        augment = augment_checks(batch)
+        halves = halves_check(data, problem, batch, device)
+
+        step_ms = [images / r["images_per_sec"] * 1e3 for r in records if r["step"] > 1]
+        p50, p90 = _p50_p90(step_ms)
+        busy = profile["device_busy_ms"]
+        stats = dict(steps=REAL_STEPS, grad_accum_steps=REAL_ACCUM, p50_ms=p50, p90_ms=p90,
+                     images_per_s=images / p50 * 1e3,
+                     host_input_ms_per_batch=host["on_device"]["ms_per_batch"],
+                     dense_host_input_ms_per_batch=host["dense"]["ms_per_batch"],
+                     device_busy_ms_per_step=busy, idle_share=1 - busy / p50,
+                     constant_batch_p50_ms=const_p50, constant_batch_p90_ms=const_p90,
+                     peak_memory_gib=peak_gib, run_s=run_s, launches=launches,
+                     last_total=records[-1]["total"])
+        log("real-format run: " + json.dumps(stats))
+
+        # train_cli at 256x512 on the same files, 2 steps
+        cli_dir = os.path.join(tmp, "cli")
+        _reset_counts()
+        train_cli.main([cli_dir, "cityscapes", "--tfrecords_path_per_pixel",
+                        data["tfrecords_train"], "--openimages_image_dir",
+                        data["openimages_image_dir"], "--openimages_bboxes_path",
+                        data["openimages_bboxes_path"], "--openimages_image_labels_path",
+                        data["openimages_image_labels_path"], "--height_feature_extractor", "256",
+                        "--width_feature_extractor", "512", "--Ntrain", "8", "--Ne", "1",
+                        "--learning_rate_boundaries", "1", "--learning_rate_values", "0.01",
+                        "--input_seed", "1", "--augmentations", ",".join(REAL_AUGMENTATIONS),
+                        "--grad_accum_steps", str(REAL_ACCUM)])
+        cli_launches = _counts()
+        cli_records = _read_jsonl(os.path.join(cli_dir, "train_metrics.jsonl"))
+        log(f"real-format train cli: records {cli_records}, launches {cli_launches}")
+        if ([r["step"] for r in cli_records] != [2]
+                or not all(np.isfinite(v) for v in cli_records[0].values())
+                or cli_launches != {"fused_loss_fwd": 4, "fused_loss_bwd": 4, "fused_update": 2,
+                                    "root_conv_wgrad": 0}):
+            raise AssertionError(f"real-format train cli: {cli_records} {cli_launches}")
+    return launches, dict(stats, decode=decode, host_input=host, rasterizer=raster,
+                          augmentations=augment, halves=halves)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1706,11 +2126,17 @@ def main():
     # train phase's are printed above), B4/B5 those of the predict requests
     # and, as eval_launches, those of the --eval_all_ckpts sweep
     run_launches, eval_launches = train_run_phase(device, step_busy_ms)
-    launches.update(run_launches)
+    torch.cuda.empty_cache()
+    # this slice's path: the real-format training run with grad_accum_steps=2
+    real_launches, _ = real_format_phase(device)
+    launches.update(real_launches)
     for r in results:
         r["launches"] = launches[r["name"]]
+        if r["name"] in run_launches:
+            # the synthetic-input training run of the earlier slice
+            r["train_run_launches"] = run_launches[r["name"]]
         if r["name"] in eval_launches:
-            # B4/B5 on this slice's path: the --eval_all_ckpts sweep
+            # B4/B5 on the evaluation path: the --eval_all_ckpts sweep
             r["eval_launches"] = eval_launches[r["name"]]
     log(f"chip_smoke: {time.time() - t0:.1f} s from the build to the end")
     log(json.dumps({"kernels": results}))

@@ -7,11 +7,14 @@ its epoch-to-step math, ``validate()`` with the same messages, ``dump()``
 in the same format, and the predict, evaluate and train flags (with the
 test-time-augmentation, sliding-window and plotting flags of both inference
 command lines), plus one field and flag of the port's own: ``--device``
-(``cuda`` unless the caller asks for ``cpu``). The train command line
-accepts the flags of paths the port does not have yet (gradient
-accumulation, augmentations, multi-process and multi-device training,
-spatial partitions); ``validate()`` raises ``NotImplementedError`` when one
-of them is set. ``root_wgrad_pallas`` has no flag, as in the JAX package.
+(``cuda`` unless the caller asks for ``cpu``). Gradient accumulation
+(``--grad_accum_steps``), on-device augmentations (``--augmentations``),
+on-device bbox rasterizing and compact image labels are ported; the last
+two, like ``root_wgrad_pallas``, have no flag, as in the JAX package. The
+train command line accepts the flags of paths the port does not have yet
+(multi-process and multi-device training, spatial partitions, remat);
+``validate()`` raises ``NotImplementedError`` when one of them is set, and
+the train step raises for ``fused_optimizer=False`` (the optax path).
 """
 
 from __future__ import annotations
@@ -91,10 +94,13 @@ class Settings:
     preserve_aspect_ratio_per_image: bool = True
 
     # -- training options (iv2019_tpu/config.py:88-92,110-215) -------------
-    augmentations: tuple[str, ...] = ()  # not ported: the step raises if set
+    # on the device, in the order color, blur, flip, scale (ops/augment.py)
+    augmentations: tuple[str, ...] = ()  # subset of {color, blur, flip, scale}
+    scaling_poi: tuple[float, float] = (1.0, 2.0)  # reference call-site value
     batch_norm_accumulate_statistics: bool = True
     batch_norm_decay: float = 0.9
-    grad_accum_steps: int = 1  # not ported beyond 1: the step raises
+    # microbatches per optimizer step (train/step.py)
+    grad_accum_steps: int = 1
     # SGDM + weight decay + EMA as one pass over flat f32 vectors
     # (train/fused_update.py); False (the optax path) is not ported
     fused_optimizer: bool = True
@@ -104,7 +110,9 @@ class Settings:
     # the loss runs from stride-8 logits through kernels B1/B2
     # (ops/fused_loss.py)
     fused_loss: bool = True
-    rasterize_on_device: bool = False  # not ported: bbox_cids batches raise
+    # the bbox reader ships padded boxes, the train step rasterizes them
+    # (ops/rasterize.py::rasterize_bboxes)
+    rasterize_on_device: bool = False
     # per-image weak labels as (Nb, 15) vectors, broadcast on the device
     compact_image_labels: bool = False
     # the root conv's weight gradient as kernel B6 (ops/root_wgrad.py); set
@@ -411,7 +419,7 @@ def _add_train_arguments(p: argparse.ArgumentParser) -> None:
     p.add_argument("--weak_loss_coefficient", type=float, default=0.1,
                    help="weight of the L2 vehicle/human (weak) losses in the total")
     p.add_argument("--augmentations", type=str, default="",
-                   help="comma list from {color,blur,flip,scale}; not ported yet")
+                   help="comma list from {color,blur,flip,scale}, applied on the device")
     p.add_argument("--random_seed", type=int, default=0)
     p.add_argument("--tfrecords_path_per_pixel", type=str, default="")
     p.add_argument("--dataset_directory", type=str, default="")

@@ -3,7 +3,8 @@
 Port of iv2019_tpu/input/cityscapes.py (reference input_cityscapes.py /
 input_vistas.py):
 
-- train: TFRecord -> decode the PNG/JPEG image and PNG label (PIL) ->
+- train: TFRecord -> decode the PNG/JPEG image and PNG label (the native
+  libpng/libjpeg helper, PIL where it does not build or take the image) ->
   lids2cids with voids replaced -> resize (optionally aspect-preserving + a
   shared random crop) to (hf, wf) -> shuffle(2000) + repeat -> batch ->
   [-1, 1) scaling;
@@ -18,11 +19,9 @@ JAX package's multi-host record striding is not ported (ROADMAP.md queue A).
 
 from __future__ import annotations
 
-import io
 from typing import Iterator, Optional
 
 import numpy as np
-from PIL import Image
 
 from iv2019_tpu_torch.config import Settings
 from iv2019_tpu_torch.input import core
@@ -32,15 +31,10 @@ from iv2019_tpu_torch.problem.problem_def import ProblemDef
 __all__ = ["evaluate_input", "synthetic_eval_batches", "synthetic_train_batches", "train_input"]
 
 
-def _decode(buf: bytes) -> np.ndarray:
-    with Image.open(io.BytesIO(buf)) as img:
-        return np.asarray(img)
-
-
 def _parse_record(record: bytes):
     ex = parse_example(record)
-    image = _decode(ex["image/encoded"][0])
-    label = _decode(ex["label/encoded"][0])
+    image = core.decode_image(ex["image/encoded"][0])
+    label = core.decode_image(ex["label/encoded"][0])
     if label.ndim == 3:
         label = label[..., 0]
     im_path = ex.get("image/path", [b""])[0].decode("utf-8", "replace")

@@ -34,7 +34,8 @@ def _empty_weak(settings: Settings) -> dict:
 def train_input(settings: Settings, problem_def: ProblemDef,
                 seed: Optional[int] = None) -> Iterator[dict]:
     """Yields {'proimages_per_pixel', 'proimages_per_bbox',
-    'proimages_per_image', 'prolabels_per_pixel', 'prolabels_per_bbox',
+    'proimages_per_image', 'prolabels_per_pixel', 'prolabels_per_bbox' (or
+    'bbox_cids' and 'bbox_coords' with ``rasterize_on_device``),
     'prolabels_per_image' (or 'image_label_vecs'), 'imageids_per_bbox',
     'imageids_per_image', 'rawimagespaths', 'rawlabelspaths'}."""
     if settings.num_processes != 1:
@@ -67,12 +68,17 @@ def train_input(settings: Settings, problem_def: ProblemDef,
             "proimages_per_bbox": pb["proimages"],
             "proimages_per_image": pi["proimages"],
             "prolabels_per_pixel": pp["prolabels"],
-            "prolabels_per_bbox": pb["prolabels"],
             "imageids_per_bbox": pb["imageids"],
             "imageids_per_image": pi["imageids"],
             "rawimagespaths": pp.get("rawimagespaths", []),
             "rawlabelspaths": pp.get("rawlabelspaths", []),
         }
+        if "bbox_cids" in pb:
+            # padded box tensors, rasterized by the train step on the device
+            batch["bbox_cids"] = pb["bbox_cids"]
+            batch["bbox_coords"] = pb["bbox_coords"]
+        else:
+            batch["prolabels_per_bbox"] = pb["prolabels"]
         if "image_label_vecs" in pi:
             batch["image_label_vecs"] = pi["image_label_vecs"]
         else:

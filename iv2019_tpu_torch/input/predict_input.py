@@ -1,8 +1,8 @@
 """Predict input: recursive image glob -> network-ready batches of one.
 
 Port of iv2019_tpu/input/dataset_agnostic.py:37-73 and the helpers it uses
-from iv2019_tpu/input/core.py: recursive glob over png/jpg/jpeg/ppm, PIL
-decode to RGB, uint8 -> [0, 1), TF1 bilinear resize with
+from iv2019_tpu/input/core.py: recursive glob over png/jpg/jpeg/ppm, decode
+to RGB (``core.decode_image``), uint8 -> [0, 1), TF1 bilinear resize with
 ``align_corners=False`` (optionally aspect-preserving 'max' then a random
 crop), [-1, 1) scaling. ``eval_size``, where set, replaces (hf, wf) as the
 size images are resized to. Decoding runs on the host, one image at a time.
@@ -15,7 +15,6 @@ import os
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
-from PIL import Image
 
 from iv2019_tpu_torch.config import Settings
 from iv2019_tpu_torch.input import core
@@ -47,8 +46,8 @@ def predict_input(settings: Settings) -> Iterator[dict]:
     hw = settings.eval_size or (settings.height_feature_extractor,
                                 settings.width_feature_extractor)
     for path in find_images(settings.predict_dir):
-        with Image.open(path) as img:
-            raw = np.asarray(img if img.mode == "RGB" else img.convert("RGB"))
+        with open(path, "rb") as f:
+            raw = core.decode_image(f.read(), force_rgb=True)
         yield {
             "proimages": preprocess(raw, hw, settings.preserve_aspect_ratio)[None],
             "rawimages": raw,

@@ -130,10 +130,6 @@ def train(settings: Settings, batch_iterator: Iterator[dict], model=None, log_ev
     every N steps.
     """
     settings = settings.replace(mode="train")
-    if settings.grad_accum_steps != 1 or settings.augmentations:
-        # make_train_step raises too; say so before any checkpoint is read
-        raise NotImplementedError("grad_accum_steps > 1 and augmentations are not ported yet "
-                                  "(ROADMAP.md queue A)")
     if not (settings.fused_optimizer and settings.optimizer in ("SGD", "SGDM")):
         raise NotImplementedError("the optax path (fused_optimizer=False) is not ported yet")
     if model is None:

@@ -3,11 +3,14 @@
 Port of iv2019_tpu/train/step.py:
 
 - ``make_train_step``: one training step of the mixed [pp | pb | pi] batch
-  (step.py:104-433): train-mode forward, the hierarchical losses (fused
-  from stride-8 logits through kernels B1/B2 when the gate admits it, else
-  ``define_losses`` on the upsampled logits), backward into the fused
-  optimizer's flat gradient vector, the fused SGDM + weight-decay + EMA
-  update (kernel B3), the batch mIoU and the summaries' weight masks;
+  (step.py:104-433): on-device augmentations of the per-pixel part and
+  rasterizing of padded box tensors (``_assemble``), train-mode forward,
+  the hierarchical losses (fused from stride-8 logits through kernels B1/B2
+  when the gate admits it, else ``define_losses`` on the upsampled logits),
+  backward into the fused optimizer's flat gradient vector, the fused SGDM
+  + weight-decay + EMA update (kernel B3), the batch mIoU and the
+  summaries' weight masks; with ``grad_accum_steps`` > 1 the forward and
+  backward run once per microbatch before the one update;
 - ``make_predict_step``: forward -> the four supported outputs, resized to
   the system size (or a given ``output_size``) with align_corners=True,
   optional top-2 void replacement (step.py:843-934);
@@ -44,8 +47,10 @@ import torch.nn.functional as F
 from iv2019_tpu_torch.config import Settings
 from iv2019_tpu_torch.losses.hierarchical import define_losses
 from iv2019_tpu_torch.models.model import build_model, hierarchical_common_probabilities
-from iv2019_tpu_torch.ops.confusion import batch_mean_iou, confusion_matrix
+from iv2019_tpu_torch.ops.augment import apply_augmentations, draw_augmentations
+from iv2019_tpu_torch.ops.confusion import confusion_matrix, mean_iou_from_cm
 from iv2019_tpu_torch.ops.fused_loss import define_losses_fused, fused_loss_available
+from iv2019_tpu_torch.ops.rasterize import rasterize_bboxes
 from iv2019_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_mxu, resize_nearest
 from iv2019_tpu_torch.ops.segment_ops import gather_cids, remap_probabilities, segment_sum_channels
 from iv2019_tpu_torch.problem.problem_def import load_problem_def, replace_voids
@@ -95,67 +100,92 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
 
     batch: 'proimages_per_pixel' (Npp, H, W, 3), 'proimages_per_bbox',
     'proimages_per_image', 'prolabels_per_pixel' (Npp, H, W) int32,
-    'prolabels_per_bbox' (Npb, H, W, 15) f32 and 'prolabels_per_image'
-    (Npi, H, W, 15) f32, or 'image_label_vecs' (Npi, 15) for compact image
-    labels; numpy arrays or tensors. ``fused_opt`` (train/fused_update.py)
-    owns the model's parameters and gradients; the L2 regularization enters
-    through its weight-decay gradient, and ``metrics['total']`` includes it.
-    ``model`` defaults to the optimizer's, which must be ``state.model``.
-    The metrics are 0-d tensors on the model's device (and the weight masks).
+    'prolabels_per_bbox' (Npb, H, W, 15) f32, or 'bbox_cids' (Npb, K) int32
+    and 'bbox_coords' (Npb, K, 4) f32 rasterized on the device, and
+    'prolabels_per_image' (Npi, H, W, 15) f32, or 'image_label_vecs' (Npi,
+    15) for compact image labels; numpy arrays or tensors. ``fused_opt``
+    (train/fused_update.py) owns the model's parameters and gradients; the
+    L2 regularization enters through its weight-decay gradient, and
+    ``metrics['total']`` includes it. ``model`` defaults to the optimizer's,
+    which must be ``state.model``. The metrics are 0-d tensors on the
+    model's device (and the weight masks).
+
+    ``augmentations`` draw from ``(random_seed, step)``, or ``(random_seed,
+    step * accum + i)`` for microbatch i, as the JAX package folds its key;
+    the step is read from ``state.step`` once and then counted on the host.
+    With ``grad_accum_steps`` = accum > 1 the batch splits into accum equal
+    slices of each sub-batch (step.py:276-402): each runs forward (BatchNorm
+    statistics per microbatch, so the running statistics take accum
+    momentum updates) and backward, adding into the flat gradient buffer,
+    which is divided by accum once before the one update; the losses are
+    the microbatches' mean, the mIoU comes from their summed confusion
+    matrices, and the weight masks from microbatch 0.
     """
     settings = settings.replace(mode="train")
     if fused_opt is None or not settings.fused_optimizer:
         raise NotImplementedError("the optax path (fused_optimizer=False, EmaState) is not "
                                   "ported yet: pass a train/fused_update.FusedSGDM")
-    if settings.grad_accum_steps > 1:
-        raise NotImplementedError("grad_accum_steps > 1 is not ported yet")
-    if settings.augmentations:
-        raise NotImplementedError("on-device augmentations are not ported yet")
     model = model or fused_opt.model
     tax = get_taxonomy(settings.per_pixel_dataset_name)
     image_hw = (settings.height_feature_extractor, settings.width_feature_extractor)
+    accum = settings.grad_accum_steps
     # the fused loss runs the model to stride-8 logits only; degenerate
     # supervision mixes and bootstrapped CE (a batch-global sort of the raw
-    # L1 losses) take the reference loss on the upsampled logits
+    # L1 losses) take the reference loss on the upsampled logits. Decided
+    # on the microbatch, the batch each loss call sees.
     use_fused_loss = (
         settings.fused_loss
         and model.upsampling_method == "bilinear"
-        and settings.Nb_per_pixel > 0
-        and settings.Nb_per_bbox > 0
-        and settings.Nb_per_image > 0
+        and settings.Nb_per_pixel // accum > 0
+        and settings.Nb_per_bbox // accum > 0
+        and settings.Nb_per_image // accum > 0
         and settings.bootstrapping_percentage == -1
         and fused_loss_available((1, 1), image_hw, tax)
     )
     num_classes = tax.num_common_classes
     device = fused_opt.params.device
+    augmentations = tuple(settings.augmentations)
+    # labels revealed by downscaling: the per-pixel space's void cid
+    unlabeled_cid = len(tax.per_pixel_cids2l1_cids) - 1
+    host_step = {"state": None, "step": 0}
 
     def tensor(value, dtype):
         return torch.as_tensor(value, dtype=dtype, device=device)
 
-    def _assemble(batch: Mapping[str, Any]):
-        """Images and labels of one batch: the [pp | pb | pi] concat, dense
-        weak labels, compact image labels broadcast on the device."""
+    def _assemble(batch: Mapping[str, Any], fold: int):
+        """Images and labels of one (micro)batch: the per-pixel part
+        augmented, the [pp | pb | pi] concat, box tensors rasterized and
+        compact image labels broadcast, on the device."""
+        pp_images = tensor(batch["proimages_per_pixel"], torch.float32)
+        pp_labels = tensor(batch["prolabels_per_pixel"], torch.int32)
+        if augmentations:
+            n, h, w = pp_images.shape[:3]
+            draws = draw_augmentations(settings.random_seed, fold, augmentations, n, h, w,
+                                       settings.scaling_poi)
+            pp_images, pp_labels = apply_augmentations(pp_images, pp_labels, augmentations,
+                                                       draws, unlabeled_cid)
+        images = torch.cat([pp_images] + [tensor(batch[k], torch.float32) for k in (
+            "proimages_per_bbox", "proimages_per_image")], 0)
+        h, w = images.shape[1], images.shape[2]
         if "bbox_cids" in batch:
-            raise NotImplementedError("on-device bbox rasterizing (ops/rasterize.py) is not "
-                                      "ported yet")
-        images = torch.cat([tensor(batch[k], torch.float32) for k in (
-            "proimages_per_pixel", "proimages_per_bbox", "proimages_per_image")], 0)
+            per_bbox = rasterize_bboxes(tensor(batch["bbox_cids"], torch.int32),
+                                        tensor(batch["bbox_coords"], torch.float32), h, w)
+        else:
+            per_bbox = tensor(batch["prolabels_per_bbox"], torch.float32)
         if "image_label_vecs" in batch:
             vecs = tensor(batch["image_label_vecs"], torch.float32)
-            h, w = images.shape[1], images.shape[2]
             per_image = vecs[:, None, None, :].expand(vecs.shape[0], h, w, vecs.shape[1])
         else:
             per_image = tensor(batch["prolabels_per_image"], torch.float32)
         labels = {
-            "prolabels_per_pixel": tensor(batch["prolabels_per_pixel"], torch.int32),
-            "prolabels_per_bbox": tensor(batch["prolabels_per_bbox"], torch.float32),
+            "prolabels_per_pixel": pp_labels,
+            "prolabels_per_bbox": per_bbox,
             "prolabels_per_image": per_image,
         }
         return images, labels
 
     def _loss_and_grad(images, labels):
-        """Forward, losses, and backward into the optimizer's flat gradients."""
-        fused_opt.zero_grad()
+        """Forward, losses, and backward adding into the optimizer's flat gradients."""
         if use_fused_loss:
             preds = model(images, upsampling_method="no")
             losses = define_losses_fused(preds, labels, tax, images.shape[1:3],
@@ -180,25 +210,61 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
                 "l2_vehicle_weights": losses["l2_vehicle_weights"][weak_ix],
                 "l2_human_weights": losses["l2_human_weights"][weak_ix]}
 
+    def _step_on_host(state: TrainState) -> int:
+        """state.step without a wait on the device after the first call of a
+        chain of states this function returned."""
+        if host_step["state"] is not state:
+            host_step["step"] = int(state.step)
+        return host_step["step"]
+
+    def _microbatch(batch: Mapping[str, Any], i: int) -> dict:
+        out = {}
+        for k, v in batch.items():
+            if hasattr(v, "shape"):
+                size = v.shape[0] // accum
+                v = v[i * size:(i + 1) * size]
+            out[k] = v
+        return out
+
     def train_step(state: TrainState, batch: Mapping[str, Any]):
         if state.model is not model:
             raise ValueError("state.model is not the model this step was built for")
-        images, labels = _assemble(batch)
-        n_pp = labels["prolabels_per_pixel"].shape[0]
-        losses, decisions = _loss_and_grad(images, labels)
+        step = _step_on_host(state) if augmentations else 0
+        fused_opt.zero_grad()
+        loss_keys = ("total", "l1_segmentation", "l2_vehicle_segmentation",
+                     "l2_human_segmentation")
+        sums, cm, weight_masks = None, None, None
+        for i in range(accum):
+            mb = batch if accum == 1 else _microbatch(batch, i)
+            images, labels = _assemble(mb, step * accum + i)
+            n_pp = labels["prolabels_per_pixel"].shape[0]
+            losses, decisions = _loss_and_grad(images, labels)
+            with torch.no_grad():
+                part = confusion_matrix(labels["prolabels_per_pixel"], decisions[:n_pp],
+                                        num_classes)
+                cm = part if cm is None else cm + part
+                values = [losses[k].detach() for k in loss_keys]
+                sums = values if sums is None else [a + b for a, b in zip(sums, values)]
+                if i == 0:
+                    weight_masks = _weight_masks(labels, losses, n_pp, images.shape[0])
+            del losses, decisions, images, labels
         with torch.no_grad():
-            miou = batch_mean_iou(labels["prolabels_per_pixel"], decisions[:n_pp], num_classes)
-            weight_masks = _weight_masks(labels, losses, n_pp, images.shape[0])
+            if accum > 1:
+                fused_opt.grads.div_(accum)
+                sums = [v / accum for v in sums]
             opt_state, reg = fused_opt.update(state.opt_state, state.step)
         new_state = state.replace(step=state.step + 1, opt_state=opt_state)
+        if augmentations:
+            host_step.update(state=new_state, step=step + 1)
+        total, l1, veh, hum = sums
         metrics = {
-            "total": losses["total"].detach() + reg,
-            "l1_segmentation": losses["l1_segmentation"].detach(),
-            "l2_vehicle_segmentation": losses["l2_vehicle_segmentation"].detach(),
-            "l2_human_segmentation": losses["l2_human_segmentation"].detach(),
+            "total": total + reg,
+            "l1_segmentation": l1,
+            "l2_vehicle_segmentation": veh,
+            "l2_human_segmentation": hum,
             "regularization": reg,
             # online batch mIoU on the per-pixel slice (reference define_metrics)
-            "miou": miou,
+            "miou": mean_iou_from_cm(cm),
             "weight_masks": weight_masks,
         }
         return new_state, metrics

@@ -11,7 +11,7 @@
 - The host rasterizer against the JAX package's three for boxes inside the
   image: bit-equal. Outside the image, and for label ids past the lookup
   table, the JAX package's paths disagree with each other (ROADMAP.md
-  queue C); the port follows its native C++ helpers.
+  queue C); the port follows the native C++ helpers (its own build).
 - ``device_prefetch`` on the CPU: order kept, errors re-raised, and its
   producer thread stopped when the consumer closes it.
 """
@@ -114,26 +114,43 @@ def test_rasterize_matches_jax(seed):
 def test_out_of_range_inputs_follow_jax_native():
     """Boxes past the image edges and label ids past the lookup table: the
     JAX package's paths disagree there (ROADMAP.md queue C); the port does
-    what its native C++ helpers do, which its pipelines run wherever a C++
-    compiler is: truncate and clamp box edges, clamp ids to the table."""
-    from iv2019_tpu import native
+    what the native C++ helpers do (truncate and clamp box edges, clamp ids
+    to the table), in its own native build and in the numpy rules it falls
+    back to, and, where the JAX package's helpers build, as they do: bit for
+    bit where at most 2 boxes overlap, and within one f32 ulp where more do
+    (the one listed difference, native/__init__.py: the port divides each
+    pixel's counts by their sum where the JAX package multiplies by the
+    reciprocal, and the two differ in the last bit at counts such as 5/6)."""
+    from iv2019_tpu_torch import native
+    from iv2019_tpu_torch.input import core
+    from iv2019_tpu_torch.ops.rasterize import rasterize_bboxes_pyloop
 
     if not native.available():
-        pytest.skip("no C++ toolchain for the JAX package's native helpers")
-    from iv2019_tpu_torch.input import core
+        pytest.skip(f"the port's native helpers do not build: {native.status()['fastops']}")
+    from iv2019_tpu import native as jax_native
 
+    jax_native_built = jax_native.available()
     rng = np.random.RandomState(5)
     for _ in range(30):
         k = rng.randint(1, 9)
         cids = rng.randint(-1, 17, k).astype(np.int32)
         boxes = rng.uniform(-0.3, 1.3, (k, 4)).astype(np.float32)
         h, w = rng.randint(1, 24), rng.randint(1, 24)
-        np.testing.assert_array_equal(rasterize_bboxes_np(cids, boxes, h, w),
-                                      native.rasterize_bboxes(cids, boxes, h, w, 15))
+        got = rasterize_bboxes_np(cids, boxes, h, w)
+        np.testing.assert_array_equal(got, native.rasterize_bboxes(cids, boxes, h, w, 15))
+        np.testing.assert_array_equal(got, rasterize_bboxes_pyloop(cids, boxes, h, w))
+        if jax_native_built:
+            jax_got = jax_native.rasterize_bboxes(cids, boxes, h, w, 15)
+            if k <= 2:
+                np.testing.assert_array_equal(got, jax_got)
+            np.testing.assert_array_max_ulp(got, jax_got, maxulp=1)
     table = load_problem_def(PORT_JSON).lids2cids_voids_replaced()
     labels = rng.randint(0, 256, (7, 9)).astype(np.uint8)
-    np.testing.assert_array_equal(core.map_lids_to_cids(labels, table),
-                                  native.map_lut_i32(labels, table))
+    got = core.map_lids_to_cids(labels, table)
+    np.testing.assert_array_equal(got, native.map_lut_i32(labels, table))
+    np.testing.assert_array_equal(got, np.asarray(table, np.int32)[np.minimum(labels, len(table) - 1)])
+    if jax_native_built:
+        np.testing.assert_array_equal(got, jax_native.map_lut_i32(labels, table))
 
 
 def _png(array) -> bytes:
@@ -213,12 +230,6 @@ def test_image_label_reader_matches_jax(openimages_files, compact):
     got = _take(openimages.image_labels_train_input(settings))
     _assert_batches_equal(got, want, IMAGE_ATOL)
     assert ("image_label_vecs" in got[0]) is compact
-
-
-def test_on_device_rasterizing_is_refused(openimages_files):
-    _, settings = _settings(Nb=2, rasterize_on_device=True, **openimages_files)
-    with pytest.raises(NotImplementedError):
-        next(openimages.bbox_train_input(settings))
 
 
 @pytest.mark.parametrize("nb", [(2, 2, 2), (2, 3, 0)])

@@ -37,7 +37,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "iv2019_tpu_torch.train.loop", "iv2019_tpu_torch.system",
                  "iv2019_tpu_torch.train_cli", "iv2019_tpu_torch.evaluate_cli",
                  "iv2019_tpu_torch.input.tfrecord_writer", "iv2019_tpu_torch.input.vistas",
-                 "iv2019_tpu_torch.tools.make_tfrecords"):
+                 "iv2019_tpu_torch.tools.make_tfrecords", "iv2019_tpu_torch.ops.augment",
+                 "iv2019_tpu_torch.native", "iv2019_tpu_torch.tools.synthetic_scenes"):
         assert name in result["imported"], name
     loaded = result["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.") or m == "jaxlib"

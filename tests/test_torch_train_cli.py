@@ -103,9 +103,8 @@ def test_cli_settings_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--grad_accum_steps", "2", "--Nb_per_pixel", "2", "--Nb_per_bbox", "2",
-     "--Nb_per_image", "2"],
-    ["--augmentations", "flip"],
+    ["--num_slices", "2"],
+    ["--remat"],
     ["--num_processes", "2", "--coordinator_address", "localhost:1"],
     ["--spatial_partitions", "2"],
     ["--num_devices", "2"],
@@ -143,3 +142,33 @@ def test_system_derives_what_the_jax_system_does(tmp_path):
     assert os.path.isfile(os.path.join(str(tmp_path), "eval_04", "settings.txt"))
     with pytest.raises(FileNotFoundError, match="no checkpoint"):  # the log dir holds no run
         next(got.predict())
+
+
+def test_cli_trains_on_real_format_files_with_augmentations_and_accumulation(tmp_path):
+    """``train_cli`` on files the port's synthetic_scenes writes, with
+    ``--augmentations color,blur,flip,scale --grad_accum_steps 2``."""
+    from iv2019_tpu_torch.tools.synthetic_scenes import generate
+
+    data = generate(str(tmp_path / "data"), n_train=4, n_val=1, n_weak=4, h=80, w=160)
+    log_dir = tmp_path / "log"
+    argv = [str(log_dir), "cityscapes", "--tfrecords_path_per_pixel", data["tfrecords_train"],
+            "--openimages_image_dir", data["openimages_image_dir"],
+            "--openimages_bboxes_path", data["openimages_bboxes_path"],
+            "--openimages_image_labels_path", data["openimages_image_labels_path"],
+            "--height_feature_extractor", "64", "--width_feature_extractor", "128",
+            "--Nb_per_pixel", "2", "--Nb_per_bbox", "2", "--Nb_per_image", "2", "--Ntrain", "4",
+            "--Ne", "1", "--learning_rate_boundaries", "1", "--learning_rate_values", "0.01",
+            "--input_seed", "3", "--augmentations", "color,blur,flip,scale",
+            "--grad_accum_steps", "2", "--device", "cpu"]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-m", "iv2019_tpu_torch.train_cli", *argv], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    records = [json.loads(line) for line in (log_dir / "train_metrics.jsonl").read_text()
+               .splitlines()]
+    assert [r["step"] for r in records] == [2]
+    assert all(np.isfinite(v) for v in records[0].values())
+    assert (log_dir / "checkpoints" / "2" / "state.pt").is_file()
+    settings = (log_dir / "settings.txt").read_text()
+    assert " : augmentations : ('color', 'blur', 'flip', 'scale')" in settings
+    assert " : grad_accum_steps : 2" in settings

@@ -264,3 +264,117 @@ def test_sigterm_saves_at_the_true_step(tmp_path):
     assert signal.getsignal(signal.SIGTERM) == prev
     state = _port_train(settings, variables, max_steps=final + 1, log_every=100)
     assert int(state.step) == final + 1
+
+
+# -- real-format input with the slice's four options ---------------------------
+
+FOUR_OPTIONS = dict(rasterize_on_device=True, compact_image_labels=True,
+                    augmentations=("color", "blur", "flip", "scale"), grad_accum_steps=2)
+
+
+@pytest.fixture(scope="module")
+def scenes(tmp_path_factory):
+    """A tiny dataset in the real formats, written by the port's
+    synthetic_scenes: per-pixel TFRecords, JPEG weak images, bbox and
+    image-label pickles, at 48x96 (resized and cropped to 32x64)."""
+    from iv2019_tpu_torch.tools.synthetic_scenes import generate
+
+    return generate(str(tmp_path_factory.mktemp("scenes")), n_train=6, n_val=2, n_weak=8,
+                    h=48, w=96)
+
+
+def _real_settings(log_dir, scenes, **kw):
+    kw = dict(dict(synthetic_data=False, tfrecords_path_per_pixel=scenes["tfrecords_train"],
+                   openimages_image_dir=scenes["openimages_image_dir"],
+                   openimages_bboxes_path=scenes["openimages_bboxes_path"],
+                   openimages_image_labels_path=scenes["openimages_image_labels_path"],
+                   root_wgrad_pallas=True, **FOUR_OPTIONS), **kw)
+    return _settings(log_dir, **kw)[1]
+
+
+def test_synthetic_scenes_writes_the_jax_tools_files(tmp_path):
+    """The port's copy of tools/synthetic_scenes.py writes the same files."""
+    import importlib.util
+    import pickle
+
+    from iv2019_tpu_torch.input.tfrecord import parse_example, read_tfrecords
+    from iv2019_tpu_torch.tools.synthetic_scenes import generate
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_synthetic_scenes", os.path.join(ROOT, "tools", "synthetic_scenes.py"))
+    jax_scenes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_scenes)
+    want = jax_scenes.generate(str(tmp_path / "jax"), n_train=2, n_val=1, n_weak=3, h=40, w=80)
+    got = generate(str(tmp_path / "port"), n_train=2, n_val=1, n_weak=3, h=40, w=80)
+    for key in ("openimages_bboxes_path", "openimages_image_labels_path"):
+        with open(want[key], "rb") as a, open(got[key], "rb") as b:
+            assert pickle.load(a) == pickle.load(b), key
+    for name in sorted(os.listdir(want["openimages_image_dir"])):
+        with open(os.path.join(want["openimages_image_dir"], name), "rb") as a, \
+                open(os.path.join(got["openimages_image_dir"], name), "rb") as b:
+            assert a.read() == b.read(), name
+    for split in ("train", "val"):
+        a = [parse_example(r) for r in read_tfrecords(want[f"tfrecords_{split}"])]
+        b = [parse_example(r) for r in read_tfrecords(got[f"tfrecords_{split}"])]
+        assert len(a) == len(b) == (2 if split == "train" else 1)
+        for x, y in zip(a, b):
+            # the same features; the paths differ by the output directory
+            assert x.keys() == y.keys()
+            for k in x:
+                if not k.endswith("/path"):
+                    assert x[k] == y[k], k
+
+
+def test_system_trains_on_real_format_input_with_the_four_options(tmp_path, scenes):
+    """SemanticSegmentation.train on the files with on-device rasterizing,
+    compact image labels, all four augmentations and grad_accum_steps=2:
+    the reader ships boxes and vectors, the run writes its metrics and
+    checkpoints, and a rerun on the directory resumes."""
+    from iv2019_tpu_torch.system import SemanticSegmentation
+
+    threads()
+    _, variables = _variables()
+    settings = _real_settings(tmp_path / "run", scenes)
+    seen = []
+
+    def input_fn(s, problem_def):
+        for batch in train_input(s, problem_def):
+            seen.append(set(batch))
+            yield batch
+
+    def run(max_steps):
+        system = SemanticSegmentation({"train": input_fn}, settings=settings,
+                                      model_fn=lambda s: torch_tiny_model(s, variables))
+        return system.train(max_steps=max_steps, log_every=1, profile_every=0)
+
+    state = run(3)
+    assert int(state.step) == 3
+    assert {"bbox_cids", "bbox_coords", "image_label_vecs"} <= seen[0]
+    assert not {"prolabels_per_bbox", "prolabels_per_image"} & seen[0]
+    os.rename(os.path.join(settings.log_dir, "settings.txt"),
+              os.path.join(settings.log_dir, "settings.0.txt"))
+    state = run(4)
+    assert int(state.step) == 4
+    records = _records(settings.log_dir)
+    assert [r["step"] for r in records] == [1, 2, 3, 4]
+    assert all(np.isfinite(v) for r in records for v in r.values())
+    assert CheckpointManager(settings.log_dir).all_steps() == [2, 3, 4]
+    dumped = open(os.path.join(settings.log_dir, "settings.txt")).read()
+    for line in (" : grad_accum_steps : 2", " : rasterize_on_device : True",
+                 " : compact_image_labels : True"):
+        assert line in dumped, line
+
+
+def test_resume_with_the_four_options_equals_an_uninterrupted_run(tmp_path, scenes):
+    """The augmentation draws follow the restored step (folds step * 2 + i),
+    so 2 steps and a resumed run to 4 give the uninterrupted run's state."""
+    threads()
+    _, variables = _variables()
+    whole = _real_settings(tmp_path / "whole", scenes)
+    want = _final(_port_train(whole, variables, max_steps=4))
+    split = _real_settings(tmp_path / "split", scenes)
+    _port_train(split, variables, max_steps=2)
+    rest = itertools.islice(train_input(split, load_problem_def(PORT_JSON)), 2, None)
+    got = _final(_port_train(split, variables, batches=rest, max_steps=4))
+    assert got["step"] == want["step"] == 4
+    _assert_close(got, want, RESUME_TOL)

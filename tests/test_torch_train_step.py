@@ -186,15 +186,16 @@ def test_step_refuses_unported_paths():
     jax_settings, settings, _, variables = _init()
     model = torch_tiny_model(settings, variables)
     opt = FusedSGDM(settings, model)
-    for bad in (dict(grad_accum_steps=2), dict(augmentations=("flip",)),
-                dict(fused_optimizer=False)):
-        with pytest.raises(NotImplementedError):
-            make_train_step(settings.replace(**bad), fused_opt=opt)
+    # the optax path: no fused optimizer, or fused_optimizer=False
+    with pytest.raises(NotImplementedError):
+        make_train_step(settings.replace(fused_optimizer=False), fused_opt=opt)
     with pytest.raises(NotImplementedError):
         make_train_step(settings)
-    batch = dict(synthetic_batch(jax_settings), bbox_cids=np.zeros((2, 4), np.int32))
-    with pytest.raises(NotImplementedError):
-        make_train_step(settings, fused_opt=opt)(create_fused_train_state(opt), batch)
+    # an augmentation the JAX package does not have
+    batch = synthetic_batch(jax_settings)
+    with pytest.raises(ValueError, match="unknown augmentations"):
+        make_train_step(settings.replace(augmentations=("rotate",)), fused_opt=opt)(
+            create_fused_train_state(opt), batch)
 
 
 
