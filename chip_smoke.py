@@ -82,6 +82,25 @@ Phases, each of which fails the run on its own:
    those of phase 2 at this run's shapes (``train_run_launches`` and
    ``train_run_shape``: phase 6's).
 
+9. variants (full width, 4 + 8 + 4 at 512x1024, bf16, seeded weights):
+   Cityscapes + PSP, Vistas + PSP, FOV (3, 2), hybrid upsampling, group
+   norm, fused adaptation heads: each 2 predict requests with
+   ``--fused_block`` held to an f32 truth as in phase 3 (B4/B5 8 + 2 a
+   request, 0 under group norm) and 2 fused-optimizer train steps (B1, B2,
+   B3 once a step; B1/B2 not under hybrid), with step ms, device busy, peak
+   memory and finite losses; then B1/B2 at the Vistas heads (53/12/5,
+   4 + 12 images at 64x128 -> 512x1024) against their plain versions, bit
+   for bit over two launches, timed.
+10. optax path and remat: ``SemanticSegmentation.train`` with
+   ``fused_optimizer=False`` and B6 to step 4, resumed to 6 (B1, B2, B6
+   once a step, B3 never; an optax-kind checkpoint), ``predict_cli`` from
+   it with and without ``--restore_emas`` against models holding the run's
+   weights or the EMA shadow unbiased by hand; 3 steps of the optax path and
+   of the fused optimizer from the same weights on one batch (step-1 losses
+   equal, the parameters' differences printed); 2 steps with ``remat`` and
+   B6 against 2 without (running statistics equal after one step, a lower
+   peak; step ms, peak memory).
+
 The next-to-last line is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it
 exits non-zero and prints no result.
@@ -877,12 +896,14 @@ def calibrate_bn(model, images, rng):
     def hook(norm, args):
         x = args[0].float()
         mean, var = x.mean(dim=(0, 2, 3)), x.var(dim=(0, 2, 3), unbiased=False)
-        norm.mean.copy_(mean + 0.1 * var.sqrt() * draw(-1, 1, mean))
-        norm.var.copy_(var * draw(0.8, 1.25, var))
+        if norm.norm_type == "batch":
+            norm.mean.copy_(mean + 0.1 * var.sqrt() * draw(-1, 1, mean))
+            norm.var.copy_(var * draw(0.8, 1.25, var))
         norm.scale.copy_(draw(0.8, 1.2, var))
         norm.bias.copy_(draw(-0.2, 0.2, var))
 
-    handles = [m.register_forward_pre_hook(hook) for m in model.modules() if isinstance(m, Norm)]
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, Norm) and m.norm_type != "none"]
     model(images)
     for h in handles:
         h.remove()
@@ -2093,6 +2114,380 @@ def real_format_phase(device):
                           augmentations=augment, halves=halves)
 
 
+# the variants phase: (name, dataset, Settings fields), each at full width
+VARIANTS = [
+    ("psp", "cityscapes", dict(psp_module=True)),
+    ("psp_vistas", "vistas", dict(psp_module=True)),
+    ("fov", "cityscapes", dict(fov_expansion_kernel_size=3, fov_expansion_kernel_rate=2)),
+    ("hybrid", "cityscapes", dict(upsampling_method="hybrid")),
+    ("group_norm", "cityscapes", dict(norm_layer="group")),
+    ("fused_heads", "cityscapes", dict(fuse_adaptation=True)),
+]
+# predict requests and train steps of each variant; the optax run's steps
+# and its resume; train steps of the optax-against-fused and remat checks
+VARIANT_REQUESTS, VARIANT_STEPS = 2, 2
+OPTAX_RUN_STEPS, OPTAX_RESUME_STEPS, OPTAX_SAVE_EVERY = 4, 6, 2
+COMPARE_STEPS, REMAT_STEPS = 3, 2
+# the optax path against the fused optimizer from the same weights on one
+# batch: the same forward, so the step-1 losses agree to the last bits
+# (reg is a sum of 26M squares in f32 here and in f64 in B3)
+COMPARE_LOSS_REL_TOL, COMPARE_REG_REL_TOL = 1e-6, 1e-5
+
+
+def _train_settings(device, **kw):
+    from iv2019_tpu_torch.config import Settings
+
+    (npp, npb, npi), (h, w) = TRAIN_NB, TRAIN_HW
+    return Settings(device=device.type, mode="train", height_feature_extractor=h,
+                    width_feature_extractor=w, Nb_per_pixel=npp, Nb_per_bbox=npb,
+                    Nb_per_image=npi, **kw).finalize()
+
+
+def _fused_train(settings):
+    """(model, step fn, holder of the state) of the fused optimizer from
+    seeded weights."""
+    from iv2019_tpu_torch.models.model import build_model, init_model
+    from iv2019_tpu_torch.train.fused_update import FusedSGDM
+    from iv2019_tpu_torch.train.state import create_fused_train_state
+    from iv2019_tpu_torch.train.step import make_train_step
+
+    model = init_model(build_model(settings), torch.Generator().manual_seed(0))
+    opt = FusedSGDM(settings, model)
+    return model, make_train_step(settings, fused_opt=opt), {"state": create_fused_train_state(opt)}
+
+
+def _optax_train(settings):
+    from iv2019_tpu_torch.models.model import build_model, init_model
+    from iv2019_tpu_torch.train.optimizer import make_optimizer
+    from iv2019_tpu_torch.train.state import create_train_state
+    from iv2019_tpu_torch.train.step import make_train_step
+
+    model = init_model(build_model(settings), torch.Generator().manual_seed(0))
+    tx, _ = make_optimizer(settings, model)
+    return (model, make_train_step(settings, model=model),
+            {"state": create_train_state(model, tx, settings.ema_decay)})
+
+
+def _steps(step, holder, batch, n):
+    """n steps; per step (ms, host copies of the metrics)."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        holder["state"], metrics = step(holder["state"], batch)
+        torch.cuda.synchronize()
+        out.append(((time.perf_counter() - t0) * 1e3,
+                    {k: float(v) for k, v in metrics.items() if k != "weight_masks"}))
+    return out
+
+
+def variant_predict(settings, images, rng):
+    """VARIANT_REQUESTS fused predict requests of the variant on seeded,
+    calibrated weights: B4/B5 launches, and the fused path against an f32
+    truth as the predict phase holds the default model."""
+    from iv2019_tpu_torch.models.model import build_model, init_model
+    from iv2019_tpu_torch.train.step import make_predict_step
+
+    out_hw = (1024, 2048)
+    unfused = init_model(build_model(settings), torch.Generator().manual_seed(0))
+    calibrate_bn(unfused, images[0], rng)
+    fused = build_model(settings.replace(fused_block=True))
+    fused.load_state_dict(unfused.state_dict())
+    predict = make_predict_step(settings.replace(fused_block=True), output_size=out_hw,
+                                model=fused)
+    predict(images[0])  # warm-up
+    torch.cuda.synchronize()
+    _reset_fb()
+    lat, outs = [], []
+    for img in images:
+        t0 = time.perf_counter()
+        outs.append(predict(img))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = _fb_counts()
+    ref = make_predict_step(settings, output_size=out_hw, model=unfused)(images[0])
+    truth_model = build_model(settings.replace(compute_dtype="float32"))
+    truth_model.load_state_dict(unfused.state_dict())
+    truth = make_predict_step(settings, output_size=out_hw, model=truth_model)(images[0])
+
+    def compare(a, b):
+        d = (a["l1_probabilities"] - b["l1_probabilities"]).abs()
+        return dict(mean_abs=float(d.mean()),
+                    decisions_equal=float((a["decisions"] == b["decisions"]).float().mean()))
+
+    ff, uf = compare(outs[0], truth), compare(ref, truth)
+    finite = all(bool(torch.isfinite(o[k]).all()) for o in outs for k in o)
+    if not (finite and ff["mean_abs"] <= PREDICT_TRUTH_RATIO * uf["mean_abs"]
+            and ff["decisions_equal"] >= uf["decisions_equal"] - PREDICT_TRUTH_DECISIONS_SLACK):
+        raise AssertionError(f"fused predict departs from f32 more than unfused bf16: "
+                             f"fused {ff}, unfused {uf}, finite {finite}")
+    return launches, dict(latency_ms=lat, fused_vs_f32=ff, unfused_vs_f32=uf)
+
+
+def variants_phase(device):
+    """Each of ``VARIANTS`` at full width: VARIANT_REQUESTS predict requests
+    with --fused_block held to an f32 truth, and VARIANT_STEPS fused
+    optimizer train steps on the constant 4 + 8 + 4 batch; launch counts
+    exact by the JAX rules (B4/B5 only under batch norm, B1/B2 only with
+    bilinear upsampling); then B1/B2 at the Vistas heads against their
+    plain versions. Returns (the phase's launches, the Vistas loss rows)."""
+    from iv2019_tpu_torch.problem.taxonomy import get_taxonomy
+
+    rng = np.random.RandomState(5)
+    h, w = TRAIN_HW
+    images = [torch.tensor(rng.uniform(-1, 1, (1, h, w, 3)), dtype=torch.float32, device=device)
+              for _ in range(VARIANT_REQUESTS)]
+    batch = train_batch(np.random.RandomState(0), device)
+    totals = {k: 0 for k in REPLACES}
+    stats = {}
+    for name, dataset, fields in VARIANTS:
+        settings = _train_settings(device, per_pixel_dataset_name=dataset, **fields)
+        fb_launches, pred = variant_predict(settings.replace(mode="predict"), images, rng)
+        torch.cuda.empty_cache()
+        batch_norm = settings.norm_layer == "batch"
+        want_fb = {"fused_bottleneck": 8 * VARIANT_REQUESTS * batch_norm,
+                   "fused_bottleneck_ct": 2 * VARIANT_REQUESTS * batch_norm}
+
+        model, step, holder = _fused_train(settings)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        runs = _steps(step, holder, batch, VARIANT_STEPS)
+        launches = _counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        bilinear = settings.upsampling_method == "bilinear"
+        want = {"fused_loss_fwd": VARIANT_STEPS * bilinear, "fused_loss_bwd": VARIANT_STEPS * bilinear,
+                "fused_update": VARIANT_STEPS, "root_conv_wgrad": 0}
+        losses = [m for _, m in runs]
+        profile = profile_call(lambda: step(holder["state"], batch), f"variant {name} step",
+                               runs[-1][0], top=6, groups=STEP_GROUPS)
+        stats[name] = dict(dataset=dataset, fields=fields, predict=pred, predict_launches=fb_launches,
+                           step_ms=[t for t, _ in runs], device_busy_ms=profile["device_busy_ms"],
+                           peak_memory_gib=peak_gib, launches=launches,
+                           num_params=sum(p.numel() for p in model.parameters()),
+                           totals=[m["total"] for m in losses])
+        log(f"variant {name}: " + json.dumps(stats[name]))
+        if fb_launches != want_fb or launches != want:
+            raise AssertionError(f"variant {name}: launches predict {fb_launches} train "
+                                 f"{launches}, expected {want_fb} {want}")
+        if not all(np.isfinite(v) for m in losses for v in m.values()):
+            raise AssertionError(f"variant {name}: non-finite losses {losses}")
+        for counts in (fb_launches, launches):
+            for k, v in counts.items():
+                totals[k] += v
+        del model, step, holder
+        torch.cuda.empty_cache()
+    vistas = loss_shape(get_taxonomy("vistas"), TRAIN_NB[0], TRAIN_NB[1] + TRAIN_NB[2], device)
+    log("variants: " + json.dumps(dict(launches=totals, **{
+        k: dict(step_ms=v["step_ms"], device_busy_ms=v["device_busy_ms"],
+                peak_memory_gib=v["peak_memory_gib"]) for k, v in stats.items()})))
+    return totals, vistas
+
+
+def optax_run(device, tmp, problem):
+    """SemanticSegmentation.train on the optax path with B6, to
+    OPTAX_RUN_STEPS and resumed to OPTAX_RESUME_STEPS, then predict_cli from
+    its checkpoint with and without --restore_emas against a model holding
+    the run's weights (or the EMA shadow unbiased by hand). Returns the
+    run's launches and numbers."""
+    import os
+
+    from PIL import Image
+
+    from iv2019_tpu_torch import predict_cli
+    from iv2019_tpu_torch.config import (PREDICT, build_argparser, resolve_dataset_name,
+                                         resolve_trained_model, settings_from_args)
+    from iv2019_tpu_torch.input.heterogeneous import train_input
+    from iv2019_tpu_torch.input.predict_input import predict_input
+    from iv2019_tpu_torch.models.model import build_model
+    from iv2019_tpu_torch.system import SemanticSegmentation
+    from iv2019_tpu_torch.utils.checkpoint import CheckpointManager
+
+    (npp, npb, npi), (h, w) = TRAIN_NB, TRAIN_HW
+    log_dir = os.path.join(tmp, "optax")
+    settings = _train_settings(device, log_dir=log_dir, training_problem_def_path=problem,
+                               synthetic_data=True, input_seed=0, root_wgrad_pallas=True,
+                               fused_optimizer=False, save_checkpoints_steps=OPTAX_SAVE_EVERY,
+                               save_summaries_steps=OPTAX_SAVE_EVERY, Nb=npp)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    SemanticSegmentation({"train": train_input}, settings=settings).train(
+        max_steps=OPTAX_RUN_STEPS, log_every=1)
+    os.rename(os.path.join(log_dir, "settings.txt"), os.path.join(log_dir, "settings.0.txt"))
+    state = SemanticSegmentation({"train": train_input}, settings=settings).train(
+        max_steps=OPTAX_RESUME_STEPS, log_every=1)
+    run_s = time.perf_counter() - t0
+    launches = _counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    records = _read_jsonl(os.path.join(log_dir, "train_metrics.jsonl"))
+    snap = CheckpointManager(log_dir).load(OPTAX_RESUME_STEPS)
+    n = OPTAX_RESUME_STEPS
+    want = {"fused_loss_fwd": n, "fused_loss_bwd": n, "fused_update": 0, "root_conv_wgrad": n}
+    log(f"optax run: steps {[r['step'] for r in records]}, launches {launches}, "
+        f"checkpoint kind {snap['kind']} count {snap['count']}")
+    if (launches != want or [r["step"] for r in records] != list(range(1, n + 1))
+            or not all(np.isfinite(v) for r in records for v in r.values())
+            or snap["kind"] != "optax" or snap["count"] != n or int(state.step) != n):
+        raise AssertionError(f"optax run: launches {launches} (expected {want}), records "
+                             f"{records}, checkpoint {snap['kind']} {snap['count']}")
+    del snap
+
+    img_dir = os.path.join(log_dir, "images")
+    os.makedirs(img_dir)
+    sizes = {"a": (h, w), "b": (600, 800)}
+    rng = np.random.RandomState(6)
+    for stem, hw in sizes.items():
+        Image.fromarray(rng.randint(0, 256, (*hw, 3), dtype=np.uint8)).save(
+            os.path.join(img_dir, f"{stem}.png"))
+    raw = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    ema = dict(raw)
+    denom = 1.0 - state.ema.decay_product
+    for name, s in state.ema.biased.items():
+        ema[name] = s / denom
+    del state
+    torch.cuda.empty_cache()
+    out = dict(steps=n, run_s=run_s, peak_memory_gib=peak_gib, launches=launches,
+               step_ms_p50=_p50_p90([sum(TRAIN_NB) / r["images_per_sec"] * 1e3
+                                     for r in records if r["step"] not in (1, OPTAX_RUN_STEPS + 1)])[0],
+               last_total=records[-1]["total"])
+    for flags, weights in (((), raw), (("--restore_emas",), ema)):
+        results = os.path.join(log_dir, "predictions" + "".join(flags))
+        argv = [log_dir, problem, img_dir, "--height_feature_extractor", str(h),
+                "--width_feature_extractor", str(w), "--fused_block", "--export_lids_images",
+                "--results_dir", results, *flags]
+        _reset_fb()
+        count = predict_cli.main(argv)
+        fb_launches = _fb_counts()
+        args = build_argparser(PREDICT).parse_args(argv)
+        psettings = resolve_trained_model(resolve_dataset_name(
+            settings_from_args(args, PREDICT, predict_keys=predict_cli.PREDICT_KEYS), None), argv)
+        system = SemanticSegmentation({"predict": lambda s, _pd: predict_input(s)},
+                                      model_fn=build_model, settings=psettings)
+        got = list(system.predict())
+        model = build_model(system.settings)
+        model.load_state_dict(weights)
+        want_items = list(predict_cli.predict(system.settings, model))
+        diff = max(float(np.abs(g[k] - x[k]).max()) for g, x in zip(got, want_items)
+                   for k in ("l1_probabilities", "l2_vehicle_probabilities"))
+        same = min(float((g["decisions"] == x["decisions"]).mean())
+                   for g, x in zip(got, want_items))
+        key = "restore_emas" if flags else "weights"
+        out[key] = dict(images=count, launches=fb_launches, max_abs_prob_diff=diff,
+                        decisions_equal=same)
+        want_fb = {"fused_bottleneck": 8 * len(sizes), "fused_bottleneck_ct": 2 * len(sizes)}
+        if count != len(sizes) or fb_launches != want_fb or diff > 1e-6 or same < 0.9999:
+            raise AssertionError(f"predict from the optax run {flags}: {out[key]}")
+        del model, system
+        torch.cuda.empty_cache()
+    log("optax run: " + json.dumps(out))
+    return launches, out
+
+
+def optax_phase(device):
+    """The optax path (see the module docstring): the training run with its
+    resume and predict, the optax path against FusedSGDM from the same
+    weights, and remat against no remat. Returns the launches of each and
+    the numbers."""
+    import os
+    import tempfile
+
+    from iv2019_tpu_torch import train_cli
+
+    problem = os.path.join(os.path.dirname(os.path.abspath(train_cli.__file__)),
+                           "problem_definitions", "cityscapes", "problem01.json")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_launches, run = optax_run(device, tmp, problem)
+    torch.cuda.empty_cache()
+    batch = train_batch(np.random.RandomState(0), device)
+
+    # the optax path against the fused optimizer, same weights, same batch
+    runs = {}
+    for key, build in (("optax", _optax_train), ("fused", _fused_train)):
+        settings = _train_settings(device, fused_optimizer=key == "fused")
+        model, step, holder = build(settings)
+        initial = {k: p.detach().clone() for k, p in model.named_parameters()}
+        history = _steps(step, holder, batch, COMPARE_STEPS)
+        runs[key] = dict(history=history, initial=initial,
+                         params={k: p.detach().clone() for k, p in model.named_parameters()})
+        # one more step under the profiler (after the parameters are read)
+        runs[key]["busy"] = profile_call(lambda: _steps(step, holder, batch, 1),
+                                         f"{key} step", history[-1][0], top=6,
+                                         groups=STEP_GROUPS)["device_busy_ms"]
+        del model, step, holder
+        torch.cuda.empty_cache()
+    (_, m_optax), (_, m_fused) = runs["optax"]["history"][0], runs["fused"]["history"][0]
+    rel = {k: abs(m_optax[k] - m_fused[k]) / abs(m_fused[k]) for k in m_fused if k != "miou"}
+    # per leaf: the largest |difference| over the leaf's largest |value|, and
+    # the difference's norm over the norm of the leaf's update; then all
+    # parameters as one vector
+    worst_rel, per_leaf, diff_sq, update_sq = 0.0, [], 0.0, 0.0
+    for k, p in runs["fused"]["params"].items():
+        d = runs["optax"]["params"][k] - p
+        update = p - runs["fused"]["initial"][k]
+        worst_rel = max(worst_rel, float(d.abs().max()) / max(float(p.abs().max()), 1e-30))
+        per_leaf.append(float(d.norm()) / max(float(update.norm()), 1e-30))
+        diff_sq += float(d.norm()) ** 2
+        update_sq += float(update.norm()) ** 2
+    compare = dict(steps=COMPARE_STEPS, step1_rel_diff=rel, params_max_rel_diff=worst_rel,
+                   leaf_diff_over_update_max=max(per_leaf),
+                   leaf_diff_over_update_median=float(np.median(per_leaf)),
+                   all_params_diff_over_update=(diff_sq / max(update_sq, 1e-30)) ** 0.5,
+                   totals={k: [m["total"] for _, m in v["history"]] for k, v in runs.items()},
+                   step_ms={k: [t for t, _ in v["history"]] for k, v in runs.items()},
+                   device_busy_ms={k: v["busy"] for k, v in runs.items()})
+    log("optax against fused: " + json.dumps(compare))
+    finite = all(np.isfinite(v) for r in runs.values() for _, m in r["history"]
+                 for v in m.values())
+    if not (finite and max(v for k, v in rel.items() if k not in ("total", "regularization"))
+            <= COMPARE_LOSS_REL_TOL and rel["regularization"] <= COMPARE_REG_REL_TOL):
+        raise AssertionError(f"optax path departs from the fused optimizer: {compare}")
+    del runs
+    torch.cuda.empty_cache()
+
+    # remat against no remat, with B6
+    remat = {}
+    remat_launches = {k: 0 for k in _counts()}
+    for flag in (False, True):
+        settings = _train_settings(device, remat=flag, root_wgrad_pallas=True)
+        model, step, holder = _fused_train(settings)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _reset_counts()
+        first = _steps(step, holder, batch, 1)
+        stats1 = {k: b.detach().clone() for k, b in model.named_buffers()}
+        rest = _steps(step, holder, batch, REMAT_STEPS - 1)
+        for k, v in _counts().items():
+            remat_launches[k] += v
+        remat[flag] = dict(step_ms=[t for t, _ in first + rest],
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                           activations_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+                           totals=[m["total"] for _, m in first + rest], stats1=stats1,
+                           stats=[{k: b.detach().clone() for k, b in model.named_buffers()}])
+        remat[flag]["device_busy_ms"] = profile_call(
+            lambda: _steps(step, holder, batch, 1), f"remat={flag} step", rest[-1][0], top=6,
+            groups=STEP_GROUPS)["device_busy_ms"]
+        del model, step, holder
+        torch.cuda.empty_cache()
+    n = 2 * REMAT_STEPS
+    want = {"fused_loss_fwd": n, "fused_loss_bwd": n, "fused_update": n, "root_conv_wgrad": n}
+    stats1_diff = max(float((remat[True]["stats1"][k] - v).abs().max())
+                      for k, v in remat[False]["stats1"].items())
+    stats_diff = max(float((remat[True]["stats"][0][k] - v).abs().max())
+                     for k, v in remat[False]["stats"][0].items())
+    out = dict(launches=remat_launches, stats_max_abs_diff_step1=stats1_diff,
+               stats_max_abs_diff=stats_diff, **{
+                   ("remat" if k else "plain"): {x: v[x] for x in (
+                       "step_ms", "device_busy_ms", "peak_gib", "activations_gib", "totals")}
+                   for k, v in remat.items()})
+    log("remat: " + json.dumps(out))
+    if (remat_launches != want or stats1_diff != 0.0
+            or not remat[True]["peak_gib"] < remat[False]["peak_gib"]
+            or not all(np.isfinite(t) for v in remat.values() for t in v["totals"])):
+        raise AssertionError(f"remat: {out}, expected launches {want}, equal statistics after "
+                             "one step and a lower peak")
+    return dict(run=run_launches, remat=remat_launches), dict(run=run, compare=compare, remat=out)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2130,7 +2525,20 @@ def main():
     # this slice's path: the real-format training run with grad_accum_steps=2
     real_launches, _ = real_format_phase(device)
     launches.update(real_launches)
+    torch.cuda.empty_cache()
+    # the model variants, then the optax path and remat
+    variant_launches, vistas = variants_phase(device)
+    torch.cuda.empty_cache()
+    optax_launches, _ = optax_phase(device)
     for r in results:
+        if r["name"] == "fused_loss_fwd":
+            r["vistas_shape"] = vistas[0]
+        if r["name"] == "fused_loss_bwd":
+            r["vistas_shape"] = vistas[1]
+        r["variants_launches"] = variant_launches[r["name"]]
+        for key, counts in optax_launches.items():
+            if r["name"] in counts:
+                r[f"optax_{key}_launches"] = counts[r["name"]]
         r["launches"] = launches[r["name"]]
         if r["name"] in run_launches:
             # the synthetic-input training run of the earlier slice

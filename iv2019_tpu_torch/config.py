@@ -9,12 +9,18 @@ test-time-augmentation, sliding-window and plotting flags of both inference
 command lines), plus one field and flag of the port's own: ``--device``
 (``cuda`` unless the caller asks for ``cpu``). Gradient accumulation
 (``--grad_accum_steps``), on-device augmentations (``--augmentations``),
-on-device bbox rasterizing and compact image labels are ported; the last
-two, like ``root_wgrad_pallas``, have no flag, as in the JAX package. The
-train command line accepts the flags of paths the port does not have yet
-(multi-process and multi-device training, spatial partitions, remat);
-``validate()`` raises ``NotImplementedError`` when one of them is set, and
-the train step raises for ``fused_optimizer=False`` (the optax path).
+on-device bbox rasterizing, compact image labels, the model variants (PSP,
+FOV conv, hybrid upsampling, group norm, fused adaptation heads), remat and
+the optax path are ported; ``rasterize_on_device``,
+``compact_image_labels``, ``root_wgrad_pallas``, ``fuse_adaptation`` and
+``fused_optimizer`` have no flag, as in the JAX package. The TPU layout
+switches ``conv_impl``, ``bn_impl``, ``dilation_mode`` and ``root_conv_s2d``
+compute the same function as their defaults in the JAX package, and the
+port runs its one path for every value; ``enable_xla`` and ``distribute``
+are kept for parity and do nothing. The train command line accepts the
+flags of multi-process and multi-device training and spatial partitions,
+which the port does not have yet: ``validate()`` raises
+``NotImplementedError`` when one of them is set.
 """
 
 from __future__ import annotations
@@ -102,8 +108,16 @@ class Settings:
     # microbatches per optimizer step (train/step.py)
     grad_accum_steps: int = 1
     # SGDM + weight decay + EMA as one pass over flat f32 vectors
-    # (train/fused_update.py); False (the optax path) is not ported
+    # (train/fused_update.py); False: per-parameter SGD(M) with the L2
+    # regularization in the loss and an EmaState (train/state.py)
     fused_optimizer: bool = True
+    # TPU layout switches of the JAX package, each the same function as its
+    # default there (iv2019_tpu/config.py:163-181): the port runs its one
+    # path for every value
+    dilation_mode: str = "dilated"  # | "space_to_batch"
+    root_conv_s2d: bool = False
+    conv_impl: str = "conv"  # | "dot" | "dot_bwd"
+    bn_impl: str = "flax"  # | "fused"
     # the fused update runs as the CUDA kernel B3 (ops/fused_update.py)
     pallas_update: bool = True
     weak_loss_coefficient: float = 0.1
@@ -115,6 +129,10 @@ class Settings:
     rasterize_on_device: bool = False
     # per-image weak labels as (Nb, 15) vectors, broadcast on the device
     compact_image_labels: bool = False
+    # the three adaptation branches and logit heads as grouped convs (one
+    # set of parameters of their own: adaptation_module/fused/*,
+    # softmax_classifier/fused_logits)
+    fuse_adaptation: bool = False
     # the root conv's weight gradient as kernel B6 (ops/root_wgrad.py); set
     # in Settings only, as in the JAX package
     root_wgrad_pallas: bool = False
@@ -123,11 +141,13 @@ class Settings:
     input_seed: Optional[int] = None
     # checkpoint writes overlap the following steps (utils/checkpoint.py)
     async_checkpoints: bool = True
+    # recompute each trunk unit's activations in the backward pass
+    # (torch.utils.checkpoint; the BatchNorm statistics move once)
+    remat: bool = False
     # not ported beyond their defaults: validate() raises when set
     num_devices: Optional[int] = None
     num_slices: int = 1
     spatial_partitions: int = 1
-    remat: bool = False
     coordinator_address: str = ""
     num_processes: int = 1
     process_id: int = 0
@@ -194,6 +214,10 @@ class Settings:
     openimages_label_space: str = "v2"
     # random batches of the real shapes instead of datasets on disk
     synthetic_data: bool = False
+
+    # -- kept for parity with the JAX package's command line ---------------
+    enable_xla: bool = True
+    distribute: bool = False
 
     # -- derived by finalize() ---------------------------------------------
     height_network: int = 0
@@ -266,7 +290,6 @@ class Settings:
             "num_devices > 1 (multi-device training)": (self.num_devices or 1) > 1,
             "num_slices > 1": self.num_slices != 1,
             "spatial_partitions > 1": self.spatial_partitions != 1,
-            "remat": self.remat,
         }
         for name, on in unported.items():
             if on:
@@ -344,8 +367,9 @@ def _add_system_arguments(p: argparse.ArgumentParser) -> None:
 
 
 def _add_train_system_arguments(p: argparse.ArgumentParser) -> None:
-    """The training flags of iv2019_tpu/config.py:504-539; those of paths the
-    port does not have yet are accepted and refused by validate()."""
+    """The training flags of iv2019_tpu/config.py:504-539; those of
+    multi-process and multi-device training are accepted and refused by
+    validate()."""
     p.add_argument("--enable_xla", action="store_true", default=True)
     p.add_argument("--num_devices", type=int, default=None)
     p.add_argument("--num_slices", type=int, default=1)
@@ -532,7 +556,9 @@ def dataset_name_from_log_dir(log_dir: str) -> Optional[str]:
 
 
 # flags that decide the trained architecture: read from settings.txt
-# unless given on the command line
+# unless given on the command line. The JAX package's table, as it is: it
+# lacks norm_layer (and fuse_adaptation), so evaluating or predicting from a
+# group-norm run needs --norm_layer group again (ROADMAP.md queue C)
 _MODEL_SHAPE_FIELDS = {
     "name_feature_extractor": str,
     "stride_feature_extractor": int,

@@ -153,8 +153,9 @@ def define_losses(predictions: Mapping[str, Any], labels: Mapping[str, Any], tax
 
 def l2_regularization(named_parameters, weight_decay: float) -> torch.Tensor:
     """slim l2_regularizer parity: weight_decay * sum_k ||W_k||^2 / 2 over the
-    conv kernels only (the port's ``<module>.conv.weight`` leaves, flax
-    ``kernel``), not the norms' scale and bias."""
+    kernels only (the port's ``.weight`` leaves: convs and the hybrid
+    upsampler's conv transpose, flax ``kernel``), not the conv transpose's
+    bias or the norms' scale and bias."""
     total = sum(torch.sum(p.float() ** 2) for name, p in named_parameters
                 if name.endswith(".weight"))
     return weight_decay * total * 0.5

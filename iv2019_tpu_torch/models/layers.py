@@ -15,10 +15,14 @@ as ``conv.weight`` (OIHW) and ``norm/BatchNorm/<leaf>`` as ``norm.<leaf>``
   ``(x - mean) * (rsqrt(var + eps) * scale) + bias``; in train mode on the
   batch's statistics over (N, H, W), with the running statistics moved by
   ``decay * ra + (1 - decay) * batch`` with the *biased* variance, as flax.
+  ``norm_type="group"`` is flax GroupNorm (``min(groups, C)`` groups,
+  f32, the same in both modes, no running statistics), its parameters
+  named ``scale`` and ``bias`` as flax's (weight decay applies to
+  ``.weight`` only); ``"none"`` is the identity.
 - ``BottleneckV1``: slim resnet_v1.bottleneck. With ``fused_block`` an
   eligible identity unit runs as one kernel (ops/fused_block.py) under the
-  JAX package's dispatch rule, in eval mode only (the kernels fold the
-  running statistics into the convs).
+  JAX package's dispatch rule, in eval mode under batch norm only (the
+  kernels fold the running statistics into the convs).
 """
 
 from __future__ import annotations
@@ -32,36 +36,50 @@ from iv2019_tpu_torch.ops import fused_block as fb
 __all__ = ["BottleneckV1", "Conv", "ConvNormRelu", "Norm"]
 
 
-def same_padding(kernel_size: int, rate: int) -> int:
-    """conv2d_same padding per side (symmetric for the odd kernels used)."""
+def same_padding(kernel_size: int, rate: int) -> tuple[int, int]:
+    """conv2d_same padding (low, high): ``keff - 1`` split low/high."""
     keff = kernel_size + (kernel_size - 1) * (rate - 1)
     pad_total = keff - 1
-    if pad_total % 2:
-        raise ValueError(f"even effective kernel {keff} pads asymmetrically")
-    return pad_total // 2
+    return pad_total // 2, pad_total - pad_total // 2
 
 
 class Conv(nn.Module):
-    """A conv kernel, OIHW f32 (the flax ``conv/kernel`` leaf)."""
+    """A conv kernel, OIHW f32 (the flax ``conv/kernel`` leaf); grouped
+    convs hold (cout, cin / groups, k, k)."""
 
-    def __init__(self, cin: int, cout: int, kernel_size: int):
+    def __init__(self, cin: int, cout: int, kernel_size: int, groups: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel_size, kernel_size))
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, kernel_size, kernel_size))
 
 
 class Norm(nn.Module):
-    """BatchNorm in f32 (the flax ``BatchNorm`` variables); the mode follows
-    ``module.train()`` / ``module.eval()``."""
+    """BatchNorm (or GroupNorm, or none) in f32 (the flax ``BatchNorm`` /
+    ``GroupNorm`` variables); batch norm's mode follows ``module.train()`` /
+    ``module.eval()``. ``update_stats`` False keeps the running statistics
+    where they are in train mode (a recomputed forward, models/resnet.py)."""
 
-    def __init__(self, channels: int, epsilon: float = 1e-5, decay: float = 0.9):
+    def __init__(self, channels: int, epsilon: float = 1e-5, decay: float = 0.9,
+                 norm_type: str = "batch", groups: int = 32):
         super().__init__()
-        self.epsilon, self.decay = epsilon, decay
+        if norm_type not in ("batch", "group", "none"):
+            raise ValueError(f"unknown norm_type {norm_type!r}")
+        self.norm_type, self.epsilon, self.decay = norm_type, epsilon, decay
+        self.num_groups = min(groups, channels)
+        self.update_stats = True
+        if norm_type == "none":
+            return
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("mean", torch.zeros(channels))
-        self.register_buffer("var", torch.ones(channels))
+        if norm_type == "batch":
+            self.register_buffer("mean", torch.zeros(channels))
+            self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.norm_type == "none":
+            return x
+        if self.norm_type == "group":
+            y = F.group_norm(x.float(), self.num_groups, self.scale, self.bias, self.epsilon)
+            return y.to(x.dtype)
         if self.training:
             return self._train(x)
         mul = torch.rsqrt(self.var + self.epsilon) * self.scale
@@ -80,35 +98,45 @@ class Norm(nn.Module):
         y = F.batch_norm(xf, batch_mean, batch_var, self.scale, self.bias, training=True,
                          momentum=1.0, eps=self.epsilon)
         count = xf.numel() // xf.shape[1]
-        with torch.no_grad():
-            self.mean.mul_(self.decay).add_(batch_mean, alpha=1.0 - self.decay)
-            self.var.mul_(self.decay).add_(batch_var * ((count - 1) / count),
-                                           alpha=1.0 - self.decay)
+        if self.update_stats:
+            with torch.no_grad():
+                self.mean.mul_(self.decay).add_(batch_mean, alpha=1.0 - self.decay)
+                self.var.mul_(self.decay).add_(batch_var * ((count - 1) / count),
+                                               alpha=1.0 - self.decay)
         return y.to(x.dtype)
 
 
-def conv_same(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, rate: int = 1) -> torch.Tensor:
+def conv_same(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, rate: int = 1,
+              groups: int = 1) -> torch.Tensor:
     """conv2d_same in the dtype of x, no bias."""
-    pad = same_padding(weight.shape[-1], rate)
-    return F.conv2d(x, weight.to(x.dtype), stride=stride, padding=pad, dilation=rate)
+    lo, hi = same_padding(weight.shape[-1], rate)
+    w = weight.to(x.dtype)
+    if lo != hi:
+        return F.conv2d(F.pad(x, (lo, hi, lo, hi)), w, stride=stride, dilation=rate,
+                        groups=groups)
+    return F.conv2d(x, w, stride=stride, padding=lo, dilation=rate, groups=groups)
 
 
 class ConvNormRelu(nn.Module):
     """slim.conv2d: conv (no bias) -> norm -> optional relu.
 
     ``activation=False`` still applies the norm, as the reference's logit
-    heads do.
+    heads do. ``feature_group_count`` splits the conv into that many groups;
+    ``groups`` is the group norm's.
     """
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1, rate: int = 1,
-                 activation: bool = True, dtype: torch.dtype = torch.bfloat16):
+                 activation: bool = True, dtype: torch.dtype = torch.bfloat16,
+                 norm_type: str = "batch", groups: int = 32, feature_group_count: int = 1):
         super().__init__()
         self.stride, self.rate, self.activation, self.dtype = stride, rate, activation, dtype
-        self.conv = Conv(cin, cout, kernel_size)
-        self.norm = Norm(cout)
+        self.feature_group_count = feature_group_count
+        self.conv = Conv(cin, cout, kernel_size, feature_group_count)
+        self.norm = Norm(cout, norm_type=norm_type, groups=groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.norm(conv_same(x.to(self.dtype), self.conv.weight, self.stride, self.rate))
+        y = self.norm(conv_same(x.to(self.dtype), self.conv.weight, self.stride, self.rate,
+                                self.feature_group_count))
         return torch.relu(y) if self.activation else y
 
     def folded(self):
@@ -125,25 +153,29 @@ class BottleneckV1(nn.Module):
     """
 
     def __init__(self, depth_in: int, depth: int, depth_bottleneck: int, stride: int = 1,
-                 rate: int = 1, fused_block: bool = False, dtype: torch.dtype = torch.bfloat16):
+                 rate: int = 1, fused_block: bool = False, dtype: torch.dtype = torch.bfloat16,
+                 norm_type: str = "batch"):
         super().__init__()
         self.depth_in, self.depth, self.depth_bottleneck = depth_in, depth, depth_bottleneck
         self.stride, self.rate, self.fused_block, self.dtype = stride, rate, fused_block, dtype
+        self.norm_type = norm_type
+        kw = dict(dtype=dtype, norm_type=norm_type)
         if depth_in != depth:
-            self.shortcut = ConvNormRelu(depth_in, depth, 1, stride, activation=False, dtype=dtype)
-        self.conv1 = ConvNormRelu(depth_in, depth_bottleneck, 1, dtype=dtype)
-        self.conv2 = ConvNormRelu(depth_bottleneck, depth_bottleneck, 3, stride, rate, dtype=dtype)
-        self.conv3 = ConvNormRelu(depth_bottleneck, depth, 1, activation=False, dtype=dtype)
+            self.shortcut = ConvNormRelu(depth_in, depth, 1, stride, activation=False, **kw)
+        self.conv1 = ConvNormRelu(depth_in, depth_bottleneck, 1, **kw)
+        self.conv2 = ConvNormRelu(depth_bottleneck, depth_bottleneck, 3, stride, rate, **kw)
+        self.conv3 = ConvNormRelu(depth_bottleneck, depth, 1, activation=False, **kw)
 
     def fused_kernel(self, n: int, h: int, w: int):
         """The kernel wrapper the JAX rule picks for this unit, or None.
 
-        Eligible: eval mode (BatchNorm on running statistics), identity
+        Eligible: batch norm in eval mode (on running statistics), identity
         shortcut, stride 1, bf16. Then the full-window kernel if its rule
         admits the shape, else the channel-tiled one (layers.py:488-531).
         """
-        if not (self.fused_block and not self.training and self.stride == 1
-                and self.depth_in == self.depth and self.dtype == torch.bfloat16):
+        if not (self.fused_block and self.norm_type == "batch" and not self.training
+                and self.stride == 1 and self.depth_in == self.depth
+                and self.dtype == torch.bfloat16):
             return None
         shape = (n, h, w, self.depth_in, self.depth_bottleneck, self.rate)
         if fb.fused_bottleneck_supported(*shape):

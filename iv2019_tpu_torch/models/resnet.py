@@ -9,6 +9,12 @@ With ``root_wgrad_pallas`` the root conv's weight gradient on images of even
 height and width is kernel B6 (ops/root_wgrad.py) instead of the library's
 (``RootConvPallasWgrad``, resnet.py:206-257); the parameter stays
 ``conv1.conv.weight``.
+
+With ``remat`` each bottleneck unit runs under
+``torch.utils.checkpoint`` when autograd records it (``nn.remat``,
+resnet.py:330-339): the backward recomputes the unit's activations from
+its input. The recompute leaves the BatchNorm running statistics alone,
+so they move once a forward, as without remat.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from iv2019_tpu_torch.models.layers import BottleneckV1, Conv, Norm, conv_same, same_padding
@@ -103,7 +110,7 @@ class _RootConvWgrad(torch.autograd.Function):
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
         k, stride = weight.shape[-1], ctx.stride
-        pad = same_padding(k, 1)
+        pad, _ = same_padding(k, 1)
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = torch.nn.grad.conv2d_input(x.shape, weight, dy, stride=stride, padding=pad)
@@ -131,15 +138,38 @@ class _RootConv(nn.Module):
         return conv_same(x, self.conv.weight, stride=2)
 
 
+def _remat(unit: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``unit(x)`` whose activations the backward recomputes; the recompute
+    (every call after the first) keeps the running statistics still."""
+    calls = []
+
+    def run(inp):
+        calls.append(None)
+        if len(calls) == 1:
+            return unit(inp)
+        norms = [m for m in unit.modules() if isinstance(m, Norm)]
+        for m in norms:
+            m.update_stats = False
+        try:
+            return unit(inp)
+        finally:
+            for m in norms:
+                m.update_stats = True
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+
+
 class ResNetV1(nn.Module):
     """Fully convolutional dilated ResNet-v1; returns the last block's map."""
 
     def __init__(self, blocks=RESNET50_BLOCKS, output_stride: int = 8,
                  fused_block: bool = False, dtype: torch.dtype = torch.bfloat16,
-                 root_wgrad_pallas: bool = False):
+                 root_wgrad_pallas: bool = False, norm_type: str = "batch",
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.conv1 = _RootConv(dtype, wgrad_kernel=root_wgrad_pallas)
-        self.conv1_norm = Norm(64)
+        self.conv1_norm = Norm(64, norm_type=norm_type)
         self.unit_names = []
         depth_in = 64
         for bi, units in enumerate(unit_plan(blocks, output_stride)):
@@ -147,7 +177,7 @@ class ResNetV1(nn.Module):
                 name = f"block{bi + 1}/unit_{ui + 1}"
                 self.add_module(name, BottleneckV1(
                     depth_in, depth, depth_bottleneck, stride, rate,
-                    fused_block=fused_block, dtype=dtype))
+                    fused_block=fused_block, dtype=dtype, norm_type=norm_type))
                 self.unit_names.append(name)
                 depth_in = depth
         self.depth_out = depth_in
@@ -157,6 +187,7 @@ class ResNetV1(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = max_pool_same(torch.relu(self.conv1_norm(self.conv1(x))), 3, 2)
+        remat = self.remat and torch.is_grad_enabled()
         for unit in self.units():
-            x = unit(x)
+            x = _remat(unit, x) if remat else unit(x)
         return x

@@ -32,7 +32,7 @@ from iv2019_tpu_torch.input.prefetch import device_prefetch
 from iv2019_tpu_torch.models.model import build_model, init_model
 from iv2019_tpu_torch.problem.problem_def import load_problem_def
 from iv2019_tpu_torch.train.fused_update import FusedSGDM
-from iv2019_tpu_torch.train.state import create_fused_train_state
+from iv2019_tpu_torch.train.state import EmaState, create_fused_train_state
 from iv2019_tpu_torch.train.step import make_eval_step
 from iv2019_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
 from iv2019_tpu_torch.utils.convert import (
@@ -137,10 +137,11 @@ def restore_variables(model: torch.nn.Module, settings: Settings,
                       step: Union[int, str, None] = None) -> str:
     """Load the trained weights into ``model`` in place (JAX system.py:407):
     checkpoint ``step`` of the port's training run in ``settings.log_dir``
-    (None: ``checkpoint_steps``), or a converted ``.npz``. With
-    ``restore_emas`` the zero-debiased EMA shadow of the fused optimizer
-    replaces the parameters (BatchNorm statistics have none). Returns what
-    was restored, for the log."""
+    (None: ``checkpoint_steps``), of either kind (fused optimizer or optax
+    path), or a converted ``.npz``. With ``restore_emas`` the zero-debiased
+    EMA shadow replaces the parameters (BatchNorm statistics have none; on
+    the optax path ``EmaState.debiased(fallback=params)``). Returns what was
+    restored, for the log."""
     if step is None:
         (step,) = checkpoint_steps(settings)
     if isinstance(step, str) and step.endswith(".npz"):
@@ -153,18 +154,33 @@ def restore_variables(model: torch.nn.Module, settings: Settings,
         raise FileNotFoundError(
             f"no checkpoint {'' if step is None else step} in {ckpt_dir}: give --ckpt_path a "
             "step the training run saved, a path ending in one, or a converted model.npz")
-    # the fused optimizer's layout and state, only to read the checkpoint: the
-    # parameters become views of its flat buffer, the gradients are dropped
-    opt = FusedSGDM(settings, model)
-    state = CheckpointManager(settings.log_dir).restore(step, create_fused_train_state(opt),
-                                                        opt.layout)
-    if settings.restore_emas:
-        ema = opt.ema_params(state.opt_state)
+    manager = CheckpointManager(settings.log_dir)
+    snap = manager.load(step)
+    if snap["kind"] == "optax":
         with torch.no_grad():
-            for name, p in model.named_parameters():
-                p.copy_(ema[name])
-    for p in model.parameters():
-        p.grad = None
+            model.load_state_dict(snap["model"], strict=True)
+            if settings.restore_emas:
+                if snap["ema_biased"] is None:
+                    raise ValueError(f"checkpoint {step} holds no EMA (ema_decay 0): "
+                                     "drop --restore_emas")
+                params = dict(model.named_parameters())
+                ema = EmaState(biased=snap["ema_biased"], decay_product=snap["ema_decay_product"])
+                for name, value in ema.debiased(
+                        fallback={k: p.detach().cpu() for k, p in params.items()}).items():
+                    params[name].copy_(value)
+    else:
+        # the fused optimizer's layout and state, only to read the checkpoint:
+        # the parameters become views of its flat buffer, the gradients are
+        # dropped
+        opt = FusedSGDM(settings, model)
+        state = manager.restore(step, create_fused_train_state(opt), opt.layout, snap=snap)
+        if settings.restore_emas:
+            ema = opt.ema_params(state.opt_state)
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    p.copy_(ema[name])
+        for p in model.parameters():
+            p.grad = None
     return (f"checkpoint {step} of {ckpt_dir}"
             + (" (EMA weights)" if settings.restore_emas else ""))
 

@@ -48,7 +48,8 @@ ALIGN = 128  # f32 elements: each parameter's view starts at a 512-byte boundary
 
 
 def is_decayed(name: str) -> bool:
-    """Whether weight decay applies to a parameter: conv kernels only."""
+    """Whether weight decay applies to a parameter: kernels only (``.weight``:
+    convs and conv transposes; no bias, no norm ``scale``/``bias``)."""
     return name.endswith(".weight")
 
 

@@ -20,7 +20,9 @@ model's):
   ``log_dir/profile/step_K/trace.json`` every K steps.
 
 The loop keeps the step count on the host; the device's ``state.step`` is
-read once, at the start.
+read once, at the start. ``fused_optimizer`` picks the optimizer: the fused
+SGDM of train/fused_update.py, or the optax path's SGD and ``EmaState``
+(train/optimizer.py, train/state.py), each with its own kind of checkpoint.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ from iv2019_tpu_torch.input.prefetch import device_prefetch
 from iv2019_tpu_torch.models.model import build_model, init_model
 from iv2019_tpu_torch.problem.problem_def import load_problem_def
 from iv2019_tpu_torch.train.fused_update import FusedSGDM
-from iv2019_tpu_torch.train.state import TrainState, create_fused_train_state
+from iv2019_tpu_torch.train.optimizer import make_optimizer
+from iv2019_tpu_torch.train.state import TrainState, create_fused_train_state, create_train_state
 from iv2019_tpu_torch.train.step import make_train_step
 from iv2019_tpu_torch.utils.checkpoint import CheckpointManager, warm_start_from_npz
 from iv2019_tpu_torch.utils.tb_writer import EventFileWriter
@@ -130,13 +133,18 @@ def train(settings: Settings, batch_iterator: Iterator[dict], model=None, log_ev
     every N steps.
     """
     settings = settings.replace(mode="train")
-    if not (settings.fused_optimizer and settings.optimizer in ("SGD", "SGDM")):
-        raise NotImplementedError("the optax path (fused_optimizer=False) is not ported yet")
+    if settings.optimizer not in ("SGD", "SGDM"):
+        raise ValueError(f"unknown optimizer {settings.optimizer}")
     if model is None:
         model = init_model(build_model(settings), torch.Generator().manual_seed(0))
     device = _device_of(model)
-    fused_opt = FusedSGDM(settings, model)
-    state = create_fused_train_state(fused_opt)
+    if settings.fused_optimizer:
+        fused_opt = FusedSGDM(settings, model)
+        state, layout, lr_fn = create_fused_train_state(fused_opt), fused_opt.layout, fused_opt.lr_fn
+    else:
+        fused_opt, layout = None, None
+        tx, lr_fn = make_optimizer(settings, model)
+        state = create_train_state(model, tx, settings.ema_decay)
 
     ckpt = CheckpointManager(settings.log_dir, async_save=settings.async_checkpoints)
     logger = None
@@ -147,12 +155,12 @@ def train(settings: Settings, batch_iterator: Iterator[dict], model=None, log_ev
             if settings.init_ckpt_path:
                 raise ValueError("If init_ckpt_path is given log_dir must be empty of "
                                  "checkpoints; resume and warm start are mutually exclusive.")
-            state = ckpt.restore(latest, state, fused_opt.layout)
+            state = ckpt.restore(latest, state, layout)
         elif settings.init_ckpt_path:
             n = warm_start_from_npz(model, settings.init_ckpt_path)
             print(f"warm start: restored {n} backbone arrays from {settings.init_ckpt_path}")
 
-        step_fn = make_train_step(settings, fused_opt=fused_opt)
+        step_fn = make_train_step(settings, model=model, fused_opt=fused_opt)
         logger = MetricsLogger(settings.log_dir)
         num_steps = max_steps or settings.num_training_steps
         save_every = settings.save_checkpoints_steps or max(num_steps, 1)
@@ -179,7 +187,7 @@ def train(settings: Settings, batch_iterator: Iterator[dict], model=None, log_ev
             if step >= num_steps:
                 break
             if preempted.is_set():
-                ckpt.save(step, state, fused_opt.layout)
+                ckpt.save(step, state, layout)
                 ckpt.wait_until_finished()
                 print(f"preempted (SIGTERM): saved checkpoint at step {step} and exiting; "
                       "resume by re-running on this log_dir")
@@ -198,8 +206,7 @@ def train(settings: Settings, batch_iterator: Iterator[dict], model=None, log_ev
             if step % log_every == 0 or step == num_steps:
                 host = {k: float(v) for k, v in metrics.items()}
                 now = time.time()
-                host["learning_rate"] = float(fused_opt.lr_fn(
-                    torch.tensor(step, dtype=torch.int64)))
+                host["learning_rate"] = float(lr_fn(torch.tensor(step, dtype=torch.int64)))
                 host["images_per_sec"] = steps_since_log * images_per_batch / max(now - t_last,
                                                                                   1e-9)
                 t_last, steps_since_log = now, 0
@@ -213,7 +220,7 @@ def train(settings: Settings, batch_iterator: Iterator[dict], model=None, log_ev
                     warnings.warn(f"image summaries disabled after error: {e!r}")
                     palette = None
             if step % save_every == 0 or step == num_steps:
-                ckpt.save(step, state, fused_opt.layout)
+                ckpt.save(step, state, layout)
                 t_last = time.time()  # checkpoint time is not training throughput
     finally:
         # restore the caller's SIGTERM disposition and flush every writer,

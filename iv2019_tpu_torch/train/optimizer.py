@@ -9,9 +9,15 @@ define_optimizer.py:3-26):
 - polynomial decay: (lr0 - end) * (1 - step / N)^power + end, step clamped.
 
 ``lr_fn(step)`` takes the step as a 0-d integer tensor and returns a 0-d f32
-tensor on the same device, without waiting on the host. The optax path of
-the JAX package (``make_optimizer``) is not ported: the port trains with
-the fused update only (train/fused_update.py).
+tensor on the same device, without waiting on the host.
+
+``make_optimizer`` is the optax path's SGD (``fused_optimizer=False``):
+optax ``sgd`` with ``momentum`` and ``nesterov`` for SGDM, plain for SGD.
+``torch.optim.SGD`` with dampening 0 keeps optax's trace (the first step's
+buffer is the gradient; Nesterov steps along g + momentum * buffer); the
+train step sets its learning rate before each update from the schedule at
+the pre-update step, which is optax's schedule count. The L2
+regularization enters through the loss, not as decoupled weight decay.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import torch
 
 from iv2019_tpu_torch.config import Settings
 
-__all__ = ["make_learning_rate_fn"]
+__all__ = ["make_learning_rate_fn", "make_optimizer"]
 
 
 def make_learning_rate_fn(settings: Settings) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -54,3 +60,18 @@ def make_learning_rate_fn(settings: Settings) -> Callable[[torch.Tensor], torch.
         return lr_fn
 
     raise ValueError(f"unknown learning_rate_schedule {settings.learning_rate_schedule}")
+
+
+def make_optimizer(settings: Settings, model: torch.nn.Module
+                   ) -> tuple[torch.optim.SGD, Callable[[torch.Tensor], torch.Tensor]]:
+    """(SGD over the model's parameters, lr_fn) of the optax path
+    (iv2019_tpu/train/optimizer.py:50-62)."""
+    lr_fn = make_learning_rate_fn(settings)
+    if settings.optimizer == "SGDM":
+        tx = torch.optim.SGD(model.parameters(), lr=0.0, momentum=settings.momentum,
+                             dampening=0.0, nesterov=settings.use_nesterov)
+    elif settings.optimizer == "SGD":
+        tx = torch.optim.SGD(model.parameters(), lr=0.0)
+    else:
+        raise ValueError(f"unknown optimizer {settings.optimizer}")
+    return tx, lr_fn

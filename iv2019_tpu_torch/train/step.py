@@ -10,7 +10,10 @@ Port of iv2019_tpu/train/step.py:
   backward into the fused optimizer's flat gradient vector, the fused SGDM
   + weight-decay + EMA update (kernel B3), the batch mIoU and the
   summaries' weight masks; with ``grad_accum_steps`` > 1 the forward and
-  backward run once per microbatch before the one update;
+  backward run once per microbatch before the one update. With
+  ``fused_optimizer=False`` (the optax path, step.py:250-256,415-419) the
+  L2 regularization enters the loss, and the update is the SGD of
+  train/optimizer.py followed by the ``EmaState`` update;
 - ``make_predict_step``: forward -> the four supported outputs, resized to
   the system size (or a given ``output_size``) with align_corners=True,
   optional top-2 void replacement (step.py:843-934);
@@ -45,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from iv2019_tpu_torch.config import Settings
-from iv2019_tpu_torch.losses.hierarchical import define_losses
+from iv2019_tpu_torch.losses.hierarchical import define_losses, l2_regularization
 from iv2019_tpu_torch.models.model import build_model, hierarchical_common_probabilities
 from iv2019_tpu_torch.ops.augment import apply_augmentations, draw_augmentations
 from iv2019_tpu_torch.ops.confusion import confusion_matrix, mean_iou_from_cm
@@ -56,6 +59,7 @@ from iv2019_tpu_torch.ops.segment_ops import gather_cids, remap_probabilities, s
 from iv2019_tpu_torch.problem.problem_def import load_problem_def, replace_voids
 from iv2019_tpu_torch.problem.taxonomy import get_taxonomy
 from iv2019_tpu_torch.train.fused_update import FusedSGDM
+from iv2019_tpu_torch.train.optimizer import make_learning_rate_fn
 from iv2019_tpu_torch.train.state import TrainState
 
 __all__ = ["PROB_KEYS", "make_eval_step", "make_predict_step", "make_train_step",
@@ -103,12 +107,18 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
     'prolabels_per_bbox' (Npb, H, W, 15) f32, or 'bbox_cids' (Npb, K) int32
     and 'bbox_coords' (Npb, K, 4) f32 rasterized on the device, and
     'prolabels_per_image' (Npi, H, W, 15) f32, or 'image_label_vecs' (Npi,
-    15) for compact image labels; numpy arrays or tensors. ``fused_opt``
-    (train/fused_update.py) owns the model's parameters and gradients; the
-    L2 regularization enters through its weight-decay gradient, and
-    ``metrics['total']`` includes it. ``model`` defaults to the optimizer's,
-    which must be ``state.model``. The metrics are 0-d tensors on the
-    model's device (and the weight masks).
+    15) for compact image labels; numpy arrays or tensors. With
+    ``fused_optimizer`` (the default), ``fused_opt`` (train/fused_update.py)
+    owns the model's parameters and gradients; the L2 regularization enters
+    through its weight-decay gradient. ``model`` defaults to the
+    optimizer's, which must be ``state.model``. With ``fused_optimizer``
+    False (the optax path) pass ``model``; the step updates it with
+    ``state.opt_state`` (train/optimizer.py::make_optimizer) and
+    ``state.ema``, with the regularization in the differentiated loss, and
+    reads ``state.step`` once for the schedule and the EMA decay (then
+    counted on the host, as the augmentations' step). ``metrics['total']``
+    includes the regularization either way. The metrics are 0-d tensors on
+    the model's device (and the weight masks).
 
     ``augmentations`` draw from ``(random_seed, step)``, or ``(random_seed,
     step * accum + i)`` for microbatch i, as the JAX package folds its key;
@@ -122,10 +132,14 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
     matrices, and the weight masks from microbatch 0.
     """
     settings = settings.replace(mode="train")
-    if fused_opt is None or not settings.fused_optimizer:
-        raise NotImplementedError("the optax path (fused_optimizer=False, EmaState) is not "
-                                  "ported yet: pass a train/fused_update.FusedSGDM")
+    fused = settings.fused_optimizer
+    if fused and fused_opt is None:
+        raise ValueError("fused_optimizer=True needs fused_opt, a train/fused_update.FusedSGDM")
+    if not fused and (fused_opt is not None or model is None):
+        raise ValueError("fused_optimizer=False (the optax path) takes the model, and no "
+                         "FusedSGDM")
     model = model or fused_opt.model
+    lr_fn = make_learning_rate_fn(settings)
     tax = get_taxonomy(settings.per_pixel_dataset_name)
     image_hw = (settings.height_feature_extractor, settings.width_feature_extractor)
     accum = settings.grad_accum_steps
@@ -143,7 +157,8 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
         and fused_loss_available((1, 1), image_hw, tax)
     )
     num_classes = tax.num_common_classes
-    device = fused_opt.params.device
+    device = _device_of(model)
+    params = list(model.parameters())
     augmentations = tuple(settings.augmentations)
     # labels revealed by downscaling: the per-pixel space's void cid
     unlabeled_cid = len(tax.per_pixel_cids2l1_cids) - 1
@@ -185,7 +200,8 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
         return images, labels
 
     def _loss_and_grad(images, labels):
-        """Forward, losses, and backward adding into the optimizer's flat gradients."""
+        """Forward, losses (with the regularization on the optax path), and
+        backward adding into the gradients; returns (losses, decisions, reg)."""
         if use_fused_loss:
             preds = model(images, upsampling_method="no")
             losses = define_losses_fused(preds, labels, tax, images.shape[1:3],
@@ -197,8 +213,12 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
                                    weak_loss_coefficient=settings.weak_loss_coefficient,
                                    bootstrapping_percentage=settings.bootstrapping_percentage)
             decisions = preds["decisions"]
-        losses["total"].backward()
-        return losses, decisions
+        if fused:
+            losses["total"].backward()
+            return losses, decisions, None
+        reg = l2_regularization(model.named_parameters(), settings.regularization_weight)
+        (losses["total"] + reg).backward()
+        return losses, decisions, reg.detach()
 
     def _weight_masks(labels, losses, n_pp, n_total):
         # one per-pixel example for L1, one weak example for the gated L2
@@ -229,8 +249,11 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
     def train_step(state: TrainState, batch: Mapping[str, Any]):
         if state.model is not model:
             raise ValueError("state.model is not the model this step was built for")
-        step = _step_on_host(state) if augmentations else 0
-        fused_opt.zero_grad()
+        step = _step_on_host(state) if augmentations or not fused else 0
+        if fused:
+            fused_opt.zero_grad()
+        else:
+            state.opt_state.zero_grad(set_to_none=True)
         loss_keys = ("total", "l1_segmentation", "l2_vehicle_segmentation",
                      "l2_human_segmentation")
         sums, cm, weight_masks = None, None, None
@@ -238,7 +261,7 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
             mb = batch if accum == 1 else _microbatch(batch, i)
             images, labels = _assemble(mb, step * accum + i)
             n_pp = labels["prolabels_per_pixel"].shape[0]
-            losses, decisions = _loss_and_grad(images, labels)
+            losses, decisions, reg = _loss_and_grad(images, labels)
             with torch.no_grad():
                 part = confusion_matrix(labels["prolabels_per_pixel"], decisions[:n_pp],
                                         num_classes)
@@ -250,11 +273,23 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
             del losses, decisions, images, labels
         with torch.no_grad():
             if accum > 1:
-                fused_opt.grads.div_(accum)
+                if fused:
+                    fused_opt.grads.div_(accum)
+                else:
+                    torch._foreach_div_([p.grad for p in params], accum)
                 sums = [v / accum for v in sums]
-            opt_state, reg = fused_opt.update(state.opt_state, state.step)
+            if fused:
+                opt_state, reg = fused_opt.update(state.opt_state, state.step)
+            else:
+                opt_state = state.opt_state
+                lr = float(lr_fn(torch.tensor(step, dtype=torch.int64)))
+                for group in opt_state.param_groups:
+                    group["lr"] = lr
+                opt_state.step()
+                if state.ema is not None:
+                    state.ema.update(model, step, settings.ema_decay)
         new_state = state.replace(step=state.step + 1, opt_state=opt_state)
-        if augmentations:
+        if augmentations or not fused:
             host_step.update(state=new_state, step=step + 1)
         total, l1, veh, hum = sums
         metrics = {

@@ -6,14 +6,24 @@ Port of iv2019_tpu/utils/checkpoint.py:36-98,141-158,300-333.
   one per saved step, unbounded by default (reference
   system_factory.py:246-248,287-295). The JAX package writes orbax
   checkpoints; orbax is not a PyTorch package, so the port has its own
-  format: ``<step>/state.pt``, one ``torch.save`` dict of CPU tensors,
+  format: ``<step>/state.pt``, one ``torch.save`` dict of CPU tensors, of
+  one of two kinds. The fused optimizer's (``"kind": "fused"``; a file
+  without ``kind`` is one)::
 
-      {"format": 1, "step": int, "model": the model's state dict,
-       "momentum": flat f32, "ema_biased": flat f32,
+      {"format": 1, "kind": "fused", "step": int, "model": the model's state
+       dict, "momentum": flat f32, "ema_biased": flat f32,
        "ema_decay_product": 0-d f32, "layout": [(name, shape, stride, offset)]}
 
-  with the fused optimizer's flat vectors in its own layout
-  (train/fused_update.py), which ``layout`` records and ``restore`` checks.
+  with the flat vectors in the optimizer's own layout
+  (train/fused_update.py), which ``layout`` records and ``restore`` checks;
+  the optax path's (``"kind": "optax"``)::
+
+      {"format": 1, "kind": "optax", "step": int, "model": state dict,
+       "momentum": {name: f32} or None (plain SGD), "count": int (the
+       schedule's), "ema_biased": {name: f32} or None (no EMA),
+       "ema_decay_product": 0-d f32 or None}
+
+  ``restore`` refuses a checkpoint of the other kind.
   A save writes ``<step>.tmp/`` and renames it, so a directory named by a
   step is always complete. With ``async_save`` the state is copied to the
   host when ``save`` is called and written by a background thread; every
@@ -39,7 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from iv2019_tpu_torch.utils.convert import _backbone_rest_to_path
+from iv2019_tpu_torch.utils.convert import _backbone_rest_to_path, group_norm_modules
 
 __all__ = ["CheckpointManager", "WARM_START_EXCLUSIONS", "slim_name_to_flax_path",
            "warm_start_from_npz"]
@@ -64,23 +74,42 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True, non_blocking=t.is_cuda)
 
 
+def _kind(state) -> str:
+    from iv2019_tpu_torch.train.fused_update import FusedOptState
+
+    return "fused" if isinstance(state.opt_state, FusedOptState) else "optax"
+
+
 def snapshot(state, layout) -> dict:
     """The checkpoint dict of a TrainState, on the host (copies). From the
     card the copies are queued on the current stream and waited for once."""
-    opt = state.opt_state
+    from iv2019_tpu_torch.train.state import momentum_buffers
+
+    kind = _kind(state)
     snap = {
         "format": FORMAT,
+        "kind": kind,
         "step": _host_copy(state.step),
         "model": {k: _host_copy(v) for k, v in state.model.state_dict().items()},
-        "momentum": _host_copy(opt.momentum),
-        "ema_biased": _host_copy(opt.ema_biased),
-        "ema_decay_product": _host_copy(opt.ema_decay_product),
-        "layout": [(name, tuple(shape), tuple(stride), int(offset))
-                   for name, shape, stride, offset in layout],
     }
-    if opt.momentum.is_cuda:
-        torch.cuda.current_stream(opt.momentum.device).synchronize()
+    if kind == "fused":
+        opt = state.opt_state
+        snap.update(momentum=_host_copy(opt.momentum), ema_biased=_host_copy(opt.ema_biased),
+                    ema_decay_product=_host_copy(opt.ema_decay_product),
+                    layout=[(name, tuple(shape), tuple(stride), int(offset))
+                            for name, shape, stride, offset in layout])
+    else:
+        momentum = momentum_buffers(state)
+        ema = state.ema
+        snap.update(
+            momentum=None if momentum is None else {k: _host_copy(v) for k, v in momentum.items()},
+            ema_biased=None if ema is None else {k: _host_copy(v) for k, v in ema.biased.items()},
+            ema_decay_product=None if ema is None else _host_copy(ema.decay_product))
+    if state.step.is_cuda:
+        torch.cuda.current_stream(state.step.device).synchronize()
     snap["step"] = int(snap["step"])
+    if kind == "optax":
+        snap["count"] = snap["step"]
     return snap
 
 
@@ -100,8 +129,9 @@ class CheckpointManager:
         self._pending: list[Future] = []
 
     def save(self, step: int, state, layout) -> None:
-        """Save ``state`` (a TrainState of the fused optimizer with ``layout``)
-        as checkpoint ``step``; an existing checkpoint of that step is replaced."""
+        """Save ``state`` (a TrainState of the fused optimizer with its
+        ``layout``, or of the optax path with ``layout`` None) as checkpoint
+        ``step``; an existing checkpoint of that step is replaced."""
         snap = snapshot(state, layout)
         if snap["step"] != step:
             raise ValueError(f"saving the state of step {snap['step']} as step {step}")
@@ -140,10 +170,8 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int], state, layout):
-        """Load checkpoint ``step`` (None: the latest) into ``state`` in place;
-        returns the state with its step set. The optimizer layouts must be
-        the same."""
+    def load(self, step: Optional[int] = None) -> dict:
+        """The dict of checkpoint ``step`` (None: the latest), with its kind."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self._dir}")
@@ -152,16 +180,47 @@ class CheckpointManager:
                           weights_only=True)
         if snap.get("format") != FORMAT:
             raise ValueError(f"checkpoint {step}: unknown format {snap.get('format')}")
-        saved = [(n, tuple(s), tuple(st), int(o)) for n, s, st, o in snap["layout"]]
-        if saved != [(n, tuple(s), tuple(st), int(o)) for n, s, st, o in layout]:
-            raise ValueError("checkpoint was written for another model or parameter layout")
-        opt = state.opt_state
+        snap.setdefault("kind", "fused")
+        return snap
+
+    def restore(self, step: Optional[int], state, layout, snap: Optional[dict] = None):
+        """Load checkpoint ``step`` (None: the latest; or ``snap``, its dict
+        from ``load``) into ``state`` in place; returns the state with its
+        step set. The checkpoint must be of the state's kind, and for the
+        fused optimizer of its layout."""
+        from iv2019_tpu_torch.train.state import set_momentum_buffers
+
+        snap = self.load(step) if snap is None else snap
+        kind = _kind(state)
+        if snap["kind"] != kind:
+            raise ValueError(
+                f"checkpoint {snap['step']} in {self._dir} was written by the "
+                f"{snap['kind']} optimizer; this run uses the {kind} one "
+                "(fused_optimizer must be the same as in the run that wrote it)")
+        if kind == "fused":
+            saved = [(n, tuple(s), tuple(st), int(o)) for n, s, st, o in snap["layout"]]
+            if saved != [(n, tuple(s), tuple(st), int(o)) for n, s, st, o in layout]:
+                raise ValueError("checkpoint was written for another model or parameter layout")
+        else:
+            if (snap["momentum"] is None) != (not state.opt_state.param_groups[0]["momentum"]):
+                raise ValueError("checkpoint was written with another optimizer (SGD / SGDM)")
+            if (snap["ema_biased"] is None) != (state.ema is None):
+                raise ValueError("checkpoint was written with another ema_decay (EMA on / off)")
         with torch.no_grad():
             state.model.load_state_dict(snap["model"], strict=True)
-            opt.momentum.copy_(snap["momentum"])
-            opt.ema_biased.copy_(snap["ema_biased"])
-            opt.ema_decay_product.copy_(snap["ema_decay_product"])
             state.step.fill_(snap["step"])
+            if kind == "fused":
+                opt = state.opt_state
+                opt.momentum.copy_(snap["momentum"])
+                opt.ema_biased.copy_(snap["ema_biased"])
+                opt.ema_decay_product.copy_(snap["ema_decay_product"])
+                return state
+            if snap["momentum"] is not None:
+                set_momentum_buffers(state, snap["momentum"])
+            if state.ema is not None:
+                for name, value in snap["ema_biased"].items():
+                    state.ema.biased[name].copy_(value)
+                state.ema.decay_product.copy_(snap["ema_decay_product"])
         return state
 
     def close(self) -> None:
@@ -203,6 +262,9 @@ def warm_start_from_npz(model: torch.nn.Module, npz_path: str) -> int:
     their values."""
     arrays = np.load(npz_path)
     state = model.state_dict()
+    # slim names carry BatchNorm variables: a group-norm model has no such
+    # paths, as in the JAX package
+    group_norms = group_norm_modules(model)
     restored = 0
     with torch.no_grad():
         for name in arrays.files:
@@ -210,7 +272,7 @@ def warm_start_from_npz(model: torch.nn.Module, npz_path: str) -> int:
             if path is None:
                 continue
             key, is_kernel = _state_dict_key(path)
-            if key not in state:
+            if key not in state or key.rsplit(".", 1)[0] in group_norms:
                 continue
             value = arrays[name]
             if is_kernel:

@@ -3,12 +3,24 @@
 - ``state_dict_from_flax`` / ``flax_from_state_dict``: flax
   ``params``/``batch_stats`` trees (nested dicts of numpy arrays) to and
   from the port's state dicts. A state-dict key is the flax module path
-  joined with dots; ``<module>/conv/kernel`` (HWIO) is ``<module>.conv.weight``
-  (OIHW) and ``<module>/BatchNorm/<leaf>`` is ``<module>.<leaf>``.
+  joined with dots. The mapping goes by module, not by leaf:
+  ``<module>/kernel`` (HWIO; ``<module>`` a ``conv`` or a hybrid
+  upsampler's ``conv_transpose``) is ``<module>.weight`` (OIHW; grouped
+  kernels (kh, kw, Cin/g, Cout) -> (Cout, Cin/g, kh, kw)), a
+  ``conv_transpose``'s ``bias`` is ``<module>.bias``, and
+  ``<norm>/BatchNorm/<leaf>`` or ``<norm>/GroupNorm/<leaf>`` is
+  ``<norm>.<leaf>``. A state dict alone does not tell a GroupNorm from a
+  BatchNorm's parameters, so the model's group norms are passed along
+  (``group_norm_modules``; ``flax_variables`` and ``flax_params`` take the
+  model).
 - ``tf_trained_name_to_flax_path`` and ``restore_trained_from_npz``: the
   reference's trained-checkpoint names, as converted to an ``.npz``, onto a
   flax tree, with the EMA shadow names under ``restore_emas``. Copies of
   iv2019_tpu/utils/checkpoint.py:112-418 (numpy only).
+- ``optax_state_to_jax`` / ``load_optax_state``: the JAX package's optax
+  path state (the SGD momentum trace, the schedule count, ``EmaState``'s
+  ``biased`` tree and ``decay_product``) to and from the port's
+  (train/state.py), as flax-shaped trees of numpy arrays.
 - ``opt_state_from_jax`` / ``opt_state_to_jax``: the JAX package's
   ``FusedOptState`` (``momentum``, ``ema_biased``, ``ema_decay_product``)
   to and from the port's (train/fused_update.py). JAX's flat vectors are in
@@ -29,12 +41,17 @@ import torch
 __all__ = [
     "JAX_UPDATE_TILE",
     "flax_from_state_dict",
+    "flax_params",
     "flax_variables",
+    "group_norm_modules",
     "load_flax_variables",
+    "load_optax_state",
     "opt_state_from_jax",
     "opt_state_to_jax",
     "opt_vector_from_jax",
     "opt_vector_to_jax",
+    "optax_state_to_jax",
+    "port_params",
     "restore_trained_from_npz",
     "state_dict_from_flax",
     "tf_trained_name_to_flax_path",
@@ -66,44 +83,102 @@ def _get_path(tree: dict, path: tuple):
     return node
 
 
+def _is_conv_transpose(mods) -> bool:
+    return mods[-1].endswith("conv_transpose")
+
+
+def _port_key(col: str, path: tuple) -> tuple[str, bool]:
+    """(port state-dict key, is a kernel) of a flax variable path."""
+    *mods, leaf = path
+    if col == "params" and leaf == "kernel":
+        return ".".join(mods) + ".weight", True
+    if col == "params" and leaf == "bias" and _is_conv_transpose(mods):
+        return ".".join(mods) + ".bias", False
+    leaves = _PARAM_LEAVES if col == "params" else _STAT_LEAVES
+    if mods[-1] in ("BatchNorm", "GroupNorm") and leaf in leaves:
+        if mods[-1] == "GroupNorm" and col != "params":
+            raise KeyError(f"GroupNorm has no {col}")
+        return ".".join(mods[:-1]) + "." + leaf, False
+    raise KeyError(f"no port counterpart for {col}/{'/'.join(path)}")
+
+
+def group_norm_modules(model: torch.nn.Module) -> frozenset:
+    """Names of the model's GroupNorm modules."""
+    from iv2019_tpu_torch.models.layers import Norm
+
+    return frozenset(name for name, m in model.named_modules()
+                     if isinstance(m, Norm) and m.norm_type == "group")
+
+
+def _flax_key(key: str, group_norms=frozenset()) -> tuple[str, tuple, bool]:
+    """(collection, flax path, is a kernel) of a port state-dict key;
+    a norm's parameters are a GroupNorm's if its module is in
+    ``group_norms``, else a BatchNorm's."""
+    mod, leaf = key.rsplit(".", 1)
+    mods = tuple(mod.split("."))
+    if leaf == "weight":
+        return "params", mods + ("kernel",), True
+    if leaf == "bias" and _is_conv_transpose(mods):
+        return "params", mods + ("bias",), False
+    if leaf in _STAT_LEAVES:
+        return "batch_stats", mods + ("BatchNorm", leaf), False
+    if leaf in _PARAM_LEAVES:
+        kind = "GroupNorm" if mod in group_norms else "BatchNorm"
+        return "params", mods + (kind, leaf), False
+    raise KeyError(f"no flax counterpart for {key}")
+
+
+def _to_port(value: np.ndarray, is_kernel: bool) -> torch.Tensor:
+    value = np.asarray(value, np.float32)
+    return torch.from_numpy(np.ascontiguousarray(value.transpose(3, 2, 0, 1) if is_kernel
+                                                 else value.copy()))
+
+
+def _to_flax(value: torch.Tensor, is_kernel: bool) -> np.ndarray:
+    # a copy: a CPU tensor's .numpy() would share the live parameters
+    value = np.array(value.detach().float().cpu().numpy())
+    return np.ascontiguousarray(value.transpose(2, 3, 1, 0)) if is_kernel else value
+
+
 def state_dict_from_flax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
     """Port state dict (f32 CPU tensors) from flax variable trees."""
     out = {}
     for col, tree in (("params", params), ("batch_stats", batch_stats)):
         for path, value in _flatten(tree):
-            value = np.asarray(value, np.float32)
-            *mods, leaf = path
-            if col == "params" and leaf == "kernel" and mods[-1] == "conv":
-                out[".".join(mods) + ".weight"] = torch.from_numpy(
-                    np.ascontiguousarray(value.transpose(3, 2, 0, 1)))
-            elif mods[-1] == "BatchNorm" and leaf in (_PARAM_LEAVES if col == "params" else _STAT_LEAVES):
-                out[".".join(mods[:-1]) + "." + leaf] = torch.from_numpy(value.copy())
-            else:
-                raise KeyError(f"no port counterpart for {col}/{'/'.join(path)}")
+            key, is_kernel = _port_key(col, path)
+            out[key] = _to_port(value, is_kernel)
     return out
 
 
-def flax_from_state_dict(state_dict: dict) -> tuple[dict, dict]:
-    """(params, batch_stats) flax trees of numpy arrays from a port state dict."""
-    params, batch_stats = {}, {}
+def flax_from_state_dict(state_dict: dict, group_norms=frozenset()) -> tuple[dict, dict]:
+    """(params, batch_stats) flax trees of numpy arrays from a port state
+    dict, or a dict of some of its parameters; ``group_norms``: the names
+    of the model's GroupNorm modules (``group_norm_modules``)."""
+    trees = {"params": {}, "batch_stats": {}}
     for key, value in state_dict.items():
-        *mods, leaf = key.split(".")
-        # a copy: a CPU tensor's .numpy() would share the live parameters
-        value = np.array(value.detach().float().cpu().numpy())
-        if leaf == "weight":
-            _set_path(params, tuple(mods) + ("kernel",), np.ascontiguousarray(value.transpose(2, 3, 1, 0)))
-        elif leaf in _PARAM_LEAVES:
-            _set_path(params, tuple(mods) + ("BatchNorm", leaf), value)
-        elif leaf in _STAT_LEAVES:
-            _set_path(batch_stats, tuple(mods) + ("BatchNorm", leaf), value)
-        else:
-            raise KeyError(f"no flax counterpart for {key}")
-    return params, batch_stats
+        col, path, is_kernel = _flax_key(key, group_norms)
+        _set_path(trees[col], path, _to_flax(value, is_kernel))
+    return trees["params"], trees["batch_stats"]
+
+
+def flax_params(named: dict, model: torch.nn.Module) -> dict:
+    """A flax params-shaped tree (numpy) of per-parameter tensors keyed by
+    the model's parameter names (gradients, momentum, EMA shadows)."""
+    return flax_from_state_dict(named, group_norm_modules(model))[0]
+
+
+def port_params(tree: dict) -> dict[str, torch.Tensor]:
+    """{parameter name: f32 CPU tensor} of a flax params-shaped tree."""
+    out = {}
+    for path, value in _flatten(tree):
+        key, is_kernel = _port_key("params", path)
+        out[key] = _to_port(value, is_kernel)
+    return out
 
 
 def flax_variables(model: torch.nn.Module) -> dict:
     """The model's variables as a flax ``{'params', 'batch_stats'}`` tree."""
-    params, batch_stats = flax_from_state_dict(model.state_dict())
+    params, batch_stats = flax_from_state_dict(model.state_dict(), group_norm_modules(model))
     return {"params": params, "batch_stats": batch_stats}
 
 
@@ -232,6 +307,15 @@ def tf_trained_name_to_flax_path(name: str) -> Optional[tuple[bool, tuple[str, .
     return None
 
 
+def _tf_transpose_conv_to_flax(w: np.ndarray) -> np.ndarray:
+    """tf.layers.conv2d_transpose weights (kh, kw, out, in) -> flax
+    ConvTranspose kernel (kh, kw, in, out): TF's transpose conv is the
+    gradient of a forward conv, flax's (``transpose_kernel=False``) a
+    regular conv, so the kernel is flipped in space and its channels
+    swapped (checkpoint.py:335-345)."""
+    return np.ascontiguousarray(w.transpose(0, 1, 3, 2)[::-1, ::-1])
+
+
 def restore_trained_from_npz(variables: dict, npz_path: str, restore_emas: bool = False):
     """Restore every model variable from a converted trained checkpoint.
 
@@ -263,6 +347,8 @@ def restore_trained_from_npz(variables: dict, npz_path: str, restore_emas: bool 
         except KeyError:
             continue  # a module this model was built without (PSP, FOV, ...)
         value = arrays[name]
+        if path[-1] == "kernel" and "conv_transpose" in path[-2]:
+            value = _tf_transpose_conv_to_flax(value)
         if value.shape != current.shape:
             raise ValueError(
                 f"shape mismatch for {name}: ckpt {value.shape} vs model {current.shape}")
@@ -292,14 +378,12 @@ def _jax_order(layout):
     """The port layout's entries in ``ravel_pytree`` order, each with its
     flax shape: [(flax shape, is_kernel, (name, shape, stride, offset))]."""
     entries = []
+    # a norm's kind does not change the order (its module has one child)
     for entry in layout:
         name, shape, _, _ = entry
-        *mods, leaf = name.split(".")
-        if leaf == "weight":
-            path, flax_shape = tuple(mods) + ("kernel",), (shape[2], shape[3], shape[1], shape[0])
-        else:
-            path, flax_shape = tuple(mods) + ("BatchNorm", leaf), tuple(shape)
-        entries.append((path, flax_shape, leaf == "weight", entry))
+        _, path, is_kernel = _flax_key(name)
+        flax_shape = (shape[2], shape[3], shape[1], shape[0]) if is_kernel else tuple(shape)
+        entries.append((path, flax_shape, is_kernel, entry))
     return [e[1:] for e in sorted(entries, key=lambda e: e[0])]
 
 
@@ -361,3 +445,39 @@ def opt_state_to_jax(state, layout) -> dict:
         "ema_biased": opt_vector_to_jax(state.ema_biased.detach().cpu().numpy(), layout),
         "ema_decay_product": np.asarray(float(state.ema_decay_product), np.float32),
     }
+
+
+# --- optax path state ----------------------------------------------------------
+
+
+def optax_state_to_jax(state) -> dict:
+    """The JAX package's optax-path state (numpy) from the port's TrainState
+    (train/state.py): ``trace`` (the momentum, a params-shaped tree; None
+    for plain SGD), ``count`` (the schedule's), ``ema_biased`` (None
+    without EMA) and ``ema_decay_product``."""
+    from iv2019_tpu_torch.train.state import momentum_buffers
+
+    model = state.model
+    momentum = momentum_buffers(state)
+    out = {"trace": flax_params(momentum, model) if momentum is not None else None,
+           "count": int(state.step), "ema_biased": None, "ema_decay_product": None}
+    if state.ema is not None:
+        out["ema_biased"] = flax_params(state.ema.biased, model)
+        out["ema_decay_product"] = np.asarray(float(state.ema.decay_product), np.float32)
+    return out
+
+
+def load_optax_state(state, jax_state: dict):
+    """Load the arrays of ``optax_state_to_jax``'s form into the port's
+    TrainState in place (step = the schedule count); returns the state."""
+    from iv2019_tpu_torch.train.state import set_momentum_buffers
+
+    with torch.no_grad():
+        state.step.fill_(int(jax_state["count"]))
+        if jax_state["trace"] is not None:
+            set_momentum_buffers(state, port_params(jax_state["trace"]))
+        if state.ema is not None:
+            for name, value in port_params(jax_state["ema_biased"]).items():
+                state.ema.biased[name].copy_(value)
+            state.ema.decay_product.fill_(float(jax_state["ema_decay_product"]))
+    return state

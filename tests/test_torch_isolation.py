@@ -38,7 +38,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "iv2019_tpu_torch.train_cli", "iv2019_tpu_torch.evaluate_cli",
                  "iv2019_tpu_torch.input.tfrecord_writer", "iv2019_tpu_torch.input.vistas",
                  "iv2019_tpu_torch.tools.make_tfrecords", "iv2019_tpu_torch.ops.augment",
-                 "iv2019_tpu_torch.native", "iv2019_tpu_torch.tools.synthetic_scenes"):
+                 "iv2019_tpu_torch.native", "iv2019_tpu_torch.tools.synthetic_scenes",
+                 "iv2019_tpu_torch.models.model", "iv2019_tpu_torch.models.resnet",
+                 "iv2019_tpu_torch.train.state", "iv2019_tpu_torch.train.optimizer",
+                 "iv2019_tpu_torch.utils.convert"):
         assert name in result["imported"], name
     loaded = result["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.") or m == "jaxlib"

@@ -12,7 +12,9 @@ relative; root-conv wgrad within 1e-4 of the largest |dW| (the same bf16
 products, f32 sums in another order). The fused-loss forward and backward
 and the root-conv wgrad must also give the same bits on two launches. The
 fused units are also checked at the feature maps evaluation gives them, and
-one evaluate on the card is held to the same evaluate on the CPU.
+one evaluate on the card is held to the same evaluate on the CPU. The
+fused loss is also checked at the Vistas heads (53 / 12 / 5) at full width
+and on the logits of the fused adaptation heads in f32 compute.
 """
 
 import numpy as np
@@ -91,7 +93,9 @@ LOSS_SHAPES = [("cityscapes", 4, 12, (64, 128), (512, 1024)),
                ("vistas", 1, 1, (39, 54), (310, 427)),
                ("cityscapes", 1, 1, (4, 16), (128, 512)),
                # one stride-8 column that touches 700 pixels: several trips a row
-               ("cityscapes", 1, 1, (1, 1), (8, 700))]
+               ("cityscapes", 1, 1, (1, 1), (8, 700)),
+               # the Vistas heads at full width, the variants' train step
+               ("vistas", 4, 12, (64, 128), (512, 1024))]
 
 
 @pytest.mark.gpu
@@ -342,3 +346,55 @@ def test_evaluate_on_card_matches_the_cpu(tmp_path, monkeypatch):
     assert on_card["global_step"] == on_cpu["global_step"] == 2
     diff = np.abs(on_card["confusion_matrix"] - on_cpu["confusion_matrix"]).sum()
     assert diff <= 2 * 0.005 * 8 * 64 * 64
+
+
+@pytest.mark.gpu
+def test_fused_loss_at_vistas_full_width_is_deterministic_on_card():
+    """Two launches of each kernel at the Vistas heads' plan (a staged
+    logit row of 76 padded channels) give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import chip_smoke
+
+    dataset, n_pp, n_weak, in_hw, out_hw = LOSS_SHAPES[-1]
+    tax = get_taxonomy(dataset)
+    args = chip_smoke.loss_inputs(np.random.RandomState(2), tax, n_pp, n_weak, in_hw, out_hw,
+                                  "cuda")
+    g3 = torch.tensor([0.5, 0.07, 0.11], device="cuda")
+    for fn in (lambda: fl.fused_loss_fwd(*args, tax=tax, out_hw=out_hw),
+               lambda: fl.fused_loss_bwd(g3, *args, tax=tax, out_hw=out_hw)):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dataset", ["cityscapes", "vistas"])
+def test_fused_loss_on_fused_head_logits_in_f32_on_card(dataset):
+    """The fused adaptation heads' logits are channel slices; in f32 compute
+    the model hands B1/B2 contiguous tensors, and the losses and gradients
+    match the plain version's on them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import chip_smoke
+    from iv2019_tpu_torch.models.model import HierarchicalSegmentationModel, init_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tax = get_taxonomy(dataset)
+    model = HierarchicalSegmentationModel(tax, resnet_blocks=((1, 64, 16), (1, 128, 32)),
+                                          feature_dims_decreased=64, dtype=torch.float32,
+                                          fuse_adaptation=True)
+    model = init_model(model, torch.Generator().manual_seed(0)).to(
+        "cuda", memory_format=torch.channels_last).train()
+    n_pp, n_weak, out_hw = 2, 2, (128, 256)
+    images = torch.rand(n_pp + n_weak, *out_hw, 3, device="cuda") * 2 - 1
+    preds = model(images, upsampling_method="no")
+    logits = [preds[f"{h}_logits"] for h in ("l1", "l2_vehicle", "l2_human")]
+    assert all(t.dtype == torch.float32 and t.is_contiguous() for t in logits)
+    rest = chip_smoke.loss_inputs(np.random.RandomState(0), tax, n_pp, n_weak, (16, 32), out_hw,
+                                  "cuda")[3:]
+    args = (*[t.detach() for t in logits], *rest)
+    check = chip_smoke.compare_loss(tax, args, out_hw, torch.tensor([0.5, 0.07, 0.11],
+                                                                     device="cuda"))
+    assert chip_smoke.loss_ok(check), check

@@ -104,7 +104,6 @@ def test_cli_settings_match_jax(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--num_slices", "2"],
-    ["--remat"],
     ["--num_processes", "2", "--coordinator_address", "localhost:1"],
     ["--spatial_partitions", "2"],
     ["--num_devices", "2"],

@@ -37,7 +37,8 @@ from iv2019_tpu.train.fused_update import FusedSGDM as JaxFusedSGDM
 from iv2019_tpu.train.state import create_fused_train_state as jax_create_state
 from iv2019_tpu.train.step import make_train_step as jax_make_train_step
 from iv2019_tpu_torch.train.fused_update import FusedSGDM
-from iv2019_tpu_torch.train.state import create_fused_train_state
+from iv2019_tpu_torch.train.optimizer import make_optimizer
+from iv2019_tpu_torch.train.state import create_fused_train_state, create_train_state
 from iv2019_tpu_torch.train.step import make_train_step
 from iv2019_tpu_torch.utils.convert import flax_from_state_dict, opt_state_to_jax
 from torch_parity import numpy_tree, threads, torch_tiny_model, torch_tiny_settings
@@ -182,21 +183,29 @@ def test_three_step_descent_and_state_evolution():
 
 
 def test_step_refuses_unported_paths():
+    """The optax path runs (its parity with JAX is
+    tests/test_torch_optax_path.py); a step without the optimizer its path
+    needs, and an augmentation the JAX package does not have, are refused."""
     threads()
     jax_settings, settings, _, variables = _init()
     model = torch_tiny_model(settings, variables)
+    optax_settings = settings.replace(fused_optimizer=False)
+    tx, _ = make_optimizer(optax_settings, model)
+    state, metrics = make_train_step(optax_settings, model=model)(
+        create_train_state(model, tx, optax_settings.ema_decay), synthetic_batch(jax_settings))
+    assert int(state.step) == 1 and np.isfinite(float(metrics["total"]))
+    assert float(metrics["regularization"]) > 0
     opt = FusedSGDM(settings, model)
-    # the optax path: no fused optimizer, or fused_optimizer=False
-    with pytest.raises(NotImplementedError):
-        make_train_step(settings.replace(fused_optimizer=False), fused_opt=opt)
-    with pytest.raises(NotImplementedError):
+    # the fused path needs its FusedSGDM; the optax path takes none
+    with pytest.raises(ValueError, match="fused_opt"):
         make_train_step(settings)
+    with pytest.raises(ValueError, match="optax"):
+        make_train_step(optax_settings, fused_opt=opt)
     # an augmentation the JAX package does not have
     batch = synthetic_batch(jax_settings)
     with pytest.raises(ValueError, match="unknown augmentations"):
         make_train_step(settings.replace(augmentations=("rotate",)), fused_opt=opt)(
             create_fused_train_state(opt), batch)
-
 
 
 def test_compact_image_labels_match_dense():
