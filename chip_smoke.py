@@ -101,6 +101,31 @@ Phases, each of which fails the run on its own:
    B6 against 2 without (running statistics equal after one step, a lower
    peak; step ms, peak memory).
 
+11. multi-rank (data parallelism, ``iv2019_tpu_torch/parallel``): (a) two
+   full-width train steps (4 + 8 + 4, B6) through the distributed code path
+   on an NCCL group of one rank, bit-equal to the non-distributed step from
+   the same weights, 3 all-reduces a step; (b) two gloo ranks sharing the
+   card (NCCL refuses two ranks on one device), each with its 2 + 4 + 2 rows
+   of the global 4 + 8 + 4 at full width: step 1 in f32 and in bf16, its
+   losses and (in f32) its all-reduced gradient, as a whole and parameter
+   by parameter, against the single-process step on the global batch,
+   under ``BAR_FACTOR`` times what a permutation of the rows does to that
+   step (in bf16 the losses' bar also covers the step's distance to the f32
+   step: the ranks' halved batch runs other bf16 convolutions, which the
+   permutation does not; a random bf16 net's step-1 gradient moves by ~120%
+   in norm under the permutation, so the bf16 gradient is printed, not
+   held); then 3 bf16
+   steps with B6: the state bit-equal on both ranks after 2 steps; B1, B2,
+   B3, B6 once a step on each; per rank the step ms, peak memory and the time in collectives
+   (gloo stages CUDA tensors through the host: that time says nothing of
+   NCCL); (c) ``evaluate_cli --eval_all_ckpts --fused_block`` as a sweep of
+   two gloo processes over the train run's checkpoints 3, 6 and 8: the
+   merged matrices equal to phase 7's, B4/B5 launches per process exact.
+   The per-rank shapes of B1/B2/B6 (2 + 6 images) are those phase 2 holds
+   them to their plain versions at. ``multirank_launches`` in the kernel
+   line: each kernel's launches in (a), per rank in (b), per process in
+   (c).
+
 The next-to-last line is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it
 exits non-zero and prints no result.
@@ -110,8 +135,10 @@ from __future__ import annotations
 
 import io
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -1308,14 +1335,14 @@ def _read_jsonl(path):
         return [json.loads(line) for line in f]
 
 
-def train_run_phase(device, step_busy_ms):
+def train_run_phase(device, step_busy_ms, tmp):
     """The training run through its entry points (see the module
-    docstring). ``step_busy_ms``: the device time of one B6 train step
-    (train phase profile), for the run's idle share. Returns the launch
-    counts of the two SemanticSegmentation runs and those of the
-    ``--eval_all_ckpts`` sweep."""
+    docstring), in the directory ``tmp``. ``step_busy_ms``: the device time
+    of one B6 train step (train phase profile), for the run's idle share.
+    Returns the launch counts of the two SemanticSegmentation runs, those of
+    the ``--eval_all_ckpts`` sweep, and the sweep (log dir, problem, the
+    evaluate_cli argv, [(step, matrix)])."""
     import os
-    import tempfile
 
     from iv2019_tpu_torch import train_cli
     from iv2019_tpu_torch.config import Settings
@@ -1327,104 +1354,103 @@ def train_run_phase(device, step_busy_ms):
                            "problem_definitions", "cityscapes", "problem01.json")
     (npp, npb, npi), (h, w) = TRAIN_NB, TRAIN_HW
     images = sum(TRAIN_NB)
-    with tempfile.TemporaryDirectory() as tmp:
-        log_dir = os.path.join(tmp, "run")
-        settings = Settings(
-            device=device.type, mode="train", log_dir=log_dir, training_problem_def_path=problem,
-            synthetic_data=True, input_seed=0, root_wgrad_pallas=True,
-            save_checkpoints_steps=RUN_SAVE_EVERY, save_summaries_steps=RUN_SAVE_EVERY,
-            height_feature_extractor=h, width_feature_extractor=w, Nb=npp, Nb_per_pixel=npp,
-            Nb_per_bbox=npb, Nb_per_image=npi)
-        # the host input alone, one thread, as the loop's prefetcher runs it
-        batches = train_input(settings.finalize(), load_problem_def(problem))
+    log_dir = os.path.join(tmp, "run")
+    settings = Settings(
+        device=device.type, mode="train", log_dir=log_dir, training_problem_def_path=problem,
+        synthetic_data=True, input_seed=0, root_wgrad_pallas=True,
+        save_checkpoints_steps=RUN_SAVE_EVERY, save_summaries_steps=RUN_SAVE_EVERY,
+        height_feature_extractor=h, width_feature_extractor=w, Nb=npp, Nb_per_pixel=npp,
+        Nb_per_bbox=npb, Nb_per_image=npi)
+    # the host input alone, one thread, as the loop's prefetcher runs it
+    batches = train_input(settings.finalize(), load_problem_def(problem))
+    next(batches)
+    t0 = time.perf_counter()
+    for _ in range(3):
         next(batches)
-        t0 = time.perf_counter()
-        for _ in range(3):
-            next(batches)
-        input_ms = (time.perf_counter() - t0) / 3 * 1e3
-        del batches
+    input_ms = (time.perf_counter() - t0) / 3 * 1e3
+    del batches
 
-        torch.cuda.reset_peak_memory_stats()
-        _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    SemanticSegmentation({"train": train_input}, settings=settings).train(
+        max_steps=RUN_STEPS, log_every=1)
+    first_s = time.perf_counter() - t0
+    # a rerun on the same directory: the user moves settings.txt aside
+    os.rename(os.path.join(log_dir, "settings.txt"), os.path.join(log_dir, "settings.0.txt"))
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
         t0 = time.perf_counter()
         SemanticSegmentation({"train": train_input}, settings=settings).train(
-            max_steps=RUN_STEPS, log_every=1)
-        first_s = time.perf_counter() - t0
-        # a rerun on the same directory: the user moves settings.txt aside
-        os.rename(os.path.join(log_dir, "settings.txt"), os.path.join(log_dir, "settings.0.txt"))
-        torch.cuda.set_sync_debug_mode("warn")
-        with warnings.catch_warnings(record=True) as syncs:
-            warnings.simplefilter("always")
-            t0 = time.perf_counter()
-            SemanticSegmentation({"train": train_input}, settings=settings).train(
-                max_steps=RESUME_STEPS, log_every=1)
-            resume_s = time.perf_counter() - t0
-        torch.cuda.set_sync_debug_mode("default")
-        launches = _counts()
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            max_steps=RESUME_STEPS, log_every=1)
+        resume_s = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("default")
+    launches = _counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-        records = _read_jsonl(os.path.join(log_dir, "train_metrics.jsonl"))
-        steps = [r["step"] for r in records]
-        ckpts = sorted(int(d) for d in os.listdir(os.path.join(log_dir, "checkpoints")))
-        tb = os.listdir(os.path.join(log_dir, "tb"))
-        traces = sorted(os.listdir(os.path.join(log_dir, "profile")))
-        want = {k: RESUME_STEPS for k in launches}
-        log(f"train run: steps {steps}, checkpoints {ckpts}, tb {tb}, traces {traces}, "
-            f"launches {launches}")
-        problems = []
-        if steps != list(range(1, RESUME_STEPS + 1)):
-            problems.append(f"metrics steps {steps}: the rerun did not resume at {RUN_STEPS}")
-        if not all(np.isfinite(v) for r in records for v in r.values()):
-            problems.append("non-finite metrics")
-        if ckpts != [3, 6, 8]:
-            problems.append(f"checkpoints {ckpts}")
-        if len(tb) != 2 or not all(t.startswith("events.out.tfevents.") for t in tb):
-            problems.append(f"tb event files {tb}")
-        if not set(os.listdir(log_dir)) >= {"settings.txt", "all_code.zip", "train_metrics.jsonl"}:
-            problems.append(f"log dir holds {sorted(os.listdir(log_dir))}")
-        if launches != want:
-            problems.append(f"launches {launches}, expected one of each per step {want}")
-        if problems:
-            raise AssertionError("train run: " + "; ".join(problems))
-        # per-step wall time from the loop's own records (it reads the
-        # metrics back every step here); left out: the first step of each
-        # run (warm-up) and each step the loop traced with torch.profiler
-        # (every RUN_SAVE_EVERY steps, the reference's cadence)
-        skipped = {1, RUN_STEPS + 1} | set(range(RUN_SAVE_EVERY + 1, RESUME_STEPS + 1,
-                                                 RUN_SAVE_EVERY))
-        step_ms = [images / r["images_per_sec"] * 1e3 for r in records
-                   if r["step"] not in skipped]
-        p50, p90 = _p50_p90(step_ms)
-        stats = dict(steps=RESUME_STEPS, p50_ms=p50, p90_ms=p90, images_per_s=images / p50 * 1e3,
-                     input_ms_per_batch=input_ms, device_busy_ms_per_step=step_busy_ms,
-                     idle_share=1 - step_busy_ms / p50, peak_memory_gib=peak_gib,
-                     first_run_s=first_s, resumed_run_s=resume_s,
-                     host_waits_resumed_run=_waits_by_file(syncs), launches=launches,
-                     last_total=records[-1]["total"])
-        log("train run: " + json.dumps(stats))
-        torch.cuda.empty_cache()
-        eval_launches = eval_phase(log_dir, problem)
-        torch.cuda.empty_cache()
+    records = _read_jsonl(os.path.join(log_dir, "train_metrics.jsonl"))
+    steps = [r["step"] for r in records]
+    ckpts = sorted(int(d) for d in os.listdir(os.path.join(log_dir, "checkpoints")))
+    tb = os.listdir(os.path.join(log_dir, "tb"))
+    traces = sorted(os.listdir(os.path.join(log_dir, "profile")))
+    want = {k: RESUME_STEPS for k in launches}
+    log(f"train run: steps {steps}, checkpoints {ckpts}, tb {tb}, traces {traces}, "
+        f"launches {launches}")
+    problems = []
+    if steps != list(range(1, RESUME_STEPS + 1)):
+        problems.append(f"metrics steps {steps}: the rerun did not resume at {RUN_STEPS}")
+    if not all(np.isfinite(v) for r in records for v in r.values()):
+        problems.append("non-finite metrics")
+    if ckpts != [3, 6, 8]:
+        problems.append(f"checkpoints {ckpts}")
+    if len(tb) != 2 or not all(t.startswith("events.out.tfevents.") for t in tb):
+        problems.append(f"tb event files {tb}")
+    if not set(os.listdir(log_dir)) >= {"settings.txt", "all_code.zip", "train_metrics.jsonl"}:
+        problems.append(f"log dir holds {sorted(os.listdir(log_dir))}")
+    if launches != want:
+        problems.append(f"launches {launches}, expected one of each per step {want}")
+    if problems:
+        raise AssertionError("train run: " + "; ".join(problems))
+    # per-step wall time from the loop's own records (it reads the
+    # metrics back every step here); left out: the first step of each
+    # run (warm-up) and each step the loop traced with torch.profiler
+    # (every RUN_SAVE_EVERY steps, the reference's cadence)
+    skipped = {1, RUN_STEPS + 1} | set(range(RUN_SAVE_EVERY + 1, RESUME_STEPS + 1,
+                                             RUN_SAVE_EVERY))
+    step_ms = [images / r["images_per_sec"] * 1e3 for r in records
+               if r["step"] not in skipped]
+    p50, p90 = _p50_p90(step_ms)
+    stats = dict(steps=RESUME_STEPS, p50_ms=p50, p90_ms=p90, images_per_s=images / p50 * 1e3,
+                 input_ms_per_batch=input_ms, device_busy_ms_per_step=step_busy_ms,
+                 idle_share=1 - step_busy_ms / p50, peak_memory_gib=peak_gib,
+                 first_run_s=first_s, resumed_run_s=resume_s,
+                 host_waits_resumed_run=_waits_by_file(syncs), launches=launches,
+                 last_total=records[-1]["total"])
+    log("train run: " + json.dumps(stats))
+    torch.cuda.empty_cache()
+    eval_launches, sweep = eval_phase(log_dir, problem)
+    torch.cuda.empty_cache()
 
-        cli_dir = os.path.join(tmp, "cli")
-        _reset_counts()
-        cli_state = train_cli.main([cli_dir, "cityscapes", "--synthetic_data", "--height_feature_extractor",
-                        "256", "--width_feature_extractor", "512", "--Nb_per_pixel", "1",
-                        "--Nb_per_bbox", "2", "--Nb_per_image", "1", "--Ntrain", "2", "--Ne", "1",
-                        "--learning_rate_boundaries", "1", "--learning_rate_values", "0.01",
-                        "--input_seed", "1"])
-        cli_launches = _counts()
-        cli_records = _read_jsonl(os.path.join(cli_dir, "train_metrics.jsonl"))
-        listing = sorted(os.listdir(cli_dir))
-        log(f"train cli: {listing}, records {cli_records}, launches {cli_launches}")
-        if ([r["step"] for r in cli_records] != [2]
-                or not os.path.isfile(os.path.join(cli_dir, "checkpoints", "2", "state.pt"))
-                or not {"settings.txt", "all_code.zip", "tb"} <= set(listing)
-                or cli_launches != {"fused_loss_fwd": 2, "fused_loss_bwd": 2, "fused_update": 2,
-                                    "root_conv_wgrad": 0}):
-            raise AssertionError(f"train cli: {listing} {cli_records} {cli_launches}")
-        predict_from_run_phase(cli_dir, cli_state, problem)
-    return launches, eval_launches
+    cli_dir = os.path.join(tmp, "cli")
+    _reset_counts()
+    cli_state = train_cli.main([cli_dir, "cityscapes", "--synthetic_data", "--height_feature_extractor",
+                    "256", "--width_feature_extractor", "512", "--Nb_per_pixel", "1",
+                    "--Nb_per_bbox", "2", "--Nb_per_image", "1", "--Ntrain", "2", "--Ne", "1",
+                    "--learning_rate_boundaries", "1", "--learning_rate_values", "0.01",
+                    "--input_seed", "1"])
+    cli_launches = _counts()
+    cli_records = _read_jsonl(os.path.join(cli_dir, "train_metrics.jsonl"))
+    listing = sorted(os.listdir(cli_dir))
+    log(f"train cli: {listing}, records {cli_records}, launches {cli_launches}")
+    if ([r["step"] for r in cli_records] != [2]
+            or not os.path.isfile(os.path.join(cli_dir, "checkpoints", "2", "state.pt"))
+            or not {"settings.txt", "all_code.zip", "tb"} <= set(listing)
+            or cli_launches != {"fused_loss_fwd": 2, "fused_loss_bwd": 2, "fused_update": 2,
+                                "root_conv_wgrad": 0}):
+        raise AssertionError(f"train cli: {listing} {cli_records} {cli_launches}")
+    predict_from_run_phase(cli_dir, cli_state, problem)
+    return launches, eval_launches, sweep
 
 
 def _fb_counts():
@@ -1613,6 +1639,8 @@ def eval_phase(log_dir, problem):
         problems.append(f"peak memory of three restores {run['peak_gib']:.3f} GiB against "
                         f"{alone['peak_gib']:.3f} GiB for one")
     out["eval_all_ckpts"] = dict(run, steps=steps, matrices=matrices, one_checkpoint=alone)
+    sweep = dict(log_dir=log_dir, problem=problem, argv=sweep_argv,
+                 matrices=[(m["global_step"], m["confusion_matrix"]) for m in metrics])
 
     # test-time augmentation: 6 forwards a batch
     tta_argv = [log_dir, "4", problem, "--synthetic_data", "--fused_block", *hw, "--Nb", "1",
@@ -1675,7 +1703,7 @@ def eval_phase(log_dir, problem):
         "windows": _eval_step_numbers(win_argv, log_dir, problem, "windows", 5),
     }
     log("eval steps: " + json.dumps(steps_out))
-    return out["eval_all_ckpts"]["launches"]
+    return out["eval_all_ckpts"]["launches"], sweep
 
 
 def predict_from_run_phase(log_dir, state, problem, device="cuda"):
@@ -2488,18 +2516,444 @@ def optax_phase(device):
     return dict(run=run_launches, remat=remat_launches), dict(run=run, compare=compare, remat=out)
 
 
+# ------------------------------------------------------- 11. multi-rank
+
+RANKS = 2
+RANK_TIMEOUT_S = 300
+# the 2-rank step-1 losses and gradient against the single-process step on
+# the global batch: within BAR_FACTOR times what permuting the rows of each
+# sub-batch does to the single-process step (the same function, its
+# reductions in another order: the floor of what the card can repeat). The
+# f32 gradient is held as a whole and parameter by parameter: a fault in
+# few parameters hides in the whole vector's norm. Basis (tools/
+# probe_multirank.py on the H100): the ranks come to 1.18 times the
+# permutation's distance over the whole vector and at most 1.87 times for a
+# parameter; BatchNorm's backward on one rank's rows (a planted fault that
+# moves only the gradient) comes to 1.39 over the whole vector, under the
+# bar, and to 24.6 on the L1 logits' conv weight, 6 times over it.
+BAR_FACTOR = 4.0
+# below this relative distance a parameter's gradient is held to the floor
+# (the heads' 3 to 14 element norm parameters move by 1e-6 to 7e-6 under
+# the permutation)
+PARAM_FLOOR = 1e-5
+# all-reduces a step at one rank: the fused loss's sums, the gradient and
+# the confusion matrix (BatchNorm takes the single-device path there)
+WORLD1_ALL_REDUCES = 3
+
+
+def _digest(tensors):
+    """sha256 of the bytes of ``tensors`` (bit-equality across processes)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _train_settings_full(**kw):
+    from iv2019_tpu_torch.config import Settings
+
+    (npp, npb, npi), (h, w) = TRAIN_NB, TRAIN_HW
+    return Settings(device="cuda", mode="train", height_feature_extractor=h,
+                    width_feature_extractor=w, Nb_per_pixel=npp, Nb_per_bbox=npb,
+                    Nb_per_image=npi, root_wgrad_pallas=True, **kw).finalize()
+
+
+def _fused_run(settings, mesh=None):
+    from iv2019_tpu_torch.models.model import build_model, init_model
+    from iv2019_tpu_torch.train.fused_update import FusedSGDM
+    from iv2019_tpu_torch.train.state import create_fused_train_state
+    from iv2019_tpu_torch.train.step import make_train_step
+
+    model = init_model(build_model(settings), torch.Generator().manual_seed(0))
+    opt = FusedSGDM(settings, model)
+    return opt, create_fused_train_state(opt), make_train_step(settings, fused_opt=opt,
+                                                               mesh=mesh)
+
+
+def _metrics(m):
+    return {k: float(v) for k, v in m.items() if k != "weight_masks"}
+
+
+def _state_digest(opt, state):
+    o = state.opt_state
+    return {"params": _digest([opt.params]), "momentum": _digest([o.momentum]),
+            "ema": _digest([o.ema_biased, o.ema_decay_product]),
+            "statistics": _digest(list(opt.model.buffers()))}
+
+
+def nccl_world_one(device):
+    """(a): two full-width train steps through the distributed code path on
+    an NCCL group of one rank, against the non-distributed step from the
+    same weights on the same batch: bit-equal; 3 all-reduces a step."""
+    from iv2019_tpu_torch.parallel import mesh as pmesh
+    from iv2019_tpu_torch.parallel import multihost
+
+    settings = _train_settings_full(num_devices=1)
+    # built before the group starts: the step of no mesh
+    plain_opt, plain_state, plain_step = _fused_run(settings)
+    mesh = multihost.initialize(settings, backend="nccl")
+    try:
+        if mesh is None or mesh.world != 1:
+            raise AssertionError(f"NCCL group of one rank: {mesh}")
+        opt, state, step = _fused_run(settings, mesh)
+        batch = train_batch(np.random.RandomState(0), device)
+        rows, launches = [], {}
+        for i in range(2):
+            _reset_counts()
+            pmesh.reset_collective_stats()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            counts, colls = _counts(), pmesh.collective_stats()
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            plain_state, pm = plain_step(plain_state, batch)
+            rows.append(dict(step=i + 1, collectives=colls, launches=counts,
+                             equal_metrics=_metrics(m) == _metrics(pm)))
+        equal_state = _state_digest(opt, state) == _state_digest(plain_opt, plain_state)
+    finally:
+        multihost.shutdown()
+    out = dict(backend="nccl", world=1, steps=rows, equal_state=equal_state, launches=launches)
+    log("multirank (a) NCCL at one rank: " + json.dumps(out))
+    bad = [r for r in rows if r["collectives"]["all_reduce"] != WORLD1_ALL_REDUCES
+           or r["collectives"]["broadcast"] or not r["equal_metrics"]
+           or any(v != 1 for v in r["launches"].values())]
+    if bad or not equal_state:
+        raise AssertionError(f"NCCL at one rank: {out}")
+    return launches
+
+
+def _timed_collectives():
+    """Wrap ``torch.distributed``'s all_reduce and broadcast, which the
+    port's collectives call, so that each is timed alone: the device is
+    synchronized before and after it (the step loses its overlap, so steps
+    are timed without this). Returns the totals and the restore function."""
+    import torch.distributed as dist
+
+    timed = {"seconds": 0.0, "largest_bytes": 0, "largest_seconds": 0.0}
+    originals = dist.all_reduce, dist.broadcast
+
+    def wrap(fn):
+        def collective(t, *args, **kw):
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            t0 = time.perf_counter()
+            out = fn(t, *args, **kw)
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            seconds = time.perf_counter() - t0
+            timed["seconds"] += seconds
+            if t.numel() * t.element_size() > timed["largest_bytes"]:
+                timed.update(largest_bytes=t.numel() * t.element_size(),
+                             largest_seconds=seconds)
+            return out
+        return collective
+
+    dist.all_reduce, dist.broadcast = wrap(dist.all_reduce), wrap(dist.broadcast)
+
+    def restore():
+        dist.all_reduce, dist.broadcast = originals
+
+    return timed, restore
+
+
+def _gloo_train_rank(rank, port, tmp):
+    """One of the two gloo ranks of (b), on cuda:0 with the other."""
+    from iv2019_tpu_torch.parallel import mesh as pmesh
+    from iv2019_tpu_torch.parallel import multihost
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    settings = _train_settings_full(num_processes=RANKS, process_id=rank, num_devices=1,
+                                    coordinator_address=f"localhost:{port}")
+    mesh = multihost.initialize(settings, backend="gloo")
+    try:
+        batch = multihost.put_sharded(train_batch(np.random.RandomState(0), torch.device("cpu")),
+                                      mesh)
+        # step 1 in f32 (no B6 there), whose gradient is not drowned in bf16
+        # rounding
+        opt, state, step = _fused_run(settings.replace(compute_dtype="float32"), mesh)
+        _, m = step(state, batch)
+        f32 = dict(history=[_metrics(m)], grads_digest=_digest([opt.grads]))
+        f32_grads = opt.grads.detach().cpu().clone()
+        del opt, state, step, m
+        torch.cuda.empty_cache()
+
+        opt, state, step = _fused_run(settings, mesh)
+        # as the training loop does after its init
+        pmesh.replicate([opt.params] + list(opt.model.buffers()), mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        history, times, colls = [], [], []
+        for i in range(2):
+            pmesh.reset_collective_stats()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            colls.append(pmesh.collective_stats())
+            history.append(_metrics(m))
+            if i == 0:
+                grads = opt.grads.detach().cpu().clone()
+        digests = _state_digest(opt, state)
+        # a third step with every collective timed alone (synchronized)
+        pmesh.reset_collective_stats()
+        timed, restore = _timed_collectives()
+        t0 = time.perf_counter()
+        try:
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        timed_ms = (time.perf_counter() - t0) * 1e3
+        timed["bytes"] = pmesh.collective_stats()["bytes"]
+        out = dict(rank=rank, rows={k: int(v.shape[0]) for k, v in batch.items()}, f32=f32,
+                   history=history, step_ms=times, timed_step_ms=timed_ms,
+                   collective_ms=timed["seconds"] * 1e3, collectives=colls,
+                   collective_mb=timed["bytes"] / 1e6,
+                   largest_collective_ms=timed["largest_seconds"] * 1e3,
+                   largest_collective_mb=timed["largest_bytes"] / 1e6,
+                   launches=_counts(), digests=digests,
+                   grads_digest=_digest([grads]),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        torch.save({"out": out, "grads": grads if rank == 0 else None,
+                    "f32_grads": f32_grads if rank == 0 else None},
+                   _rank_file(tmp, "train", rank))
+    finally:
+        multihost.shutdown()
+
+
+def _gloo_eval_rank(rank, port, argv, tmp):
+    """One of the two gloo processes of (c): evaluate_cli's sweep."""
+    from iv2019_tpu_torch import evaluate_cli
+    from iv2019_tpu_torch.config import Settings
+    from iv2019_tpu_torch.parallel import multihost
+
+    coordinator = ["--num_processes", str(RANKS), "--coordinator_address", f"localhost:{port}",
+                   "--process_id", str(rank)]
+    multihost.initialize(Settings(device="cuda", num_processes=RANKS, process_id=rank,
+                                  coordinator_address=f"localhost:{port}", num_devices=1),
+                         backend="gloo")
+    try:
+        _reset_fb()
+        t0 = time.perf_counter()
+        metrics = evaluate_cli.main(argv + coordinator)
+        torch.save(dict(matrices=[(m["global_step"], m["confusion_matrix"]) for m in metrics],
+                        launches=_fb_counts(), wall_s=time.perf_counter() - t0,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30),
+                   _rank_file(tmp, "eval", rank))
+    finally:
+        multihost.shutdown()
+
+
+def _spawn_ranks(fn, args, label):
+    """``fn(rank, *args)`` in RANKS spawned processes; a rank that fails, or
+    a join past RANK_TIMEOUT_S, fails the run (the others are killed)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=RANKS, join=False, start_method="spawn")
+    deadline = time.time() + RANK_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() > deadline:
+                raise AssertionError(f"{label}: the ranks did not end in {RANK_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def _rel_norm(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def _worst_param(got, want, permuted, layout):
+    """The parameter whose gradient in ``got`` is farthest from ``want``
+    over what the row permutation does to it (floored at PARAM_FLOOR)."""
+    worst = None
+    for name, shape, _, offset in layout:
+        part = slice(offset, offset + int(np.prod(shape)))
+        dist, noise = _rel_norm(got[part], want[part]), _rel_norm(permuted[part], want[part])
+        ratio = dist / max(noise, PARAM_FLOOR)
+        if worst is None or ratio > worst["ratio"]:
+            worst = dict(param=name, ratio=ratio, ranks=dist, permuted=noise)
+    return worst
+
+
+def gloo_train(device, tmp):
+    """(b): two gloo ranks on cuda:0, 2 + 4 + 2 images each of the global
+    4 + 8 + 4, full width: step 1 in f32 and in bf16 against the
+    single-process step on the global batch, under the bar of a row
+    permutation (in bf16 also of the single-process step's distance to the
+    f32 one); then 3 bf16 steps with B6: the state bit-equal on both ranks
+    after 2, B1/B2/B3/B6 once a step on each rank."""
+    from iv2019_tpu_torch.parallel.multihost import free_port
+
+    settings = _train_settings_full()
+    batch = train_batch(np.random.RandomState(0), device)
+    # the rows of each sub-batch reversed: the same function
+    permuted = {k: torch.flip(v, dims=(0,)) for k, v in batch.items()}
+    ref = {}
+    for dtype in ("float32", "bfloat16"):
+        for name, b in (("global", batch), ("permuted", permuted)):
+            opt, state, step = _fused_run(settings.replace(compute_dtype=dtype))
+            _, m = step(state, b)
+            ref[dtype, name] = (_metrics(m), opt.grads.detach().cpu().clone())
+            layout = opt.layout
+            del opt, state, step, m
+            torch.cuda.empty_cache()
+    del batch, permuted
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    _spawn_ranks(_gloo_train_rank, (free_port(), tmp), "gloo train")
+    wall_s = time.perf_counter() - t0
+    ranks = [torch.load(_rank_file(tmp, "train", r), weights_only=False) for r in range(RANKS)]
+    outs = [r["out"] for r in ranks]
+    keys = ("total", "l1_segmentation", "l2_vehicle_segmentation", "l2_human_segmentation",
+            "regularization", "miou")
+    step1, problems = {}, []
+    for dtype, got_g, history in (
+            ("float32", ranks[0]["f32_grads"], [o["f32"]["history"][0] for o in outs]),
+            ("bfloat16", ranks[0]["grads"], [o["history"][0] for o in outs])):
+        (want, want_g), (perm, perm_g) = ref[dtype, "global"], ref[dtype, "permuted"]
+        rows = {}
+        for k in keys:
+            floor = 1e-3 if k == "miou" else 1e-6 * abs(want[k])
+            noise = abs(perm[k] - want[k])
+            if dtype == "bfloat16":
+                # a bf16 step is as far from the f32 one as bf16 rounds
+                noise = max(noise, abs(want[k] - ref["float32", "global"][0][k]))
+            rows[k] = dict(single=want[k], ranks=[h[k] for h in history], permuted=perm[k],
+                           bar=BAR_FACTOR * max(noise, floor))
+            if any(abs(h[k] - want[k]) > rows[k]["bar"] for h in history):
+                problems.append(f"{dtype} step-1 {k}: {rows[k]}")
+        grad = dict(ranks=_rel_norm(got_g, want_g), permuted=_rel_norm(perm_g, want_g))
+        if dtype == "bfloat16":
+            grad["single_vs_f32"] = _rel_norm(want_g, ref["float32", "global"][1])
+        else:
+            grad["bar"] = BAR_FACTOR * max(grad["permuted"], 1e-7)
+            grad["worst_param"] = _worst_param(got_g, want_g, perm_g, layout)
+            if grad["ranks"] > grad["bar"] or grad["worst_param"]["ratio"] > BAR_FACTOR:
+                problems.append(f"f32 step-1 gradient {grad}")
+        step1[dtype] = dict(losses=rows, grad_rel_norm=grad)
+    want_all_reduces = 2 * _batch_norms(settings) + 3
+    summary = dict(
+        ranks=RANKS, backend="gloo", device="cuda:0 (shared)", wall_s=wall_s,
+        rows=outs[0]["rows"], step1=step1,
+        per_rank=[{k: o[k] for k in ("step_ms", "timed_step_ms", "collective_ms",
+                                     "collective_mb", "largest_collective_ms",
+                                     "largest_collective_mb", "peak_gib", "launches",
+                                     "collectives")}
+                  for o in outs],
+        equal_state=outs[0]["digests"] == outs[1]["digests"],
+        equal_grads=(outs[0]["grads_digest"] == outs[1]["grads_digest"]
+                     and outs[0]["f32"]["grads_digest"] == outs[1]["f32"]["grads_digest"]))
+    log("multirank (b) two gloo ranks, train: " + json.dumps(summary))
+    if not (summary["equal_state"] and summary["equal_grads"]):
+        problems.append("the ranks' state or gradient differ")
+    for o in outs:
+        if any(v != 3 for v in o["launches"].values()):
+            problems.append(f"rank {o['rank']} launches {o['launches']}, expected 3 each")
+        if not all(np.isfinite(v) for m in o["history"] for v in m.values()):
+            problems.append(f"rank {o['rank']}: non-finite metrics")
+    if any(c["all_reduce"] != want_all_reduces or c["broadcast"]
+           for o in outs for c in o["collectives"]):
+        problems.append(f"collectives {[o['collectives'] for o in outs]}, expected "
+                        f"{want_all_reduces} all-reduces a step (2 a train-mode BatchNorm, the "
+                        "loss sums, the gradient, the confusion matrix)")
+    if problems:
+        raise AssertionError("two gloo ranks, train: " + "; ".join(problems))
+    return {k: [o["launches"][k] for o in outs] for k in outs[0]["launches"]}
+
+
+def _batch_norms(settings):
+    """The model's train-mode BatchNorm layers (two all-reduces each a step)."""
+    from iv2019_tpu_torch.models.model import build_model
+
+    model = build_model(settings.replace(device="cpu"))
+    return sum(1 for m in model.modules()
+               if type(m).__name__ == "Norm" and m.norm_type == "batch")
+
+
+def _rank_file(tmp, what, rank):
+    import os
+
+    return os.path.join(tmp, f"multirank_{what}_{rank}.pt")
+
+
+def gloo_eval(tmp, sweep):
+    """(c): evaluate_cli --eval_all_ckpts --fused_block as a sweep of two
+    gloo processes on cuda:0 over the train run's checkpoints 3, 6 and 8:
+    the merged matrices equal, integer for integer, to phase 7's; B4/B5
+    launches per process by the dispatch rule (checkpoints 3 and 8 on
+    process 0, 6 on process 1)."""
+    from iv2019_tpu_torch.parallel.multihost import free_port
+
+    t0 = time.perf_counter()
+    _spawn_ranks(_gloo_eval_rank, (free_port(), sweep["argv"], tmp), "gloo eval")
+    wall_s = time.perf_counter() - t0
+    outs = [torch.load(_rank_file(tmp, "eval", r), weights_only=False) for r in range(RANKS)]
+    want_steps = [step for step, _ in sweep["matrices"]]
+    per_ckpt = add_launches({}, EVAL_NB, 64, 128, forwards=EVAL_NEVAL // EVAL_NB)
+    owned = [len(range(r, len(want_steps), RANKS)) for r in range(RANKS)]
+    problems = []
+    for r, o in enumerate(outs):
+        steps = [step for step, _ in o["matrices"]]
+        equal = steps == want_steps and all(
+            np.array_equal(cm, want) and cm.dtype == np.int64
+            for (_, cm), (_, want) in zip(o["matrices"], sweep["matrices"]))
+        want_launches = {k: v * owned[r] for k, v in per_ckpt.items()}
+        if not equal:
+            problems.append(f"process {r}: merged matrices differ from phase 7's")
+        if o["launches"] != want_launches:
+            problems.append(f"process {r}: launches {o['launches']}, expected {want_launches}")
+    out = dict(processes=RANKS, wall_s=wall_s, steps=want_steps, checkpoints_owned=owned,
+               per_process=[{k: o[k] for k in ("launches", "wall_s", "peak_gib")} for o in outs],
+               equal_to_phase7=not problems)
+    log("multirank (c) two gloo processes, eval sweep: " + json.dumps(out))
+    if problems:
+        raise AssertionError("two gloo processes, eval: " + "; ".join(problems))
+    return {k: [o["launches"][k] for o in outs] for k in per_ckpt}
+
+
+def multirank_phase(device, tmp, sweep):
+    """Phase 11 (see the module docstring); returns the launches of each
+    kernel per run and rank."""
+    torch.cuda.empty_cache()
+    world1 = nccl_world_one(device)
+    torch.cuda.empty_cache()
+    train = gloo_train(device, tmp)
+    torch.cuda.empty_cache()
+    evaluation = gloo_eval(tmp, sweep)
+    out = {k: {"nccl_world1": world1[k], "gloo_ranks": train[k]} for k in world1}
+    out.update({k: {"gloo_eval_processes": v} for k, v in evaluation.items()})
+    return out
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from iv2019_tpu_torch.ops import _build
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    # the training run's directory, which phase 11 evaluates again
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return _phases(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phases(work):
+    from iv2019_tpu_torch.ops import _build
+
     t0 = time.time()
     for stem, report in _build.build_all().items():
         log(f"built {stem} in {time.time() - t0:.1f}s")
@@ -2520,7 +2974,7 @@ def main():
     # the train path's kernels report the launches of the training run (the
     # train phase's are printed above), B4/B5 those of the predict requests
     # and, as eval_launches, those of the --eval_all_ckpts sweep
-    run_launches, eval_launches = train_run_phase(device, step_busy_ms)
+    run_launches, eval_launches, sweep = train_run_phase(device, step_busy_ms, work)
     torch.cuda.empty_cache()
     # this slice's path: the real-format training run with grad_accum_steps=2
     real_launches, _ = real_format_phase(device)
@@ -2530,7 +2984,12 @@ def main():
     variant_launches, vistas = variants_phase(device)
     torch.cuda.empty_cache()
     optax_launches, _ = optax_phase(device)
+    torch.cuda.empty_cache()
+    # this slice's path: data parallelism (NCCL at one rank, two gloo ranks
+    # on the card for training and for the evaluation sweep)
+    multirank_launches = multirank_phase(device, work, sweep)
     for r in results:
+        r["multirank_launches"] = multirank_launches[r["name"]]
         if r["name"] == "fused_loss_fwd":
             r["vistas_shape"] = vistas[0]
         if r["name"] == "fused_loss_bwd":

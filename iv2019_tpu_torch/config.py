@@ -17,10 +17,11 @@ the optax path are ported; ``rasterize_on_device``,
 switches ``conv_impl``, ``bn_impl``, ``dilation_mode`` and ``root_conv_s2d``
 compute the same function as their defaults in the JAX package, and the
 port runs its one path for every value; ``enable_xla`` and ``distribute``
-are kept for parity and do nothing. The train command line accepts the
-flags of multi-process and multi-device training and spatial partitions,
-which the port does not have yet: ``validate()`` raises
-``NotImplementedError`` when one of them is set.
+are kept for parity and do nothing. Multi-device and multi-process runs
+(``num_devices``, ``num_processes``, ``num_slices``; the train and evaluate
+command lines) run one rank per device (parallel/multihost.py);
+``validate()`` keeps the JAX package's checks of them and raises
+``NotImplementedError`` for ``spatial_partitions`` > 1, which is not ported.
 """
 
 from __future__ import annotations
@@ -144,7 +145,11 @@ class Settings:
     # recompute each trunk unit's activations in the backward pass
     # (torch.utils.checkpoint; the BatchNorm statistics move once)
     remat: bool = False
-    # not ported beyond their defaults: validate() raises when set
+    # the ranks of the run (parallel/multihost.py): num_devices per launch
+    # (None: every visible CUDA device when an entry point launches the
+    # ranks, one when a caller starts its own), num_processes launches (0:
+    # torchrun);
+    # spatial_partitions is not ported (validate() raises)
     num_devices: Optional[int] = None
     num_slices: int = 1
     spatial_partitions: int = 1
@@ -285,16 +290,26 @@ class Settings:
         if self.openimages_label_space not in ("v1", "v2"):
             raise ValueError(f"openimages_label_space must be 'v1' or 'v2', got "
                              f"{self.openimages_label_space!r}.")
-        unported = {
-            "num_processes > 1 (multi-process training)": self.num_processes != 1,
-            "num_devices > 1 (multi-device training)": (self.num_devices or 1) > 1,
-            "num_slices > 1": self.num_slices != 1,
-            "spatial_partitions > 1": self.spatial_partitions != 1,
-        }
-        for name, on in unported.items():
-            if on:
-                raise NotImplementedError(f"{name} is not ported to the PyTorch package yet "
-                                          "(ROADMAP.md queue A)")
+        if self.num_processes < 0:
+            raise ValueError("num_processes must be >= 0 (0 = TPU-pod auto).")
+        if self.num_processes > 1:
+            if not self.coordinator_address:
+                raise ValueError("num_processes > 1 requires --coordinator_address host:port.")
+            if not 0 <= self.process_id < self.num_processes:
+                raise ValueError(f"process_id {self.process_id} outside "
+                                 f"[0, {self.num_processes}).")
+            for name in ("Nb_per_pixel", "Nb_per_bbox", "Nb_per_image"):
+                nb = getattr(self, name)
+                if nb % self.num_processes:
+                    raise ValueError(f"{name}={nb} must divide by num_processes="
+                                     f"{self.num_processes} (global batch, split per host).")
+        if self.num_devices is not None and self.num_devices < 1:
+            raise ValueError(f"num_devices must be >= 1, got {self.num_devices}")
+        if self.num_slices < 1:
+            raise ValueError(f"num_slices must be >= 1, got {self.num_slices}")
+        if self.spatial_partitions != 1:
+            raise NotImplementedError("spatial_partitions > 1 is not ported to the PyTorch "
+                                      "package yet (ROADMAP.md queue A)")
 
     def finalize(self) -> "Settings":
         """Fill the derived fields; returns a new Settings (iv2019_tpu/config.py:423-486,
@@ -367,24 +382,33 @@ def _add_system_arguments(p: argparse.ArgumentParser) -> None:
 
 
 def _add_train_system_arguments(p: argparse.ArgumentParser) -> None:
-    """The training flags of iv2019_tpu/config.py:504-539; those of
-    multi-process and multi-device training are accepted and refused by
-    validate()."""
+    """The training flags of iv2019_tpu/config.py:504-539 (``spatial_partitions``
+    is accepted and refused by validate())."""
     p.add_argument("--enable_xla", action="store_true", default=True)
-    p.add_argument("--num_devices", type=int, default=None)
-    p.add_argument("--num_slices", type=int, default=1)
+    _add_parallel_arguments(p)
     p.add_argument("--spatial_partitions", type=int, default=1)
     p.add_argument("--remat", action="store_true")
     p.add_argument("--grad_accum_steps", type=int, default=1)
-    p.add_argument("--coordinator_address", type=str, default="")
-    p.add_argument("--num_processes", type=int, default=1)
-    p.add_argument("--process_id", type=int, default=0)
     p.add_argument("--async_checkpoints", action=argparse.BooleanOptionalAction, default=True,
                    help="overlap checkpoint writes with training steps")
     p.add_argument("--input_seed", type=int, default=None,
                    help="seed the host input pipelines (shuffle, crops) for reproducible "
                         "runs; default: OS entropy")
     p.add_argument("--synthetic_data", action="store_true")
+
+
+def _add_parallel_arguments(p: argparse.ArgumentParser) -> None:
+    """The ranks of a run (parallel/multihost.py): the JAX package's training
+    flags, which the port's evaluation takes too."""
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="ranks to spawn, one per CUDA device (default: every visible one)")
+    p.add_argument("--num_slices", type=int, default=1)
+    p.add_argument("--coordinator_address", type=str, default="",
+                   help="multi-host: host:port where the ranks meet")
+    p.add_argument("--num_processes", type=int, default=1,
+                   help="hosts (launches of this command); 0: the ranks of torchrun")
+    p.add_argument("--process_id", type=int, default=0,
+                   help="this host's id in [0, num_processes)")
 
 
 def _add_model_arguments(p: argparse.ArgumentParser) -> None:
@@ -523,6 +547,7 @@ def _add_evaluate_arguments(p: argparse.ArgumentParser) -> None:
                    choices=["cityscapes", "vistas"],
                    help="training dataset (default: read from log_dir/settings.txt)")
     p.add_argument("--synthetic_data", action="store_true")
+    _add_parallel_arguments(p)
 
 
 def build_argparser(mode: str = PREDICT) -> argparse.ArgumentParser:

@@ -14,6 +14,10 @@ metrics, and writes ``all_metrics.txt`` and ``all_metrics.p`` beside the
 settings in ``LOG_DIR/eval_NN``. The dataset name and the architecture come
 from the run's settings.txt; pass the input size
 (``--height_feature_extractor/--width_feature_extractor``) again.
+``--num_devices``, ``--num_processes``, ``--coordinator_address`` and
+``--process_id`` sweep across ranks as training does (system.py); rank 0
+alone prints and writes, and the call returns the metrics in the process
+that ran rank 0 when it ran in this process (None after a spawn).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from iv2019_tpu_torch.config import (
 )
 from iv2019_tpu_torch.input.cityscapes import evaluate_input
 from iv2019_tpu_torch.models.model import build_model
+from iv2019_tpu_torch.parallel import multihost
 from iv2019_tpu_torch.system import SemanticSegmentation
 from iv2019_tpu_torch.utils.metrics import print_metrics_from_confusion_matrix
 
@@ -40,11 +45,17 @@ def main(argv):
     settings = settings_from_args(args, EVAL)
     settings = resolve_dataset_name(settings, args.per_pixel_dataset_name)
     settings = resolve_trained_model(settings, argv)
+    return multihost.launch(_evaluate, settings)
 
+
+def _evaluate(settings):
+    """One rank's sweep; rank 0 writes the files."""
     # the weights are restored over the uninitialized model
     system = SemanticSegmentation({"eval": evaluate_input}, model_fn=build_model,
                                   settings=settings)
     all_metrics = system.evaluate()
+    if not multihost.is_primary():
+        return all_metrics
 
     out_dir = system.eval_res_dir
     labels = list(system.evaluation_problem_def.cids2labels)

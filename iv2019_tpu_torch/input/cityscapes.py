@@ -13,8 +13,10 @@ input_vistas.py):
 
 With ``settings.synthetic_data``, random batches of the same shapes and
 dtypes (``synthetic_train_batches``, ``synthetic_eval_batches``), the same
-numbers as the JAX package's for the same seed. Single process only: the
-JAX package's multi-host record striding is not ported (ROADMAP.md queue A).
+numbers as the JAX package's for the same seed. Across ranks each rank's
+train pipeline reads every ``process_count``-th record, from its own
+(parallel/multihost.py::shard_records); evaluation reads every record on
+every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 from iv2019_tpu_torch.config import Settings
 from iv2019_tpu_torch.input import core
 from iv2019_tpu_torch.input.tfrecord import parse_example, read_tfrecords
+from iv2019_tpu_torch.parallel.multihost import shard_records
 from iv2019_tpu_torch.problem.problem_def import ProblemDef
 
 __all__ = ["evaluate_input", "synthetic_eval_batches", "synthetic_train_batches", "train_input"]
@@ -66,7 +69,8 @@ def train_input(settings: Settings, problem_def: ProblemDef, tfrecords_path: Opt
         return {"proimages": proimage, "prolabels": prolabel, "rawimagespaths": im_path,
                 "rawlabelspaths": la_path}
 
-    records = core.shuffle_repeat(lambda: read_tfrecords(path), seed=seed)
+    # each process keeps a disjoint stride of the record stream
+    records = core.shuffle_repeat(lambda: shard_records(read_tfrecords(path)), seed=seed)
     for batch in core.batched(core.parallel_map(_prebatch, enumerate(records)), settings.Nb):
         batch["proimages"] = core.from_0_1_to_m1_1(batch["proimages"])
         yield batch

@@ -6,8 +6,10 @@ the three pipelines, the image sub-batches kept as separate arrays (the
 train step concatenates them on the device). Sub-batch sizes follow
 ``Nb_per_pixel`` / ``Nb_per_bbox`` / ``Nb_per_image`` with the per-type
 aspect policies; the pipelines take seeds ``seed``, ``seed + 1`` and
-``seed + 2``. ``Nb_per_image = 0`` gives the two-way variant. Single process
-only (multi-host sharding: ROADMAP.md queue A).
+``seed + 2``. ``Nb_per_image = 0`` gives the two-way variant. Across ranks
+``Nb_per_*`` are the global batch: each rank's pipelines make
+``Nb_per_* / process_count`` examples from their own stride of the records,
+seeded ``seed + 7919 * process_index`` (parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 from iv2019_tpu_torch.config import Settings
 from iv2019_tpu_torch.input.cityscapes import train_input as per_pixel_train_input
 from iv2019_tpu_torch.input.openimages import bbox_train_input, image_labels_train_input
+from iv2019_tpu_torch.parallel import multihost
 from iv2019_tpu_torch.problem.problem_def import ProblemDef
 from iv2019_tpu_torch.problem.taxonomy import NUM_WEAK_CLASSES
 
@@ -38,11 +41,16 @@ def train_input(settings: Settings, problem_def: ProblemDef,
     'bbox_cids' and 'bbox_coords' with ``rasterize_on_device``),
     'prolabels_per_image' (or 'image_label_vecs'), 'imageids_per_bbox',
     'imageids_per_image', 'rawimagespaths', 'rawlabelspaths'}."""
-    if settings.num_processes != 1:
-        raise NotImplementedError("multi-process input sharding is not ported yet "
-                                  "(ROADMAP.md queue A)")
     if seed is None:
         seed = settings.input_seed
+    if multihost.process_count() > 1:
+        settings = settings.replace(
+            Nb_per_pixel=multihost.local_share(settings.Nb_per_pixel),
+            Nb_per_bbox=multihost.local_share(settings.Nb_per_bbox),
+            Nb_per_image=multihost.local_share(settings.Nb_per_image))
+        # decorrelate shuffle order and random crops across processes
+        if seed is not None:
+            seed = seed + 7919 * multihost.process_index()
     pp_iter = per_pixel_train_input(
         settings.replace(Nb=settings.Nb_per_pixel,
                          preserve_aspect_ratio=settings.preserve_aspect_ratio_per_pixel),

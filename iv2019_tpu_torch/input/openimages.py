@@ -33,6 +33,7 @@ import numpy as np
 from iv2019_tpu_torch.config import Settings
 from iv2019_tpu_torch.input import core
 from iv2019_tpu_torch.ops.rasterize import image_label_multinomial_np, rasterize_bboxes_np
+from iv2019_tpu_torch.parallel.multihost import shard_records
 from iv2019_tpu_torch.problem.taxonomy import (
     NUM_WEAK_CLASSES,
     OPEN_IMAGES_MID2CID,
@@ -138,7 +139,8 @@ def bbox_train_input(settings: Settings, seed: Optional[int] = None) -> Iterator
             make_rng(index))
         return {"proimages": proimage, "prolabels": prolabel, "imageids": imageid}
 
-    items = core.shuffle_repeat(lambda: imageid2bboxes.items(), seed=seed)
+    # each process keeps a disjoint stride of the images
+    items = core.shuffle_repeat(lambda: shard_records(imageid2bboxes.items()), seed=seed)
     for batch in core.batched(core.parallel_map(_pre, enumerate(items)), settings.Nb):
         batch["proimages"] = core.from_0_1_to_m1_1(batch["proimages"])
         yield batch
@@ -176,7 +178,7 @@ def image_labels_train_input(settings: Settings, seed: Optional[int] = None) -> 
             image, np.ascontiguousarray(rla), hw, settings.preserve_aspect_ratio, rng)
         return {"proimages": proimage, "prolabels": prolabel, "imageids": imageid}
 
-    items = core.shuffle_repeat(lambda: imageid2mids.items(), seed=seed)
+    items = core.shuffle_repeat(lambda: shard_records(imageid2mids.items()), seed=seed)
     for batch in core.batched(core.parallel_map(_pre, enumerate(items)), settings.Nb):
         batch["proimages"] = core.from_0_1_to_m1_1(batch["proimages"])
         yield batch

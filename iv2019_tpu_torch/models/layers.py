@@ -15,6 +15,9 @@ as ``conv.weight`` (OIHW) and ``norm/BatchNorm/<leaf>`` as ``norm.<leaf>``
   ``(x - mean) * (rsqrt(var + eps) * scale) + bias``; in train mode on the
   batch's statistics over (N, H, W), with the running statistics moved by
   ``decay * ra + (1 - decay) * batch`` with the *biased* variance, as flax.
+  With more than one rank (parallel/mesh.py) the train-mode statistics
+  are those of the global batch: one all-reduce of the per-channel sums
+  forward, one of the gradient's sums backward.
   ``norm_type="group"`` is flax GroupNorm (``min(groups, C)`` groups,
   f32, the same in both modes, no running statistics), its parameters
   named ``scale`` and ``bias`` as flax's (weight decay applies to
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from iv2019_tpu_torch.ops import fused_block as fb
+from iv2019_tpu_torch.parallel import mesh as pmesh
 
 __all__ = ["BottleneckV1", "Conv", "ConvNormRelu", "Norm"]
 
@@ -87,6 +91,9 @@ class Norm(nn.Module):
         return y.to(x.dtype)
 
     def _train(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = pmesh.norm_mesh()
+        if mesh is not None:
+            return self._train_global(x, mesh)
         # Autograd differentiates through the batch statistics, as flax's
         # autodiff does. F.batch_norm moves its running buffers with the
         # *unbiased* variance and momentum = 1 - decay, so it is handed fresh
@@ -104,6 +111,62 @@ class Norm(nn.Module):
                 self.var.mul_(self.decay).add_(batch_var * ((count - 1) / count),
                                                alpha=1.0 - self.decay)
         return y.to(x.dtype)
+
+    def _train_global(self, x: torch.Tensor, mesh) -> torch.Tensor:
+        # statistics of the global batch, as JAX's BatchNorm under SPMD: the
+        # per-channel sums are all-reduced, and the variance is flax's
+        # E[x^2] - E[x]^2 (biased), which moves the running statistics
+        y, mean, var = _GlobalBatchNorm.apply(x.float(), self.scale, self.bias, self.epsilon,
+                                              mesh)
+        if self.update_stats:
+            with torch.no_grad():
+                self.mean.mul_(self.decay).add_(mean, alpha=1.0 - self.decay)
+                self.var.mul_(self.decay).add_(var, alpha=1.0 - self.decay)
+        return y.to(x.dtype)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the rows of every rank, in f32.
+
+    Forward: one all-reduce of the per-channel (sum x, sum x^2) and the row
+    count. Backward: one all-reduce of (sum dy, sum dy * xhat), so that the
+    input gradient carries the statistics' dependence on every rank's rows;
+    the scale and bias gradients are this rank's parts, which the train
+    step's gradient all-reduce adds. Returns (y, batch mean, biased batch
+    variance); the last two carry no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, mesh):
+        c = x.shape[1]
+        dims = (0, 2, 3)
+        stats = torch.cat([x.sum(dims), (x * x).sum(dims),
+                           x.new_full((1,), x.numel() // c)])
+        pmesh.all_reduce(stats, mesh)
+        count = stats[-1]
+        mean = stats[:c] / count
+        var = torch.clamp_min(stats[c:2 * c] / count - mean * mean, 0.0)
+        rstd = torch.rsqrt(var + eps)
+        xhat = (x - mean[:, None, None]) * rstd[:, None, None]
+        y = xhat * scale[:, None, None] + bias[:, None, None]
+        ctx.save_for_backward(xhat, scale, rstd, count)
+        ctx.mesh = mesh
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, scale, rstd, count = ctx.saved_tensors
+        c = xhat.shape[1]
+        dims = (0, 2, 3)
+        dbias = dy.sum(dims)
+        dscale = (dy * xhat).sum(dims)
+        sums = pmesh.all_reduce(torch.cat([dbias, dscale]), ctx.mesh)
+        mean_dy = sums[:c] / count
+        mean_dy_xhat = sums[c:] / count
+        dx = (dy - mean_dy[:, None, None] - xhat * mean_dy_xhat[:, None, None]) \
+            * (scale * rstd)[:, None, None]
+        return dx, dscale, dbias, None, None
 
 
 def conv_same(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, rate: int = 1,

@@ -242,12 +242,14 @@ def _run(symbol, x, w1, b1, w2, b2, w3, b3, rate, kernels=3, y1=None):
     if y1 is None:
         y1 = torch.empty((n, h, w, m), dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(x)
-    err = _entry(symbol)(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        w3.data_ptr(), b3.data_ptr(), y1.data_ptr(), out.data_ptr(), n, h, w, c, m, rate,
-        plan.tile1, plan.stages1, plan.nc, plan.stages2, plan.smem1, plan.smem2, kernels,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    # the CUDA runtime's current device is per thread: launch on the tensors'
+    with torch.cuda.device(x.device):
+        err = _entry(symbol)(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            w3.data_ptr(), b3.data_ptr(), y1.data_ptr(), out.data_ptr(), n, h, w, c, m, rate,
+            plan.tile1, plan.stages1, plan.nc, plan.stages2, plan.smem1, plan.smem2, kernels,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     if err:
         raise RuntimeError(f"{symbol} (n,h,w,c,m,rate)={(n, h, w, c, m, rate)}: "
                            f"{_ERRORS.get(err, f'CUDA error {err}')}")

@@ -59,6 +59,7 @@ from iv2019_tpu_torch.losses.hierarchical import WEAK_LOSS_COEFFICIENT
 from iv2019_tpu_torch.ops import _build
 from iv2019_tpu_torch.ops.resize import _bilinear_matrix, _bilinear_tables
 from iv2019_tpu_torch.ops.segment_ops import gather_cids, segment_sum_channels
+from iv2019_tpu_torch.parallel import mesh as pmesh
 from iv2019_tpu_torch.problem.taxonomy import Taxonomy
 
 __all__ = [
@@ -463,9 +464,11 @@ def fused_loss_fwd(l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, *, tax: T
                    + [ctypes.c_int] * 11 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     args = _common_args(l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, itab, ftab, tax)
-    err = fn(*args, _ints(plan.as_ints()), partials.data_ptr(), partials.numel(),
-             sums.data_ptr(), dec.data_ptr(), l1dec.data_ptr(), n, n_pp, h, w, H, W,
-             *_head_args(tax), torch.cuda.current_stream(l1_lr.device).cuda_stream)
+    # the CUDA runtime's current device is per thread: launch on the tensors'
+    with torch.cuda.device(l1_lr.device):
+        err = fn(*args, _ints(plan.as_ints()), partials.data_ptr(), partials.numel(),
+                 sums.data_ptr(), dec.data_ptr(), l1dec.data_ptr(), n, n_pp, h, w, H, W,
+                 *_head_args(tax), torch.cuda.current_stream(l1_lr.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_loss_fwd (n,h,w,H,W)={(n, h, w, H, W)}: "
                            f"{_ERRORS.get(err, f'CUDA error {err}')}")
@@ -494,9 +497,10 @@ def fused_loss_bwd(g3, l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, *,
     fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     args = _common_args(l1_lr, veh_lr, hum_lr, pp_l1, pp_veh, pp_hum, weak, itab, ftab, tax)
-    err = fn(*args, g3.data_ptr(), _ints(plan.as_ints()), *(g.data_ptr() for g in grads),
-             n, n_pp, h, w, H, W, *_head_args(tax),
-             torch.cuda.current_stream(l1_lr.device).cuda_stream)
+    with torch.cuda.device(l1_lr.device):
+        err = fn(*args, g3.data_ptr(), _ints(plan.as_ints()), *(g.data_ptr() for g in grads),
+                 n, n_pp, h, w, H, W, *_head_args(tax),
+                 torch.cuda.current_stream(l1_lr.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_loss_bwd (n,h,w,H,W)={(n, h, w, H, W)}: "
                            f"{_ERRORS.get(err, f'CUDA error {err}')}")
@@ -547,11 +551,17 @@ def make_fused_hierarchical_loss(tax: Taxonomy, n_pp: int, n_weak: int, in_hw, o
 
 
 def define_losses_fused(predictions, labels, tax: Taxonomy, out_hw,
-                        weak_loss_coefficient=None) -> dict:
+                        weak_loss_coefficient=None, mesh=None) -> dict:
     """The reference losses from the *stride-8* logits of ``predictions``
     ((N, h, w, C) f32) and full-resolution ``labels``; returns the losses
     dict of ``define_losses`` plus full-resolution ``decisions`` and
-    ``l1_decisions`` (iv2019_tpu/ops/fused_loss.py:466-611, single device)."""
+    ``l1_decisions`` (iv2019_tpu/ops/fused_loss.py:466-611).
+
+    With a ``mesh`` (parallel/mesh.py) the batch is this rank's rows of each
+    sub-batch, as JAX's mesh branch hands each device (:510-585): B1 runs on
+    them, its six sums are all-reduced before the normalization, and the
+    decisions stay local. The gradient reaches only the local sums (with
+    1 / the global count), so B2 gets the right ``g3`` as it is."""
     pp = labels["prolabels_per_pixel"]
     pb, pi = labels["prolabels_per_bbox"], labels["prolabels_per_image"]
     n_pp = pp.shape[0]
@@ -565,6 +575,8 @@ def define_losses_fused(predictions, labels, tax: Taxonomy, out_hw,
              for t in (tax.per_pixel_cids2l1_cids, tax.per_pixel_cids2vehicle_cids,
                        tax.per_pixel_cids2human_cids)]
     sums, dec, l1dec = loss_fn.apply(l1_lr, veh_lr, hum_lr, *heads, weak)
+    if mesh is not None:
+        sums = pmesh.global_sum(sums, mesh)
 
     def norm(s, c):
         return torch.where(c > 0, s / c.clamp_min(1.0), torch.zeros_like(s))

@@ -80,11 +80,13 @@ def fused_update(w, g, m, s, mask, lr, decay, *, momentum: float, weight_decay: 
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_float]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    err = fn(w.data_ptr(), g.data_ptr(), m.data_ptr(), s.data_ptr(), mask.data_ptr(),
-             lr.data_ptr(), decay.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-             out[2].data_ptr(), partials.data_ptr(), reg.data_ptr(), n, momentum,
-             weight_decay, int(nesterov), _MAX_BLOCKS,
-             torch.cuda.current_stream(w.device).cuda_stream)
+    # the CUDA runtime's current device is per thread: launch on the tensors'
+    with torch.cuda.device(w.device):
+        err = fn(w.data_ptr(), g.data_ptr(), m.data_ptr(), s.data_ptr(), mask.data_ptr(),
+                 lr.data_ptr(), decay.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                 out[2].data_ptr(), partials.data_ptr(), reg.data_ptr(), n, momentum,
+                 weight_decay, int(nesterov), _MAX_BLOCKS,
+                 torch.cuda.current_stream(w.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_update (n={n}): CUDA error {err}")
     fused_update.launches += 1

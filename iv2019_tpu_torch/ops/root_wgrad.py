@@ -164,9 +164,11 @@ def root_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, kernel_size: int = 7,
     fn = lib.iv_root_wgrad
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(xh.data_ptr(), dyh.data_ptr(), dw.data_ptr(), partial.data_ptr(), n, h, w, c, oh,
-             ow, cout, kernel_size, plan.blocks, int(plan.root),
-             torch.cuda.current_stream(x.device).cuda_stream)
+    # the CUDA runtime's current device is per thread: launch on the tensors'
+    with torch.cuda.device(x.device):
+        err = fn(xh.data_ptr(), dyh.data_ptr(), dw.data_ptr(), partial.data_ptr(), n, h, w, c,
+                 oh, ow, cout, kernel_size, plan.blocks, int(plan.root),
+                 torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"root_conv_wgrad (x {tuple(x.shape)}, dy {tuple(dy.shape)}): "
                            f"{_ERRORS.get(err, f'CUDA error {err}')}")

@@ -1,7 +1,7 @@
 """The SemanticSegmentation system of the PyTorch port: train, evaluate, predict.
 
-Port of iv2019_tpu/system.py (reference system_factory.py:27-461), on one
-device: ``SemanticSegmentation(input_fns, model_fn, settings)`` loads the
+Port of iv2019_tpu/system.py (reference system_factory.py:27-461):
+``SemanticSegmentation(input_fns, model_fn, settings)`` loads the
 problem definitions and derives ``output_Nclasses``, the
 training-to-inference and training-to-evaluation cid maps, the finalized
 settings and the ``eval_NN`` directory numbering; ``train()`` writes
@@ -14,6 +14,14 @@ returning one metrics dict per checkpoint; ``predict()`` restores the
 trained weights and yields one predictions dict per image. Weights come
 from ``restore_variables``: a checkpoint of the port's training run, or a
 converted ``.npz``.
+
+Across ranks (parallel/multihost.py): ``train()`` trains data-parallel and
+writes ``settings.txt`` and ``all_code.zip`` on rank 0; ``evaluate()``
+sweeps the checkpoints as JAX's multi-process sweep does (system.py:292-384):
+checkpoint i goes to host i % hosts (a host: one launch of the entry point),
+whose ranks take their rows of each batch (grouped to at least their
+number of rows, padded up to a multiple of it), and one all-reduce of the zero-filled (checkpoints, K, K)
+int64 stack gives every rank every matrix.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ import torch
 from iv2019_tpu_torch.config import Settings
 from iv2019_tpu_torch.input.prefetch import device_prefetch
 from iv2019_tpu_torch.models.model import build_model, init_model
+from iv2019_tpu_torch.parallel import mesh as pmesh
+from iv2019_tpu_torch.parallel import multihost
 from iv2019_tpu_torch.problem.problem_def import load_problem_def
 from iv2019_tpu_torch.train.fused_update import FusedSGDM
 from iv2019_tpu_torch.train.state import EmaState, create_fused_train_state
@@ -52,9 +62,18 @@ def build_initialized_model(settings: Settings) -> torch.nn.Module:
     return init_model(build_model(settings), torch.Generator().manual_seed(0))
 
 
+def _pad_rows(v: np.ndarray, n: int) -> np.ndarray:
+    """``v`` with ``n`` rows more: zero images, out-of-range labels (-1 for
+    signed, the maximum for unsigned), which the confusion matrix drops."""
+    pad = np.zeros((n,) + v.shape[1:], v.dtype)
+    if np.issubdtype(v.dtype, np.integer):
+        pad[:] = -1 if np.issubdtype(v.dtype, np.signedinteger) else np.iinfo(v.dtype).max
+    return np.concatenate([v, pad], axis=0)
+
+
 def _group_eval_batches(batches, group: int):
     """Concatenate consecutive eval batches into multiples of ``group`` rows
-    (iv2019_tpu/system.py:45-109, copied as is; one device is group 1).
+    (iv2019_tpu/system.py:45-109; one rank is group 1).
 
     Batches whose array shapes match are stacked along the leading axis; a
     shape change flushes the buffer. A final (or flushed) partial group is
@@ -71,12 +90,6 @@ def _group_eval_batches(batches, group: int):
             (k, v.shape[1:], v.dtype.str) for k, v in sorted(b.items())
             if isinstance(v, np.ndarray)
         )
-
-    def _pad_rows(v: np.ndarray, n: int) -> np.ndarray:
-        pad = np.zeros((n,) + v.shape[1:], v.dtype)
-        if np.issubdtype(v.dtype, np.integer):
-            pad[:] = -1 if np.issubdtype(v.dtype, np.signedinteger) else np.iinfo(v.dtype).max
-        return np.concatenate([v, pad], axis=0)
 
     def _flush(buf, pad_to=0):
         out = {}
@@ -185,8 +198,28 @@ def restore_variables(model: torch.nn.Module, settings: Settings,
             + (" (EMA weights)" if settings.restore_emas else ""))
 
 
+def _rows_of(batches, index: int, count: int):
+    """Shard ``index`` of ``count`` of each batch's array rows.
+
+    A batch whose rows do not divide by ``count`` (a group of
+    ``_group_eval_batches`` is at least ``count`` rows, not a multiple of
+    it) is padded up to a multiple with ``_pad_rows``, which adds no pixel to
+    the matrix (JAX replicates such a batch over its chips instead). Other
+    values, the paths, stay whole: the eval step reads only the arrays.
+    """
+    for b in batches:
+        out = {}
+        for k, v in b.items():
+            if isinstance(v, np.ndarray):
+                if len(v) % count:
+                    v = _pad_rows(v, -len(v) % count)
+                v = pmesh.shard_rows(v, index, count)
+            out[k] = v
+        yield out
+
+
 class SemanticSegmentation:
-    """A semantic-segmentation system on one device.
+    """A semantic-segmentation system on one device or across ranks.
 
     Args:
       input_fns: {'train' | 'eval' | 'predict': f(settings, problem_def) ->
@@ -237,14 +270,20 @@ class SemanticSegmentation:
         from iv2019_tpu_torch.train.loop import default_profile_every, train as run_train
 
         s = self._settings
+        # before the input pipelines, which split by rank
+        mesh = multihost.initialize(s)
         os.makedirs(s.log_dir, exist_ok=True)
         settings_path = join(s.log_dir, "settings.txt")
         if exists(settings_path):
             raise FileExistsError(f"Previous settings.txt found in {s.log_dir}. Rename or "
                                   "delete it manually and restart training.")
-        s.dump(settings_path)
-        # code snapshot (reference train.py:38)
-        zipit(os.path.dirname(os.path.abspath(__file__)), join(s.log_dir, "all_code.zip"))
+        if mesh is not None:
+            # every rank has looked before rank 0 writes
+            pmesh.barrier(mesh)
+        if multihost.is_primary():
+            s.dump(settings_path)
+            # code snapshot (reference train.py:38)
+            zipit(os.path.dirname(os.path.abspath(__file__)), join(s.log_dir, "all_code.zip"))
 
         batches = self._input_fns["train"](s, self.training_problem_def)
         model = self._model_fn(s.replace(mode="train"))
@@ -271,10 +310,15 @@ class SemanticSegmentation:
         over ``Neval // Nb`` batches of ``input_fns['eval'](settings,
         evaluation_problem_def)`` (without the void row and column unless
         ``train_void_class``), and the metrics of
-        ``print_metrics_from_confusion_matrix``, which it also prints."""
+        ``print_metrics_from_confusion_matrix``, which rank 0 also prints.
+        Across ranks every rank returns every checkpoint's metrics (see the
+        module docstring)."""
         s = self._settings
-        os.makedirs(self.eval_res_dir, exist_ok=True)
-        s.dump(join(self.eval_res_dir, "settings.txt"))
+        mesh = multihost.initialize(s)
+        primary = multihost.is_primary()
+        if primary:
+            os.makedirs(self.eval_res_dir, exist_ok=True)
+            s.dump(join(self.eval_res_dir, "settings.txt"))
         steps = checkpoint_steps(s)
         model = self._model_fn(s.replace(mode="eval"))
         device = next(model.parameters()).device
@@ -285,22 +329,41 @@ class SemanticSegmentation:
             labels = labels[:-1]
         # one epoch: Neval examples (reference system_factory.py:338-342)
         num_eval_steps = max(int(s.Neval / max(s.Nb, 1)), 1)
-        all_metrics = []
-        for step in steps:
-            print(f"restored {restore_variables(model, s, step)}")
+        hosts, host = (mesh.num_hosts, mesh.host) if mesh else (1, 0)
+        ranks, index = (mesh.local_size, mesh.local_rank) if mesh else (1, 0)
+        cms = {}
+        for i, step in enumerate(steps):
+            if i % hosts != host:
+                continue  # another host's checkpoint
+            restored = restore_variables(model, s, step)
+            if primary:
+                print(f"restored {restored}")
             cm = None
             batches = itertools.islice(self._input_fns["eval"](s, self.evaluation_problem_def),
                                        num_eval_steps)
-            for batch in device_prefetch(_group_eval_batches(batches, 1), device):
+            batches = _rows_of(_group_eval_batches(batches, ranks), index, ranks)
+            for batch in device_prefetch(batches, device):
                 bcm = eval_fn(batch["proimages"], batch["prolabels"])
                 cm = bcm if cm is None else cm + bcm
             if cm is None:
                 raise ValueError("the eval input yielded no batch")
-            cm = cm.cpu().numpy().astype(np.int64)
             # void row/col trim (system_factory.py:399-405)
             if void_exists and not s.train_void_class:
                 cm = cm[:-1, :-1]
+            cms[i] = cm
+        if mesh is not None:
+            # each matrix in its checkpoint's slot, zeros elsewhere; summed in
+            # int64 (the counts pass 2^24, so never in f32)
+            k = len(labels)
+            stack = torch.zeros((len(steps), k, k), dtype=torch.int64, device=device)
+            for i, cm in cms.items():
+                stack[i] = cm
+            pmesh.all_reduce(stack, mesh)
+            cms = dict(enumerate(stack))
+        all_metrics = []
+        for i, step in enumerate(steps):
+            cm = cms[i].cpu().numpy().astype(np.int64)
             metrics = {"global_step": step, "confusion_matrix": cm}
-            metrics.update(print_metrics_from_confusion_matrix(cm, labels, printcmd=True))
+            metrics.update(print_metrics_from_confusion_matrix(cm, labels, printcmd=primary))
             all_metrics.append(metrics)
         return all_metrics

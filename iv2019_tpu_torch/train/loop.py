@@ -1,8 +1,8 @@
 """Training loop: prefetched batches -> train step -> checkpoints, metric
 logs, image summaries and profiler traces.
 
-Port of iv2019_tpu/train/loop.py:42-337 for one process on one device (the
-model's):
+Port of iv2019_tpu/train/loop.py:42-337, on every rank of the run
+(parallel/multihost.py; one rank: the model's device):
 
 - resume from the latest checkpoint in ``log_dir`` or, when ``log_dir``
   has none, warm start from ``init_ckpt_path``; both at once is an error
@@ -18,6 +18,14 @@ model's):
 - SIGTERM: finish the step in flight, save at the true step, return;
 - ``profile_every``: one step traced by ``torch.profiler`` into
   ``log_dir/profile/step_K/trace.json`` every K steps.
+
+With several ranks the state is broadcast from rank 0 after the init, the
+restore or the warm start (JAX ``replicate``); rank 0 alone writes
+checkpoints, metrics, image summaries (only while ``num_processes`` is 1,
+as JAX's while ``process_count()`` is 1), traces and prints; every rank
+waits at a barrier after each checkpoint save; and SIGTERM is decided by
+all ranks at once (a host all-reduce of the flag each step), so no rank
+leaves while the others wait in a collective.
 
 The loop keeps the step count on the host; the device's ``state.step`` is
 read once, at the start. ``fused_optimizer`` picks the optimizer: the fused
@@ -42,6 +50,8 @@ import torch
 from iv2019_tpu_torch.config import Settings
 from iv2019_tpu_torch.input.prefetch import device_prefetch
 from iv2019_tpu_torch.models.model import build_model, init_model
+from iv2019_tpu_torch.parallel import mesh as pmesh
+from iv2019_tpu_torch.parallel import multihost
 from iv2019_tpu_torch.problem.problem_def import load_problem_def
 from iv2019_tpu_torch.train.fused_update import FusedSGDM
 from iv2019_tpu_torch.train.optimizer import make_optimizer
@@ -102,7 +112,8 @@ def _image_summaries(model, batch, palette, weight_masks) -> dict:
     """Colorized decisions and labels of the first per-pixel image, and the
     loss weight masks (reference define_losses_hierarchical.py:140,167,187)."""
     img = batch["proimages_per_pixel"][:1]
-    with torch.no_grad(), statistics_kept(model):
+    # rank 0 alone runs this forward: its BatchNorm takes no collective
+    with torch.no_grad(), statistics_kept(model), pmesh.unsynced_norms():
         decs = model(img)["decisions"][0].cpu().numpy()
     labels = batch["prolabels_per_pixel"][0].cpu().numpy()
     k = len(palette)
@@ -121,6 +132,21 @@ def _device_of(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _state_tensors(state: TrainState, fused_opt: Optional[FusedSGDM]) -> list:
+    """Every tensor of the train state, for the broadcast from rank 0."""
+    model = state.model
+    if fused_opt is not None:
+        opt = state.opt_state
+        out = [fused_opt.params, opt.momentum, opt.ema_biased, opt.ema_decay_product]
+    else:
+        out = [p.data for p in model.parameters()]
+        out += [s["momentum_buffer"] for s in state.opt_state.state.values()
+                if s.get("momentum_buffer") is not None]
+        if state.ema is not None:
+            out += list(state.ema.biased.values()) + [state.ema.decay_product]
+    return out + list(model.buffers()) + [state.step]
+
+
 def train(settings: Settings, batch_iterator: Iterator[dict], model=None, log_every: int = 20,
           profile_every: Optional[int] = None, max_steps: Optional[int] = None,
           image_summaries: bool = True) -> TrainState:
@@ -135,6 +161,8 @@ def train(settings: Settings, batch_iterator: Iterator[dict], model=None, log_ev
     settings = settings.replace(mode="train")
     if settings.optimizer not in ("SGD", "SGDM"):
         raise ValueError(f"unknown optimizer {settings.optimizer}")
+    mesh = multihost.initialize(settings)
+    primary = multihost.is_primary()
     if model is None:
         model = init_model(build_model(settings), torch.Generator().manual_seed(0))
     device = _device_of(model)
@@ -146,7 +174,8 @@ def train(settings: Settings, batch_iterator: Iterator[dict], model=None, log_ev
         tx, lr_fn = make_optimizer(settings, model)
         state = create_train_state(model, tx, settings.ema_decay)
 
-    ckpt = CheckpointManager(settings.log_dir, async_save=settings.async_checkpoints)
+    ckpt = CheckpointManager(settings.log_dir, async_save=settings.async_checkpoints,
+                             primary=primary)
     logger = None
     prev_sigterm = None
     try:
@@ -158,15 +187,19 @@ def train(settings: Settings, batch_iterator: Iterator[dict], model=None, log_ev
             state = ckpt.restore(latest, state, layout)
         elif settings.init_ckpt_path:
             n = warm_start_from_npz(model, settings.init_ckpt_path)
-            print(f"warm start: restored {n} backbone arrays from {settings.init_ckpt_path}")
+            if primary:
+                print(f"warm start: restored {n} backbone arrays from "
+                      f"{settings.init_ckpt_path}")
+        if mesh is not None:
+            pmesh.replicate(_state_tensors(state, fused_opt), mesh)
 
         step_fn = make_train_step(settings, model=model, fused_opt=fused_opt)
-        logger = MetricsLogger(settings.log_dir)
+        logger = MetricsLogger(settings.log_dir) if primary else None
         num_steps = max_steps or settings.num_training_steps
         save_every = settings.save_checkpoints_steps or max(num_steps, 1)
         summary_every = max(settings.save_summaries_steps, 1)
         palette = None
-        if image_summaries:
+        if image_summaries and primary and settings.num_processes == 1:
             palette = load_problem_def(settings.training_problem_def_path).palette()
         images_per_batch = settings.Nb_per_pixel + settings.Nb_per_bbox + settings.Nb_per_image
 
@@ -186,13 +219,19 @@ def train(settings: Settings, batch_iterator: Iterator[dict], model=None, log_ev
         for batch in device_prefetch(batch_iterator, device):
             if step >= num_steps:
                 break
-            if preempted.is_set():
+            stop = preempted.is_set()
+            if mesh is not None:
+                stop = pmesh.host_flag_any(stop, mesh)
+            if stop:
                 ckpt.save(step, state, layout)
                 ckpt.wait_until_finished()
-                print(f"preempted (SIGTERM): saved checkpoint at step {step} and exiting; "
-                      "resume by re-running on this log_dir")
+                if mesh is not None:
+                    pmesh.barrier(mesh)
+                if primary:
+                    print(f"preempted (SIGTERM): saved checkpoint at step {step} and exiting; "
+                          "resume by re-running on this log_dir")
                 break
-            if profile_every and step > 0 and step % profile_every == 0:
+            if primary and profile_every and step > 0 and step % profile_every == 0:
                 profiler = _start_profiler(device)
                 trace_dir = os.path.join(settings.log_dir, "profile", f"step_{step}")
             state, metrics = step_fn(state, {k: v for k, v in batch.items()
@@ -203,7 +242,7 @@ def train(settings: Settings, batch_iterator: Iterator[dict], model=None, log_ev
             if profiler is not None:
                 _stop_profiler(profiler, device, trace_dir)
                 profiler = None
-            if step % log_every == 0 or step == num_steps:
+            if logger is not None and (step % log_every == 0 or step == num_steps):
                 host = {k: float(v) for k, v in metrics.items()}
                 now = time.time()
                 host["learning_rate"] = float(lr_fn(torch.tensor(step, dtype=torch.int64)))
@@ -221,6 +260,8 @@ def train(settings: Settings, batch_iterator: Iterator[dict], model=None, log_ev
                     palette = None
             if step % save_every == 0 or step == num_steps:
                 ckpt.save(step, state, layout)
+                if mesh is not None:
+                    pmesh.barrier(mesh)
                 t_last = time.time()  # checkpoint time is not training throughput
     finally:
         # restore the caller's SIGTERM disposition and flush every writer,
@@ -233,6 +274,9 @@ def train(settings: Settings, batch_iterator: Iterator[dict], model=None, log_ev
         if logger is not None:
             logger.close()
         ckpt.close()
+    if mesh is not None:
+        # every rank returns once rank 0's writes have landed
+        pmesh.barrier(mesh)
     return state
 
 

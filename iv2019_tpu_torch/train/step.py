@@ -56,6 +56,7 @@ from iv2019_tpu_torch.ops.fused_loss import define_losses_fused, fused_loss_avai
 from iv2019_tpu_torch.ops.rasterize import rasterize_bboxes
 from iv2019_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_mxu, resize_nearest
 from iv2019_tpu_torch.ops.segment_ops import gather_cids, remap_probabilities, segment_sum_channels
+from iv2019_tpu_torch.parallel import mesh as pmesh
 from iv2019_tpu_torch.problem.problem_def import load_problem_def, replace_voids
 from iv2019_tpu_torch.problem.taxonomy import get_taxonomy
 from iv2019_tpu_torch.train.fused_update import FusedSGDM
@@ -98,8 +99,8 @@ def _summary_weight_masks(labels, l1_decisions, tax, weak_ix):
     return {"l1_weights": l1_mask, "l2_vehicle_weights": veh, "l2_human_weights": hum}
 
 
-def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGDM] = None
-                    ) -> Callable:
+def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGDM] = None,
+                    mesh=None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     batch: 'proimages_per_pixel' (Npp, H, W, 3), 'proimages_per_bbox',
@@ -130,6 +131,16 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
     which is divided by accum once before the one update; the losses are
     the microbatches' mean, the mIoU comes from their summed confusion
     matrices, and the weight masks from microbatch 0.
+
+    With a ``mesh`` (default: the active one, parallel/mesh.py) each rank
+    takes its rows of each sub-batch (``shard_rows``; of each microbatch in
+    turn) and the step computes what the JAX package's does on the global
+    batch: BatchNorm statistics over it (models/layers.py), losses normalized
+    by its counts, the augmentations drawn for its rows, and one all-reduce
+    (a sum) of the gradient after the microbatches, before the division by
+    accum; on the optax path rank 0 alone differentiates the regularization.
+    The confusion matrix is all-reduced in int64. ``Nb_per_*`` stay global,
+    and each microbatch must divide by the ranks.
     """
     settings = settings.replace(mode="train")
     fused = settings.fused_optimizer
@@ -139,10 +150,20 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
         raise ValueError("fused_optimizer=False (the optax path) takes the model, and no "
                          "FusedSGDM")
     model = model or fused_opt.model
+    mesh = mesh if mesh is not None else pmesh.active()
     lr_fn = make_learning_rate_fn(settings)
     tax = get_taxonomy(settings.per_pixel_dataset_name)
     image_hw = (settings.height_feature_extractor, settings.width_feature_extractor)
     accum = settings.grad_accum_steps
+    if mesh is not None:
+        # each microbatch must shard evenly over the ranks (step.py:161-176)
+        for name in ("Nb_per_pixel", "Nb_per_bbox", "Nb_per_image"):
+            nb = getattr(settings, name)
+            if nb and (nb // accum) % mesh.world:
+                raise ValueError(
+                    f"grad_accum_steps={accum}: microbatch {name}={nb}//"
+                    f"{accum} must divide by the {mesh.world} batch shards of "
+                    "the mesh.")
     # the fused loss runs the model to stride-8 logits only; degenerate
     # supervision mixes and bootstrapped CE (a batch-global sort of the raw
     # L1 losses) take the reference loss on the upsampled logits. Decided
@@ -175,8 +196,12 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
         pp_labels = tensor(batch["prolabels_per_pixel"], torch.int32)
         if augmentations:
             n, h, w = pp_images.shape[:3]
-            draws = draw_augmentations(settings.random_seed, fold, augmentations, n, h, w,
-                                       settings.scaling_poi)
+            # the draws of the global (micro)batch, and this rank's rows of them
+            world, rank = (mesh.world, mesh.rank) if mesh is not None else (1, 0)
+            draws = draw_augmentations(settings.random_seed, fold, augmentations, n * world, h,
+                                       w, settings.scaling_poi)
+            draws = {k: v[rank * n:(rank + 1) * n] if isinstance(v, torch.Tensor) else v
+                     for k, v in draws.items()}
             pp_images, pp_labels = apply_augmentations(pp_images, pp_labels, augmentations,
                                                        draws, unlabeled_cid)
         images = torch.cat([pp_images] + [tensor(batch[k], torch.float32) for k in (
@@ -205,19 +230,26 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
         if use_fused_loss:
             preds = model(images, upsampling_method="no")
             losses = define_losses_fused(preds, labels, tax, images.shape[1:3],
-                                         weak_loss_coefficient=settings.weak_loss_coefficient)
+                                         weak_loss_coefficient=settings.weak_loss_coefficient,
+                                         mesh=mesh)
             decisions = losses["decisions"]
         else:
             preds = model(images)
             losses = define_losses(preds, labels, tax,
                                    weak_loss_coefficient=settings.weak_loss_coefficient,
-                                   bootstrapping_percentage=settings.bootstrapping_percentage)
+                                   bootstrapping_percentage=settings.bootstrapping_percentage,
+                                   mesh=mesh)
             decisions = preds["decisions"]
         if fused:
             losses["total"].backward()
             return losses, decisions, None
         reg = l2_regularization(model.named_parameters(), settings.regularization_weight)
-        (losses["total"] + reg).backward()
+        if mesh is None or mesh.rank == 0:
+            # the parameters are replicated: the gradient all-reduce would
+            # count the regularization's gradient once per rank
+            (losses["total"] + reg).backward()
+        else:
+            losses["total"].backward()
         return losses, decisions, reg.detach()
 
     def _weight_masks(labels, losses, n_pp, n_total):
@@ -272,6 +304,13 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
                     weight_masks = _weight_masks(labels, losses, n_pp, images.shape[0])
             del losses, decisions, images, labels
         with torch.no_grad():
+            if mesh is not None:
+                # the gradient of the global loss: each rank's part, summed
+                if fused:
+                    pmesh.all_reduce(fused_opt.grads, mesh)
+                else:
+                    _all_reduce_grads(params, mesh)
+                pmesh.all_reduce(cm, mesh)
             if accum > 1:
                 if fused:
                     fused_opt.grads.div_(accum)
@@ -305,6 +344,17 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
         return new_state, metrics
 
     return train_step
+
+
+def _all_reduce_grads(params, mesh) -> None:
+    """Sum the parameters' gradients over the ranks as one flat bucket."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    pmesh.all_reduce(flat, mesh)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view(g.shape))
+        offset += g.numel()
 
 
 def settings_eval_map(settings: Settings):

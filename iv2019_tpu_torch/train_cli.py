@@ -5,7 +5,12 @@ Usage:
 
 Port of iv2019_tpu/train_cli.py. Runs on the CUDA card unless given
 ``--device cpu``. Per-dataset constants follow reference train.py:42-68;
-explicit ``--Nb_per_*`` flags win over them.
+explicit ``--Nb_per_*`` flags win over them. ``--num_devices N`` trains
+data-parallel on N ranks, spawned here, one per device (default: every
+visible card); ``--num_processes P --coordinator_address HOST:PORT
+--process_id I`` adds hosts, each started with its own I; ``--num_processes
+0`` takes the ranks torchrun starts (parallel/multihost.py). ``Nb_per_*``
+are the global batch.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import sys
 
 from iv2019_tpu_torch.config import TRAIN, build_argparser, settings_from_args
 from iv2019_tpu_torch.input.heterogeneous import train_input
+from iv2019_tpu_torch.parallel import multihost
 from iv2019_tpu_torch.system import SemanticSegmentation
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -65,8 +71,12 @@ def main(argv):
     args = build_argparser(TRAIN).parse_args(argv)
     settings = settings_from_args(args, TRAIN)
     settings = _apply_sub_batch_overrides(_add_extra_args(settings), args)
-    system = SemanticSegmentation({"train": train_input}, settings=settings)
-    return system.train()
+    return multihost.launch(_train, settings)
+
+
+def _train(settings):
+    """One rank's run (every rank's, when this process is the only one)."""
+    return SemanticSegmentation({"train": train_input}, settings=settings).train()
 
 
 if __name__ == "__main__":

@@ -117,13 +117,17 @@ class CheckpointManager:
     """Step-numbered checkpoints under ``log_dir/checkpoints``.
 
     ``keep``: how many of the newest to keep (None: all). ``async_save``:
-    write in a background thread (see the module docstring).
+    write in a background thread (see the module docstring). ``primary``:
+    whether this rank writes (rank 0 of a data-parallel run; the others'
+    ``save`` does nothing, and every rank restores).
     """
 
-    def __init__(self, log_dir: str, keep: Optional[int] = None, async_save: bool = False):
+    def __init__(self, log_dir: str, keep: Optional[int] = None, async_save: bool = False,
+                 primary: bool = True):
         self._dir = os.path.abspath(os.path.join(log_dir, "checkpoints"))
         os.makedirs(self._dir, exist_ok=True)
         self._keep = keep
+        self._primary = primary
         self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="checkpoint") \
             if async_save else None
         self._pending: list[Future] = []
@@ -132,6 +136,8 @@ class CheckpointManager:
         """Save ``state`` (a TrainState of the fused optimizer with its
         ``layout``, or of the optax path with ``layout`` None) as checkpoint
         ``step``; an existing checkpoint of that step is replaced."""
+        if not self._primary:
+            return
         snap = snapshot(state, layout)
         if snap["step"] != step:
             raise ValueError(f"saving the state of step {snap['step']} as step {step}")

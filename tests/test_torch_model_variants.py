@@ -310,10 +310,15 @@ def test_settings_and_build_model_accept_variant(name):
 
 
 def test_multi_device_settings_stay_refused():
-    for kw in (dict(num_devices=2), dict(num_processes=2), dict(num_slices=2),
-               dict(spatial_partitions=2)):
-        with pytest.raises(NotImplementedError):
-            Settings(device="cpu", learning_rate_decay=0.5, **kw).finalize()
+    # data parallelism is ported (tests/test_torch_parallel.py); spatial
+    # partitions are not, and several processes still need a coordinator
+    for kw in (dict(num_devices=2), dict(num_slices=2),
+               dict(num_processes=2, coordinator_address="h:1")):
+        Settings(device="cpu", learning_rate_decay=0.5, **kw).finalize()
+    with pytest.raises(ValueError, match="coordinator_address"):
+        Settings(device="cpu", learning_rate_decay=0.5, num_processes=2).finalize()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        Settings(device="cpu", learning_rate_decay=0.5, spatial_partitions=2).finalize()
 
 
 @pytest.mark.parametrize("name", list(VARIANTS))

@@ -7,8 +7,8 @@ train_metrics.jsonl record at the last step with finite values, and a
 TensorBoard event file with the scalars and the image summaries. A second
 run on the same directory refuses on settings.txt. The settings the port's
 command line builds agree with the JAX package's for the same arguments,
-and the flags of unported paths are accepted and refused with
-NotImplementedError.
+and the multi-device flags refuse what cannot run (spatial partitions with
+NotImplementedError).
 """
 
 import dataclasses
@@ -102,15 +102,22 @@ def test_cli_settings_match_jax(tmp_path):
     assert got.device == "cuda"  # the card unless --device cpu
 
 
-@pytest.mark.parametrize("flags", [
-    ["--num_slices", "2"],
-    ["--num_processes", "2", "--coordinator_address", "localhost:1"],
-    ["--spatial_partitions", "2"],
-    ["--num_devices", "2"],
+@pytest.mark.parametrize("flags,error,match", [
+    # one device cannot hold two slices (the mesh's layout check)
+    (["--num_slices", "2"], ValueError, "not divisible into 2 slices"),
+    # a global batch of 1 + 1 + 1 cannot split over two processes
+    (["--num_processes", "2", "--coordinator_address", "localhost:1"], ValueError,
+     "must divide by num_processes=2"),
+    (["--spatial_partitions", "2"], NotImplementedError, "ROADMAP.md"),
+    # more devices than are visible
+    (["--device", "cuda", "--num_devices", "99"], ValueError, "CUDA devices are visible"),
 ])
-def test_unported_flags_are_refused(tmp_path, flags):
-    with pytest.raises(NotImplementedError):
+def test_unported_flags_are_refused(tmp_path, flags, error, match):
+    """What the multi-device flags still refuse (they run otherwise:
+    tests/test_torch_distributed_cli.py); nothing is written first."""
+    with pytest.raises(error, match=match):
         train_cli.main([str(tmp_path / "log"), *ARGS, "--device", "cpu", *flags])
+    assert not (tmp_path / "log" / "settings.txt").exists()
 
 
 def test_system_derives_what_the_jax_system_does(tmp_path):

@@ -208,3 +208,47 @@ def loss_inputs_np(tax, seed, n_pp, n_pb, n_pi, h=8, w=16, scale=4):
         "prolabels_per_image": weak(n_pi),
     }
     return lr, labels, (H, W)
+
+
+def run_ranks(scenario, inp, tmp_path, world=2, timeout=120, slices=1, devices=False):
+    """Run ``scenario`` of tests/torch_dist_worker.py on ``world`` gloo ranks
+    (separate processes, meeting at a free localhost port) with the inputs
+    ``inp``; returns each rank's output. With ``devices`` the ranks are
+    those of one process's ``world`` devices, else ``world`` processes. A
+    rank that fails, or a run that outlasts ``timeout`` seconds, fails the
+    test (every rank is killed)."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    from iv2019_tpu_torch.parallel.multihost import free_port
+
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_dist_worker.py")
+    tag = f"{scenario}_w{world}_s{slices}{'_d' if devices else ''}"
+    path = str(tmp_path / f"{tag}_in.pt")
+    torch.save(inp, path)
+    port = free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs, outs = [], []
+    for rank in range(world):
+        out = str(tmp_path / f"{tag}_rank{rank}.pt")
+        outs.append(out)
+        procs.append(subprocess.Popen(
+            [sys.executable, worker, scenario, path, out, "--rank", str(rank), "--world",
+             str(world), "--port", str(port), "--slices", str(slices)]
+            + (["--devices"] if devices else []),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env))
+    logs = []
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1.0))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {rank} exited {p.returncode}:\n{logs[rank]}"
+    return [torch.load(o, weights_only=False) for o in outs]
