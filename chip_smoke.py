@@ -20,8 +20,10 @@ Phases, each of which fails the run on its own:
    (replays of a CUDA graph of one call) stands beside ``ms``. The fused
    units (B4, B5) are also checked, and timed, at the feature maps
    evaluation gives them (``EVAL_MAPS``: TTA scales 0.75 and 1.25, the
-   1024x2048 eval size, batch 2), on each trunk unit the dispatch rule
-   fuses there.
+   1024x2048 eval size, batch 2) and at phase 12's haloed bands
+   (``spatial_band_units``), on each trunk unit the dispatch rule fuses
+   there; B6 with explicit pad rows at ``WGRAD_BAND_SHAPES`` (phase 12's
+   band, timed beside its bound, and two edge cases).
 3. predict: the port's predict path at full ResNet-50 width (Cityscapes
    taxonomy, 512x1024 input, 1024x2048 output, bf16, fused blocks) on
    seeded random weights; checks the kernel launch counts, compares with
@@ -126,6 +128,32 @@ Phases, each of which fails the run on its own:
    line: each kernel's launches in (a), per rank in (b), per process in
    (c).
 
+12. spatial (spatial partitioning, ``spatial_partitions=2``): one spatial
+   group of two gloo ranks sharing the card. (a) The train cell (4 + 8 + 4
+   at 512x1024, full width), each rank the band of 256 rows of the 16
+   images: step 1 in f32 against the single-process step on the global
+   batch with the unfused loss (which the spatial step runs, as JAX's
+   does), its losses and gradient (whole and parameter by parameter) under
+   ``BAR_FACTOR`` times a row permutation's distance; then
+   ``SPATIAL_STEPS`` bf16 steps with B6 on the haloed band: the state
+   bit-equal on both ranks, B3 and B6 once a step, B1/B2 never, halo
+   exchanges in every step; per rank the step ms, device busy, the time in
+   the spatial group's collectives (the halo exchanges: this model has no
+   group norm or PSP) and in the other all-reduces (each timed alone),
+   their counts and bytes, and the peak memory, which must stay below
+   ``SPATIAL_PEAK_RATIO`` of the single-process bf16 step's at the same
+   batch. (b) ``evaluate_cli --num_devices 2 --spatial_partitions 2
+   --fused_block`` on the train run's checkpoint 8 at 1024x2048 (the two
+   ranks of one process's devices, both on cuda:0): B4/B5 launches per rank
+   exact by the dispatch rule on the haloed bands and above 0, each rank's
+   matrix equal integer for integer to the eval step's in one process on
+   the same batches, an image a step, and the decisions of all 8 eval
+   batches equal on every pixel to that process's, an image a forward (the
+   distances to phase 7's batch of 2 in one forward are printed). B4/B5 at the haloed
+   bands' shape and B6 with pad rows at the band's are held to their plain
+   versions in phase 2. ``spatial_launches`` in the kernel line: each
+   kernel's launches per rank in (a) and (b).
+
 The next-to-last line is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it
 exits non-zero and prints no result.
@@ -218,6 +246,10 @@ REPLACES = {
 LOSS_EDGE_SHAPES = [("cityscapes", 0, 3, (5, 9), (37, 67)),
                     ("vistas", 1, 2, (9, 16), (36, 64)),
                     ("vistas", 1, 1, (39, 54), (310, 427))]
+# phase 12: the ranks of a spatial group (gloo, sharing the card), the eval
+# size of its evaluate_cli run (images and labels; the model runs there)
+SPATIAL_RANKS = 2
+SPATIAL_EVAL_SIZE = (1024, 2048)
 # the flagship train step: per-pixel, bbox and image-label images, input size
 TRAIN_NB = (4, 8, 4)
 TRAIN_HW = (512, 1024)
@@ -242,6 +274,15 @@ WGRAD_REL_TOL = 1e-4
 # (16, 64, 256, 512), and of one real-format microbatch (8 images)
 WGRAD_SHAPE = ((sum(TRAIN_NB), 3) + TRAIN_HW, 64, 7)
 MICRO_WGRAD_SHAPE = ((sum(MICRO_NB), 3) + TRAIN_HW, 64, 7)
+# B6 on a band of rows that carries its halo (spatial partitioning),
+# (x_shape, cout, k, channels_last dy, pad_rows): phase 12's per-rank band
+# (16 images, 256 rows + 3 above + 2 below, no pad rows), the same on the
+# general kernel (W = 70), and a band at the image's top with its zero rows
+# given as pad rows instead of a halo
+WGRAD_BAND_SHAPES = [((sum(TRAIN_NB), 3, TRAIN_HW[0] // SPATIAL_RANKS + 5, TRAIN_HW[1]),
+                      64, 7, True, (0, 0)),
+                     ((2, 3, 21, 70), 64, 7, True, (0, 0)),
+                     ((2, 3, 18, 400), 64, 7, False, (3, 0))]
 # the train run: steps of the first run, of the resumed run, checkpoint cadence
 RUN_STEPS, RESUME_STEPS, RUN_SAVE_EVERY = 6, 8, 3
 # evaluation from the train run: examples and batch of the --eval_all_ckpts
@@ -485,6 +526,45 @@ def fused_wrapper(n, h, w, c, m, rate):
     return None
 
 
+def spatial_band_units(ranks=None, n=None, hw=None):
+    """(wrapper, unit, n, h, w, C, M, rate) of every trunk unit the rule
+    fuses on the haloed bands that the ranks of phase 12's eval give it
+    (``fused_band_rows``): at 1024x2048 the stride-8 map's 128 rows split
+    in bands of 64, each grown by its halo to a multiple of 8."""
+    from iv2019_tpu_torch.models.layers import fused_band_rows
+
+    ranks = ranks or SPATIAL_RANKS
+    n = n or EVAL_NB
+    h, w = (d // 8 for d in (hw or SPATIAL_EVAL_SIZE))
+    cases = []
+    for unit, c, m, rate, _ in TRUNK_UNITS:
+        need = fused_band_rows(h // ranks, rate, ranks)
+        for q in range(ranks):
+            a, b = need(q)
+            case = (fused_wrapper(n, b - a, w, c, m, rate), unit, n, b - a, w, c, m, rate)
+            if case[0] is not None and case not in cases:
+                cases.append(case)
+    return cases
+
+
+def spatial_launches_per_forward(ranks=None, n=None, hw=None):
+    """B4 and B5 launches of one forward on each rank of phase 12's eval: a
+    unit runs fused where the rule admits every rank's haloed band."""
+    from iv2019_tpu_torch.models.layers import fused_band_rows
+
+    ranks = ranks or SPATIAL_RANKS
+    n = n or EVAL_NB
+    h, w = (d // 8 for d in (hw or SPATIAL_EVAL_SIZE))
+    out = {"fused_bottleneck": 0, "fused_bottleneck_ct": 0}
+    for _, c, m, rate, units in TRUNK_UNITS:
+        need = fused_band_rows(h // ranks, rate, ranks)
+        names = [fused_wrapper(n, b - a, w, c, m, rate) for a, b in map(need, range(ranks))]
+        if all(names):
+            # this rank's wrapper (rank 0's; the counts are checked per rank)
+            out[names[0]] += units
+    return out
+
+
 def launches_per_forward(n, h, w):
     """B4 and B5 launches of one forward whose trunk feature map is
     (n, h, w), by the dispatch rule: 8 and 2 at 64x128; at larger maps the
@@ -600,10 +680,11 @@ def kernel_phase(device):
             library_device_ms=mean("library_device_ms"), per_shape=rows,
         ))
     for r in results:
-        r["eval_shapes"] = []
+        r["eval_shapes"], r["spatial_band_shapes"] = [], []
     by_name = {r["name"]: r for r in results}
     for row in eval_unit_checks(device):
-        by_name[row["wrapper"]]["eval_shapes"].append(row)
+        key = "spatial_band_shapes" if row["spatial_band"] else "eval_shapes"
+        by_name[row["wrapper"]][key].append(row)
     results.extend(train_kernels(device))
     results.append(wgrad_kernel(device))
     return results
@@ -611,100 +692,116 @@ def kernel_phase(device):
 
 def eval_unit_checks(device):
     """B4/B5 against their plain version at the feature maps evaluation
-    gives them (EVAL_MAPS), on each trunk unit the rule fuses there, with
-    ``ms`` and ``device_ms``."""
+    gives them (EVAL_MAPS) and at phase 12's haloed bands
+    (``spatial_band_units``, rows marked ``spatial_band``), on each trunk
+    unit the rule fuses there, with ``ms``, ``device_ms`` and the bound."""
     from iv2019_tpu_torch.ops import fused_block as fb
 
     rng = np.random.RandomState(5)
-    rows = []
+    cases = []
     for n, h, w in EVAL_MAPS:
         for unit, c, m, rate, _ in TRUNK_UNITS:
             name = fused_wrapper(n, h, w, c, m, rate)
             if name is None:
                 log(f"kernel eval shape {unit} at {n}x{h}x{w}: not fused by the rule")
-                continue
-            wrapper = getattr(fb, name)
-            u = random_unit(rng, c, m, device)
-            x = torch.tensor(rng.normal(0, 1, (n, h, w, c)), dtype=torch.bfloat16, device=device)
-            args = (x, u["w1"], u["b1"], u["w2"], u["b2"], u["w3"], u["b3"])
-            got = wrapper(*args, rate=rate).float()
-            want = fb.bottleneck_plain(*args, rate=rate).float()
-            torch.cuda.synchronize()
-            diff = (got - want).abs()
-            rel = float((diff / want.abs().clamp_min(1.0)).max())
-            flops = 2 * n * h * w * (c * m + 9 * m * m + m * c)
-            nbytes = 2 * x.numel() * 2 + sum(t.numel() * t.element_size() for t in args[1:])
-            b = bound(nbytes, flops, PEAK_BF16_FLOPS)
-            row = dict(wrapper=name, unit=unit, n=n, h=h, w=w, C=c, M=m, rate=rate,
-                       max_abs_err=float(diff.max()), max_rel_err=rel,
-                       ms=time_ms(lambda: wrapper(*args, rate=rate)),
-                       device_ms=device_ms(lambda: wrapper(*args, rate=rate)),
-                       bound_ms=b[0], bound_by=b[1])
-            log(f"kernel eval shape {json.dumps(row)}")
-            if not rel < KERNEL_REL_TOL:
-                raise AssertionError(f"{name} {unit} at {n}x{h}x{w}: max rel err {rel} >= "
-                                     f"{KERNEL_REL_TOL}")
-            rows.append(row)
-            del x, got, want, args, u
+            else:
+                cases.append((name, unit, n, h, w, c, m, rate, False))
+    cases += [case + (True,) for case in spatial_band_units()]
+    rows = []
+    for name, unit, n, h, w, c, m, rate, band in cases:
+        wrapper = getattr(fb, name)
+        u = random_unit(rng, c, m, device)
+        x = torch.tensor(rng.normal(0, 1, (n, h, w, c)), dtype=torch.bfloat16, device=device)
+        args = (x, u["w1"], u["b1"], u["w2"], u["b2"], u["w3"], u["b3"])
+        got = wrapper(*args, rate=rate).float()
+        want = fb.bottleneck_plain(*args, rate=rate).float()
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        rel = float((diff / want.abs().clamp_min(1.0)).max())
+        flops = 2 * n * h * w * (c * m + 9 * m * m + m * c)
+        nbytes = 2 * x.numel() * 2 + sum(t.numel() * t.element_size() for t in args[1:])
+        b = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        row = dict(wrapper=name, unit=unit, n=n, h=h, w=w, C=c, M=m, rate=rate,
+                   spatial_band=band, max_abs_err=float(diff.max()), max_rel_err=rel,
+                   ms=time_ms(lambda: wrapper(*args, rate=rate)),
+                   device_ms=device_ms(lambda: wrapper(*args, rate=rate)),
+                   bound_ms=b[0], bound_by=b[1])
+        log(f"kernel eval shape {json.dumps(row)}")
+        if not rel < KERNEL_REL_TOL:
+            raise AssertionError(f"{name} {unit} at {n}x{h}x{w}: max rel err {rel} >= "
+                                 f"{KERNEL_REL_TOL}")
+        rows.append(row)
+        del x, got, want, args, u
     return rows
 
 
-def wgrad_inputs(x_shape, cout, k, channels_last, seed=0):
+def wgrad_inputs(x_shape, cout, k, channels_last, seed=0, pad_rows=None):
     """x (NCHW view of NHWC bf16 memory, images in [-1, 1)) and dy (bf16,
-    NHWC memory or, with ``channels_last`` False, NCHW contiguous)."""
+    NHWC memory or, with ``channels_last`` False, NCHW contiguous); with
+    ``pad_rows`` (top, bottom) dy has the rows of that padding."""
     gen = torch.Generator("cuda").manual_seed(seed)
     n, c, h, w = x_shape
     x = (torch.rand(x_shape, generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
     x = x.contiguous(memory_format=torch.channels_last)
-    dy = torch.randn((n, cout, h // 2, w // 2), generator=gen, device="cuda").to(torch.bfloat16)
+    oh = h // 2 if pad_rows is None else (h + sum(pad_rows) - k) // 2 + 1
+    dy = torch.randn((n, cout, oh, w // 2), generator=gen, device="cuda").to(torch.bfloat16)
     if channels_last:
         dy = dy.contiguous(memory_format=torch.channels_last)
     return x, dy
 
 
-def compare_wgrad(x_shape, cout, k, channels_last, seed=0):
-    """B6 against its plain version: the largest error, absolute and
-    relative to the largest |dW|, and the launches of the call."""
+def compare_wgrad(x_shape, cout, k, channels_last, seed=0, pad_rows=None):
+    """B6 against its plain version (both with ``pad_rows``): the largest
+    error, absolute and relative to the largest |dW|, and the launches of
+    the call."""
     from iv2019_tpu_torch.ops import root_wgrad as rw
 
-    x, dy = wgrad_inputs(x_shape, cout, k, channels_last, seed)
+    x, dy = wgrad_inputs(x_shape, cout, k, channels_last, seed, pad_rows)
     before = rw.root_conv_wgrad.launches
-    got = rw.root_conv_wgrad(x, dy, k, 2)
+    got = rw.root_conv_wgrad(x, dy, k, 2, pad_rows=pad_rows)
     launches = rw.root_conv_wgrad.launches - before
-    want = rw.root_conv_wgrad_reference(x, dy, k, 2)
+    want = rw.root_conv_wgrad_reference(x, dy, k, 2, pad_rows=pad_rows)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     return dict(shape=list(x_shape), cout=cout, k=k, channels_last_dy=channels_last,
-                max_abs_err=err, rel_err=err / float(want.abs().max()), launches=launches)
+                pad_rows=pad_rows, max_abs_err=err, rel_err=err / float(want.abs().max()),
+                launches=launches)
 
 
-def wgrad_times(x_shape, cout, k, check):
+def wgrad_times(x_shape, cout, k, check, pad_rows=None):
     """B6 at one train shape: two launches bit for bit, and its times
     beside its bound, its plain version's and cuDNN's wgrad of the same conv
-    (``torch.nn.grad.conv2d_weight``, the library call)."""
+    (``torch.nn.grad.conv2d_weight``, the library call). ``pad_rows`` (top,
+    bottom) must be equal: cuDNN pads both sides alike."""
     from iv2019_tpu_torch.ops import root_wgrad as rw
 
-    x, dy = wgrad_inputs(x_shape, cout, k, True)
-    first, second = rw.root_conv_wgrad(x, dy, k, 2), rw.root_conv_wgrad(x, dy, k, 2)
+    x, dy = wgrad_inputs(x_shape, cout, k, True, pad_rows=pad_rows)
+    first = rw.root_conv_wgrad(x, dy, k, 2, pad_rows=pad_rows)
+    second = rw.root_conv_wgrad(x, dy, k, 2, pad_rows=pad_rows)
     if not torch.equal(first, second):
         raise AssertionError(f"root_conv_wgrad: two launches on the same inputs differ at {x_shape}")
     del first, second
-    n, c, h, w = x_shape
-    pixels = n * (h // 2) * (w // 2)
+    n, c = x_shape[:2]
+    pixels = n * dy.shape[2] * dy.shape[3]
     nbytes = x.numel() * 2 + dy.numel() * 2 + cout * c * k * k * 4
     b = bound(nbytes, 2 * k * k * c * cout * pixels, PEAK_BF16_FLOPS)
     w_shape = (cout, c, k, k)
+    pad = (k - 1) // 2
+    padding = pad if pad_rows is None else (pad_rows[0], pad)
     row = dict(
-        shape=list(x_shape), max_abs_err=check["max_abs_err"], rel_err=check["rel_err"],
-        ms=time_ms(lambda: rw.root_conv_wgrad(x, dy, k, 2)),
-        device_ms=device_ms(lambda: rw.root_conv_wgrad(x, dy, k, 2)), bit_equal=True,
-        plain_ms=time_ms(lambda: rw.root_conv_wgrad_reference(x, dy, k, 2), runs=5),
+        shape=list(x_shape), pad_rows=pad_rows, max_abs_err=check["max_abs_err"],
+        rel_err=check["rel_err"],
+        ms=time_ms(lambda: rw.root_conv_wgrad(x, dy, k, 2, pad_rows=pad_rows)),
+        device_ms=device_ms(lambda: rw.root_conv_wgrad(x, dy, k, 2, pad_rows=pad_rows)),
+        bit_equal=True,
+        plain_ms=time_ms(lambda: rw.root_conv_wgrad_reference(x, dy, k, 2, pad_rows=pad_rows),
+                         runs=5),
         bound_ms=b[0], bound_by=b[1],
-        library_ms=time_ms(lambda: torch.nn.grad.conv2d_weight(x, w_shape, dy, 2, (k - 1) // 2)),
+        library_ms=time_ms(lambda: torch.nn.grad.conv2d_weight(x, w_shape, dy, 2, padding)),
         mbytes=nbytes / 1e6, gflop=2 * k * k * c * cout * pixels / 1e9)
-    log(f"kernel root_conv_wgrad {n} images ms {row['ms']:.4f} device {row['device_ms']:.4f} "
-        f"plain {row['plain_ms']:.4f} cudnn {row['library_ms']:.4f} "
-        f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
+    log(f"kernel root_conv_wgrad {x_shape} pad_rows {pad_rows} ms {row['ms']:.4f} "
+        f"device {row['device_ms']:.4f} plain {row['plain_ms']:.4f} "
+        f"cudnn {row['library_ms']:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']})")
     return row
 
 
@@ -713,22 +810,27 @@ def wgrad_kernel(device):
     and at the flagship step's (``train_run_shape``), on the root kernel's
     ragged edge (a 200-pixel row fills no 128-pixel chunk; dy in NCHW
     memory), and on the general kernel (W = 70 is no multiple of 8), dy in
-    NHWC and in NCHW memory; bit-equality and times at the two train
-    shapes."""
+    NHWC and in NCHW memory; with pad rows at WGRAD_BAND_SHAPES (phase 12's
+    haloed band, ``spatial_band_shape``, and two edge cases); bit-equality
+    and times at the two train shapes and at phase 12's band."""
     x_shape, cout, k = WGRAD_SHAPE
     checks = [compare_wgrad(MICRO_WGRAD_SHAPE[0], cout, k, True),
               compare_wgrad(x_shape, cout, k, True),
               compare_wgrad((2, 3, 20, 400), cout, k, False),
               compare_wgrad((2, 3, 36, 70), cout, k, True),
               compare_wgrad((2, 3, 36, 70), cout, k, False)]
-    for check in checks:
+    band_checks = [compare_wgrad(*case[:4], pad_rows=case[4]) for case in WGRAD_BAND_SHAPES]
+    for check in checks + band_checks:
         log(f"kernel root_conv_wgrad {json.dumps(check)}")
-        if not check["rel_err"] <= WGRAD_REL_TOL:
+        if not (check["rel_err"] <= WGRAD_REL_TOL and check["launches"] == 1):
             raise AssertionError(f"root_conv_wgrad departs from its plain version: {check}")
+    band_shape, _, _, _, band_pad = WGRAD_BAND_SHAPES[0]
     return dict(name="root_conv_wgrad", route="cuda", source="iv2019_tpu_torch/csrc/root_wgrad.cu",
                 replaces=REPLACES["root_conv_wgrad"], launches=None,
                 **wgrad_times(MICRO_WGRAD_SHAPE[0], cout, k, checks[0]),
-                train_run_shape=wgrad_times(x_shape, cout, k, checks[1]), per_shape=checks)
+                train_run_shape=wgrad_times(x_shape, cout, k, checks[1]),
+                spatial_band_shape=wgrad_times(band_shape, cout, k, band_checks[0], band_pad),
+                per_shape=checks + band_checks)
 
 
 def bound(nbytes, ops, peak_ops):
@@ -953,14 +1055,16 @@ STEP_GROUPS = (
 )
 
 
-def profile_call(fn, label, p50_ms, top=8, groups=(), root_shape=None):
+def profile_call(fn, label, p50_ms, top=8, groups=(), root_shape=None, host_waits=True):
     """Device time of one call of ``fn`` by kernel (torch.profiler); the wall
     time under the profiler includes its own overhead, so the device's idle
     share is taken against the unprofiled p50. ``groups``: (name, key
     substrings) to sum device time by; the rest is "other". ``root_shape``:
     the images' NCHW shape, to report the device time of the root conv's
     weight gradient (B6's kernels, or cuDNN's convolution backward on that
-    input). Returns the numbers."""
+    input). ``host_waits``: also count, in a second call, where the host
+    waits for the device (not in a gloo rank, whose every collective does).
+    Returns the numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -973,13 +1077,15 @@ def profile_call(fn, label, p50_ms, top=8, groups=(), root_shape=None):
     rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(r[2] for r in rows)
-    # points where the host waits for the device (blocking copies, syncs)
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as syncs:
-        warnings.simplefilter("always")
-        fn()
-    torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
+    syncs = []
+    if host_waits:
+        # points where the host waits for the device (blocking copies, syncs)
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            fn()
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
     out = dict(wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
                kernels=sum(r[1] for r in rows), idle_share=1 - busy_ms / p50_ms,
                host_waits=len(syncs))
@@ -1527,12 +1633,17 @@ def _eval_batches(settings, problem):
                torch.as_tensor(b["prolabels"], device="cuda"))
 
 
-def _step_matrix(settings, model, problem):
-    """The untrimmed matrix of make_eval_step over the run's eval batches."""
+def _step_matrix(settings, model, problem, one_by_one=False):
+    """The untrimmed matrix of make_eval_step over the run's eval batches;
+    with ``one_by_one`` an image a step."""
     from iv2019_tpu_torch.train.step import make_eval_step
 
     step = make_eval_step(settings, model=model)
-    return sum(step(x, lab) for x, lab in _eval_batches(settings, problem)).cpu().numpy()
+    cm = 0
+    for x, lab in _eval_batches(settings, problem):
+        for xi, li in zip(x.split(1), lab.split(1)) if one_by_one else [(x, lab)]:
+            cm = cm + step(xi, li)
+    return cm.cpu().numpy()
 
 
 def _common_argmax_matrix(settings, model, problem, flip):
@@ -2624,14 +2735,16 @@ def nccl_world_one(device):
     return launches
 
 
-def _timed_collectives():
+def _timed_collectives(group=None):
     """Wrap ``torch.distributed``'s all_reduce and broadcast, which the
     port's collectives call, so that each is timed alone: the device is
     synchronized before and after it (the step loses its overlap, so steps
-    are timed without this). Returns the totals and the restore function."""
+    are timed without this). With ``group``, the collectives over that
+    process group are also summed apart (``group_seconds``). Returns the
+    totals and the restore function."""
     import torch.distributed as dist
 
-    timed = {"seconds": 0.0, "largest_bytes": 0, "largest_seconds": 0.0}
+    timed = {"seconds": 0.0, "group_seconds": 0.0, "largest_bytes": 0, "largest_seconds": 0.0}
     originals = dist.all_reduce, dist.broadcast
 
     def wrap(fn):
@@ -2644,6 +2757,8 @@ def _timed_collectives():
                 torch.cuda.synchronize(t.device)
             seconds = time.perf_counter() - t0
             timed["seconds"] += seconds
+            if group is not None and kw.get("group") is group:
+                timed["group_seconds"] += seconds
             if t.numel() * t.element_size() > timed["largest_bytes"]:
                 timed.update(largest_bytes=t.numel() * t.element_size(),
                              largest_seconds=seconds)
@@ -2920,6 +3035,321 @@ def gloo_eval(tmp, sweep):
     return {k: [o["launches"][k] for o in outs] for k in per_ckpt}
 
 
+# ---------------------------------------------------------------- phase 12
+
+# a spatial rank's peak memory against the single-process step's at the same
+# batch (tests/test_spatial_memory.py holds JAX's temp memory under 0.75x at
+# 4 partitions; at 2 the activations halve)
+SPATIAL_PEAK_RATIO = 0.75
+# bf16 steps a spatial rank takes with B6 (the first warms cuDNN up)
+SPATIAL_STEPS = 4
+def _spatial_settings(rank, port, **kw):
+    return _train_settings_full(num_processes=SPATIAL_RANKS, process_id=rank, num_devices=1,
+                                coordinator_address=f"localhost:{port}",
+                                spatial_partitions=SPATIAL_RANKS, **kw)
+
+
+def _spatial_train_rank(rank, port, tmp):
+    """One of the two gloo ranks of phase 12(a): one spatial group on
+    cuda:0, each rank the band of 256 rows of the 16 images."""
+    from iv2019_tpu_torch.parallel import mesh as pmesh
+    from iv2019_tpu_torch.parallel import multihost
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    settings = _spatial_settings(rank, port)
+    mesh = multihost.initialize(settings, backend="gloo")
+    try:
+        batch = multihost.put_sharded(train_batch(np.random.RandomState(0), torch.device("cpu")),
+                                      mesh)
+        opt, state, step = _fused_run(settings.replace(compute_dtype="float32"), mesh)
+        _, m = step(state, batch)
+        f32 = dict(history=[_metrics(m)], grads_digest=_digest([opt.grads]))
+        f32_grads = opt.grads.detach().cpu().clone()
+        del opt, state, step, m
+        torch.cuda.empty_cache()
+
+        opt, state, step = _fused_run(settings, mesh)
+        pmesh.replicate([opt.params] + list(opt.model.buffers()), mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        _reset_counts()
+        history, times, colls = [], [], []
+        for _ in range(SPATIAL_STEPS):
+            pmesh.reset_collective_stats()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            colls.append(pmesh.collective_stats())
+            history.append(_metrics(m))
+        launches = _counts()
+        digests = _state_digest(opt, state)
+        peak = torch.cuda.max_memory_allocated()
+        # one step with every collective timed alone, those over the spatial
+        # group apart: the halo exchanges and, where the model has group norm
+        # or PSP (this one has neither), their spatial sums
+        timed, restore = _timed_collectives(mesh.spatial_group)
+        t0 = time.perf_counter()
+        try:
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        timed_ms = (time.perf_counter() - t0) * 1e3
+        profile = profile_call(lambda: step(state, batch), f"spatial rank {rank} step",
+                               float(np.median(times[1:])), top=6, groups=STEP_GROUPS,
+                               host_waits=False)
+        out = dict(rank=rank, band_rows=TRAIN_HW[0] // SPATIAL_RANKS, f32=f32, history=history,
+                   step_ms=times, step_p50_ms=float(np.median(times[1:])),
+                   timed_step_ms=timed_ms, spatial_group_ms=timed["group_seconds"] * 1e3,
+                   other_collective_ms=(timed["seconds"] - timed["group_seconds"]) * 1e3,
+                   collectives=colls,
+                   launches=launches, digests=digests, peak_gib=peak / 2**30,
+                   step_peak_gib=(peak - before) / 2**30,
+                   device_busy_ms=profile["device_busy_ms"], idle_share=profile["idle_share"])
+        torch.save({"out": out, "f32_grads": f32_grads if rank == 0 else None},
+                   _rank_file(tmp, "spatial_train", rank))
+    finally:
+        multihost.shutdown()
+
+
+def _spatial_references(device):
+    """The single-process steps phase 12(a) is held to, on the global batch:
+    f32 step 1 with the unfused loss (the spatial step's), on the batch and
+    on its rows permuted; and the default bf16 step (fused loss, B6) for the
+    peak memory at the same batch."""
+    settings = _train_settings_full()
+    batch = train_batch(np.random.RandomState(0), device)
+    permuted = {k: torch.flip(v, dims=(0,)) for k, v in batch.items()}
+    ref = {}
+    for name, b in (("global", batch), ("permuted", permuted)):
+        opt, state, step = _fused_run(settings.replace(compute_dtype="float32", fused_loss=False))
+        _, m = step(state, b)
+        ref[name] = (_metrics(m), opt.grads.detach().cpu().clone())
+        ref["layout"] = opt.layout
+        del opt, state, step, m
+        torch.cuda.empty_cache()
+    del permuted
+    opt, state, step = _fused_run(settings)
+    state, _ = step(state, batch)  # a warm-up, as the ranks' first step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ref["single_peak_gib"], ref["single_step_peak_gib"] = peak / 2**30, (peak - before) / 2**30
+    del opt, state, step, batch
+    torch.cuda.empty_cache()
+    return ref
+
+
+def spatial_train(device, tmp):
+    """(a): two gloo ranks, one spatial group, on the train cell at full
+    width: step 1 in f32 against the single-process step (the unfused loss,
+    as the spatial step runs) under BAR_FACTOR times a row permutation's
+    distance, losses and the gradient parameter by parameter; then 3 bf16
+    steps with B6: the state bit-equal on both ranks, B3 and B6 once a step,
+    B1/B2 never; per rank step ms, device busy, peak memory, halo exchanges
+    (count, bytes, ms) against the single-process peak."""
+    from iv2019_tpu_torch.parallel.multihost import free_port
+
+    ref = _spatial_references(device)
+    t0 = time.perf_counter()
+    _spawn_ranks(_spatial_train_rank, (free_port(), tmp), "spatial train")
+    wall_s = time.perf_counter() - t0
+    ranks = [torch.load(_rank_file(tmp, "spatial_train", r), weights_only=False)
+             for r in range(SPATIAL_RANKS)]
+    outs = [r["out"] for r in ranks]
+    (want, want_g), (perm, perm_g) = ref["global"], ref["permuted"]
+    problems, losses = [], {}
+    for k in ("total", "l1_segmentation", "l2_vehicle_segmentation", "l2_human_segmentation",
+              "regularization", "miou"):
+        floor = 1e-3 if k == "miou" else 1e-6 * abs(want[k])
+        bar = BAR_FACTOR * max(abs(perm[k] - want[k]), floor)
+        got = [o["f32"]["history"][0][k] for o in outs]
+        losses[k] = dict(single=want[k], ranks=got, permuted=perm[k], bar=bar)
+        if any(abs(g - want[k]) > bar for g in got):
+            problems.append(f"f32 step-1 {k}: {losses[k]}")
+    got_g = ranks[0]["f32_grads"]
+    grad = dict(ranks=_rel_norm(got_g, want_g), permuted=_rel_norm(perm_g, want_g))
+    grad["bar"] = BAR_FACTOR * max(grad["permuted"], 1e-7)
+    grad["worst_param"] = _worst_param(got_g, want_g, perm_g, ref["layout"])
+    if grad["ranks"] > grad["bar"] or grad["worst_param"]["ratio"] > BAR_FACTOR:
+        problems.append(f"f32 step-1 gradient {grad}")
+    summary = dict(
+        ranks=SPATIAL_RANKS, layout="spatial 2 x data 1", backend="gloo",
+        device="cuda:0 (shared)", wall_s=wall_s, band_rows=outs[0]["band_rows"],
+        step1_f32=dict(losses=losses, grad_rel_norm=grad),
+        single_peak_gib=ref["single_peak_gib"], single_step_peak_gib=ref["single_step_peak_gib"],
+        per_rank=[{k: o[k] for k in ("step_ms", "step_p50_ms", "timed_step_ms", "spatial_group_ms",
+                                     "other_collective_ms", "device_busy_ms", "idle_share",
+                                     "peak_gib", "step_peak_gib", "launches", "collectives")}
+                  for o in outs],
+        equal_state=outs[0]["digests"] == outs[1]["digests"],
+        equal_f32_grads=outs[0]["f32"]["grads_digest"] == outs[1]["f32"]["grads_digest"])
+    log("spatial (a) two gloo ranks, one spatial group, train: " + json.dumps(summary))
+    if not (summary["equal_state"] and summary["equal_f32_grads"]):
+        problems.append("the ranks' state or gradient differ")
+    for o in outs:
+        want_launches = {"fused_loss_fwd": 0, "fused_loss_bwd": 0,
+                         "fused_update": SPATIAL_STEPS, "root_conv_wgrad": SPATIAL_STEPS}
+        if o["launches"] != want_launches:
+            problems.append(f"rank {o['rank']} launches {o['launches']}, expected {want_launches}")
+        if not all(np.isfinite(v) for m in o["history"] for v in m.values()):
+            problems.append(f"rank {o['rank']}: non-finite metrics")
+        if not all(c["halo"] > 0 for c in o["collectives"]):
+            problems.append(f"rank {o['rank']}: a step without halo exchanges")
+        if not o["peak_gib"] < SPATIAL_PEAK_RATIO * ref["single_peak_gib"]:
+            problems.append(f"rank {o['rank']} peak {o['peak_gib']:.2f} GiB, not below "
+                            f"{SPATIAL_PEAK_RATIO} x the single process's "
+                            f"{ref['single_peak_gib']:.2f}")
+    if outs[0]["collectives"] != outs[1]["collectives"]:
+        problems.append("the ranks issued different collectives")
+    if problems:
+        raise AssertionError("spatial train: " + "; ".join(problems))
+    return {k: [o["launches"][k] for o in outs] for k in outs[0]["launches"]}
+
+
+def _spatial_eval_argv(sweep):
+    """evaluate_cli on the train run's checkpoint 8 at SPATIAL_EVAL_SIZE
+    (the model runs there), from phase 7's arguments."""
+    argv = [a for a in sweep["argv"] if a != "--eval_all_ckpts"]
+    return argv + ["--ckpt_path", "8", "--eval_size", *map(str, SPATIAL_EVAL_SIZE)]
+
+
+def _eval_decisions(argv, band_mesh=None, one_by_one=False):
+    """The model's decisions on every eval batch, from checkpoint 8, in
+    order: a rank's band under a spatial mesh; with ``one_by_one`` an image
+    a forward."""
+    from iv2019_tpu_torch.parallel import mesh as pmesh
+
+    settings = _eval_settings(argv)
+    model = _checkpoint_model(settings, settings.log_dir, 8)
+    out = []
+    with torch.inference_mode():
+        for x, _ in _eval_batches(settings, argv[2]):
+            if band_mesh is not None:
+                x = pmesh.shard_height(x, band_mesh)
+            if one_by_one:
+                out += [model(x[i:i + 1])["decisions"].cpu() for i in range(len(x))]
+            else:
+                out.append(model(x)["decisions"].cpu())
+    return torch.cat(out)
+
+
+def _spatial_eval_rank(rank, port, argv, tmp):
+    """One of the two ranks of phase 12(b): evaluate_cli --num_devices 2
+    --spatial_partitions 2, the ranks of one process's devices sharing
+    cuda:0 over gloo."""
+    from iv2019_tpu_torch import evaluate_cli
+    from iv2019_tpu_torch.config import Settings
+    from iv2019_tpu_torch.parallel import multihost
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = multihost.initialize(
+        Settings(device="cuda", num_devices=SPATIAL_RANKS, spatial_partitions=SPATIAL_RANKS,
+                 coordinator_address=f"localhost:{port}"),
+        backend="gloo", local_rank=rank, device="cuda:0")
+    try:
+        _reset_fb()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = evaluate_cli.main(argv)
+        wall_s = time.perf_counter() - t0
+        launches = _fb_counts()
+        decisions = _eval_decisions(argv, mesh)
+        torch.save(dict(matrices=[(m["global_step"], m["confusion_matrix"]) for m in metrics],
+                        mean_iou=metrics[0]["mean_iou"], launches=launches, wall_s=wall_s,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                        decisions=decisions),
+                   _rank_file(tmp, "spatial_eval", rank))
+    finally:
+        multihost.shutdown()
+
+
+def spatial_eval(tmp, sweep):
+    """(b): evaluate_cli --num_devices 2 --spatial_partitions 2 --fused_block
+    on checkpoint 8 at 1024x2048: B4/B5 launches per rank exact and > 0;
+    each rank's matrix equal integer for integer to the eval step's in one
+    process over the same batches an image at a time, from a fresh model
+    holding the checkpoint, and the decisions of every eval batch equal on
+    every pixel to that model's, an image a forward. That reference, and not phase 7's batch of 2 in one
+    forward, because cuDNN picks its bf16 conv algorithms by problem size,
+    and a band of both images is the size of one whole image: the batch of
+    2 differs from its own images one at a time on 5961 of the first
+    batch's 4.19M pixels at this checkpoint (on the H100, near-ties at the
+    images' tops and bottoms, none at the cut). The distances to the batch
+    of 2 (differing pixels, matrix entries, mIoU) are printed."""
+    from iv2019_tpu_torch.parallel.multihost import free_port
+
+    argv = _spatial_eval_argv(sweep)
+    metrics, single = _run_evaluate(argv)
+    batch_cm, batch_miou = metrics[0]["confusion_matrix"], metrics[0]["mean_iou"]
+    settings = _eval_settings(argv)
+    want_cm = _step_matrix(settings, _checkpoint_model(settings, settings.log_dir, 8), argv[2],
+                           one_by_one=True)[:-1, :-1]
+    batch_decisions = _eval_decisions(argv)
+    want_decisions = _eval_decisions(argv, one_by_one=True)
+    torch.cuda.empty_cache()
+    spatial_argv = argv + ["--num_devices", str(SPATIAL_RANKS), "--spatial_partitions",
+                           str(SPATIAL_RANKS)]
+    t0 = time.perf_counter()
+    _spawn_ranks(_spatial_eval_rank, (free_port(), spatial_argv, tmp), "spatial eval")
+    wall_s = time.perf_counter() - t0
+    outs = [torch.load(_rank_file(tmp, "spatial_eval", r), weights_only=False)
+            for r in range(SPATIAL_RANKS)]
+    per_forward = spatial_launches_per_forward()
+    forwards = EVAL_NEVAL // EVAL_NB
+    want_launches = {k: v * forwards for k, v in per_forward.items()}
+    decisions = torch.cat([o["decisions"] for o in outs], dim=1)
+    if decisions.shape != want_decisions.shape:
+        raise AssertionError(f"spatial eval: decisions of shape {tuple(decisions.shape)}, "
+                             f"expected {tuple(want_decisions.shape)}")
+    differ = (decisions != want_decisions).flatten(1).sum(1).tolist()
+    problems = []
+    if sum(differ):
+        problems.append(f"decisions differ from one image a forward on {differ} pixels an image")
+    for r, o in enumerate(outs):
+        (_, cm), = o["matrices"]
+        if o["launches"] != want_launches or min(o["launches"].values()) <= 0:
+            problems.append(f"rank {r}: launches {o['launches']}, expected {want_launches}")
+        if cm.dtype != np.int64 or not np.array_equal(cm, want_cm):
+            problems.append(f"rank {r}: a {cm.dtype} matrix {int(np.abs(cm - want_cm).sum())} "
+                            f"entries off one process's, an image a step")
+    (_, cm0), = outs[0]["matrices"]
+    out = dict(ranks=SPATIAL_RANKS, eval_size=list(SPATIAL_EVAL_SIZE), wall_s=wall_s,
+               single=single, single_mean_iou=batch_miou,
+               per_rank=[{k: o[k] for k in ("launches", "wall_s", "peak_gib", "mean_iou")}
+                         for o in outs],
+               launches_expected=want_launches, pixels=want_decisions.numel(),
+               differing_pixels_per_image=differ,
+               matrices_equal_one_by_one=bool(np.array_equal(cm0, want_cm)),
+               differing_from_the_batch_of_2=int((decisions != batch_decisions).sum()),
+               batch_of_2_differing_from_one_by_one=int((batch_decisions != want_decisions).sum()),
+               matrix_entries_from_the_batch_of_2=int(np.abs(cm0 - batch_cm).sum()),
+               mean_iou_from_the_batch_of_2=float(outs[0]["mean_iou"] - batch_miou))
+    log("spatial (b) evaluate_cli --num_devices 2 --spatial_partitions 2: " + json.dumps(out))
+    if problems:
+        raise AssertionError("spatial eval: " + "; ".join(problems))
+    return {k: [o["launches"][k] for o in outs] for k in per_forward}
+
+
+def spatial_phase(device, tmp, sweep):
+    """Phase 12 (see the module docstring); returns each kernel's launches
+    per rank on the spatial train and eval paths."""
+    torch.cuda.empty_cache()
+    train = spatial_train(device, tmp)
+    torch.cuda.empty_cache()
+    evaluation = spatial_eval(tmp, sweep)
+    out = {k: {"train_ranks": v} for k, v in train.items()}
+    out.update({k: {"eval_ranks": v} for k, v in evaluation.items()})
+    return out
+
+
 def multirank_phase(device, tmp, sweep):
     """Phase 11 (see the module docstring); returns the launches of each
     kernel per run and rank."""
@@ -2988,8 +3418,13 @@ def _phases(work):
     # this slice's path: data parallelism (NCCL at one rank, two gloo ranks
     # on the card for training and for the evaluation sweep)
     multirank_launches = multirank_phase(device, work, sweep)
+    torch.cuda.empty_cache()
+    # this slice's path: spatial partitioning (one spatial group of two gloo
+    # ranks on the card, training and evaluate_cli)
+    spatial_launches = spatial_phase(device, work, sweep)
     for r in results:
         r["multirank_launches"] = multirank_launches[r["name"]]
+        r["spatial_launches"] = spatial_launches[r["name"]]
         if r["name"] == "fused_loss_fwd":
             r["vistas_shape"] = vistas[0]
         if r["name"] == "fused_loss_bwd":

@@ -18,10 +18,12 @@ switches ``conv_impl``, ``bn_impl``, ``dilation_mode`` and ``root_conv_s2d``
 compute the same function as their defaults in the JAX package, and the
 port runs its one path for every value; ``enable_xla`` and ``distribute``
 are kept for parity and do nothing. Multi-device and multi-process runs
-(``num_devices``, ``num_processes``, ``num_slices``; the train and evaluate
-command lines) run one rank per device (parallel/multihost.py);
-``validate()`` keeps the JAX package's checks of them and raises
-``NotImplementedError`` for ``spatial_partitions`` > 1, which is not ported.
+(``num_devices``, ``num_processes``, ``num_slices``, ``spatial_partitions``;
+the train and evaluate command lines) run one rank per device
+(parallel/multihost.py); ``validate()`` keeps the JAX package's checks of
+them, and refuses a height that does not divide by 8 x
+``spatial_partitions`` (JAX's comment states the rule, and its
+``shard_batch`` replicates such images silently instead).
 """
 
 from __future__ import annotations
@@ -148,8 +150,8 @@ class Settings:
     # the ranks of the run (parallel/multihost.py): num_devices per launch
     # (None: every visible CUDA device when an entry point launches the
     # ranks, one when a caller starts its own), num_processes launches (0:
-    # torchrun);
-    # spatial_partitions is not ported (validate() raises)
+    # torchrun); spatial_partitions P > 1 splits image height over P ranks
+    # (H must divide by 8 P)
     num_devices: Optional[int] = None
     num_slices: int = 1
     spatial_partitions: int = 1
@@ -307,9 +309,14 @@ class Settings:
             raise ValueError(f"num_devices must be >= 1, got {self.num_devices}")
         if self.num_slices < 1:
             raise ValueError(f"num_slices must be >= 1, got {self.num_slices}")
-        if self.spatial_partitions != 1:
-            raise NotImplementedError("spatial_partitions > 1 is not ported to the PyTorch "
-                                      "package yet (ROADMAP.md queue A)")
+        if self.spatial_partitions < 1:
+            raise ValueError(f"spatial_partitions must be >= 1, got {self.spatial_partitions}")
+        if self.spatial_partitions > 1:
+            for name, h in (("height_feature_extractor", self.height_feature_extractor),
+                            ("eval_size", (self.eval_size or (0,))[0])):
+                if h % (8 * self.spatial_partitions):
+                    raise ValueError(f"{name} height {h} must divide by 8 x spatial_partitions "
+                                     f"= {8 * self.spatial_partitions}")
 
     def finalize(self) -> "Settings":
         """Fill the derived fields; returns a new Settings (iv2019_tpu/config.py:423-486,
@@ -382,11 +389,9 @@ def _add_system_arguments(p: argparse.ArgumentParser) -> None:
 
 
 def _add_train_system_arguments(p: argparse.ArgumentParser) -> None:
-    """The training flags of iv2019_tpu/config.py:504-539 (``spatial_partitions``
-    is accepted and refused by validate())."""
+    """The training flags of iv2019_tpu/config.py:504-539."""
     p.add_argument("--enable_xla", action="store_true", default=True)
     _add_parallel_arguments(p)
-    p.add_argument("--spatial_partitions", type=int, default=1)
     p.add_argument("--remat", action="store_true")
     p.add_argument("--grad_accum_steps", type=int, default=1)
     p.add_argument("--async_checkpoints", action=argparse.BooleanOptionalAction, default=True,
@@ -403,6 +408,8 @@ def _add_parallel_arguments(p: argparse.ArgumentParser) -> None:
     p.add_argument("--num_devices", type=int, default=None,
                    help="ranks to spawn, one per CUDA device (default: every visible one)")
     p.add_argument("--num_slices", type=int, default=1)
+    p.add_argument("--spatial_partitions", type=int, default=1,
+                   help="ranks that split each image's height (H must divide by 8 x this)")
     p.add_argument("--coordinator_address", type=str, default="",
                    help="multi-host: host:port where the ranks meet")
     p.add_argument("--num_processes", type=int, default=1,

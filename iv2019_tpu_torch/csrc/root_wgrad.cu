@@ -7,6 +7,9 @@
 //
 // with p = (K - 1) / 2, zero padding, bf16 operands and f32 accumulation. x
 // and dy are NHWC bf16; dW is written OIHW f32 (the port's weight layout).
+// Along H the caller may give the pad rows above x (``pad_top``; those below
+// follow from OH): a band of rows that carries its halo from the other ranks
+// of a spatial group has none, and the input row is then 2 oh + kh.
 //
 // What bounds it on the H100: bytes. At the flagship train step x is 50 MB
 // and dy 268 MB, for 39.5 GFLOP (147 taps x 64 outputs x 2.1M pixels): 124
@@ -194,7 +197,7 @@ __device__ inline void wgmma_wait() {
 }
 
 struct RootShape {
-  int oh, chunks_per_row, chunks_per_block, total_chunks;
+  int oh, pad_top, chunks_per_row, chunks_per_block, total_chunks;
 };
 
 // The two rings and their barriers. Chunk i of a block uses raw stage
@@ -254,7 +257,7 @@ wgrad_root_kernel(const __grid_constant__ CUtensorMap dymap, const __grid_consta
         if (i >= kRawStages) mbar_wait_or_trap(r.raw_empty(i), Rings::raw_round(i) ^ 1);
         mbar_expect_tx(r.raw_full(i), kDyBytes + kSlabBytes);
         tma_3d(r.dy(i), dymap, r.raw_full(i), 0, ow0, row);
-        tma_3d(r.slab(i), xmap, r.raw_full(i), 3 * ow0 / 2 - 6, 2 * oh - 3, n);
+        tma_3d(r.slab(i), xmap, r.raw_full(i), 3 * ow0 / 2 - 6, 2 * oh - s.pad_top, n);
       }
       for (int i = max(0, count - kRawStages); i < count; ++i)
         mbar_wait_or_trap(r.raw_empty(i), Rings::raw_round(i));
@@ -401,7 +404,7 @@ using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::ro
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 struct Shape {
-  int h, w, c, oh, ow, cout, k;
+  int h, w, c, oh, ow, cout, k, pad_top;
   int taps, taps_pad, cout_pad;
   int chunks_per_row, chunks_per_block, total_chunks;
 };
@@ -428,7 +431,7 @@ __device__ __forceinline__ void fetch(const Shape& s, const unsigned short* __re
   const int K = s.k, C = s.c;
   int n, r, ow0;
   chunk_origin(s, chunk, n, r, ow0);
-  // x: K input rows 2r - pad + kh; columns 2*ow0 - pad + j, j < xs_w; (j, c)
+  // x: K input rows 2r - pad_top + kh; columns 2*ow0 - pad + j, j < xs_w; (j, c)
   // is contiguous in NHWC, so consecutive threads read consecutive values
   const int row_elems = (2 * kKP + K - 1) * C;
   const int col0 = 2 * ow0 - (K - 1) / 2;
@@ -438,7 +441,7 @@ __device__ __forceinline__ void fetch(const Shape& s, const unsigned short* __re
     unsigned short v = 0;
     if (e < K * row_elems) {
       const int kh = e / row_elems, rem = e % row_elems;
-      const int ih = 2 * r - (K - 1) / 2 + kh, iw = col0 + rem / C;
+      const int ih = 2 * r - s.pad_top + kh, iw = col0 + rem / C;
       if (ih >= 0 && ih < s.h && iw >= 0 && iw < s.w)
         v = x[((static_cast<long long>(n) * s.h + ih) * s.w + iw) * C + rem % C];
     }
@@ -578,9 +581,10 @@ __global__ void wgrad_general_reduce_kernel(const float* __restrict__ partial,
 }
 
 int run_root(const void* x, const void* dy, float* dw, float* partial, int n, int h, int w, int oh,
-             int ow, int blocks, cudaStream_t st) {
+             int ow, int pad_top, int blocks, cudaStream_t st) {
   RootShape s;
   s.oh = oh;
+  s.pad_top = pad_top;
   s.chunks_per_row = (ow + kP - 1) / kP;
   const long long chunks = static_cast<long long>(n) * oh * s.chunks_per_row;
   if (chunks >= (1LL << 31) - blocks) return -2;
@@ -609,9 +613,9 @@ int run_root(const void* x, const void* dy, float* dw, float* partial, int n, in
 }
 
 int run_general(const void* x, const void* dy, float* dw, float* partial, int n, int h, int w,
-                int c, int oh, int ow, int cout, int k, int blocks, cudaStream_t st) {
+                int c, int oh, int ow, int cout, int k, int pad_top, int blocks, cudaStream_t st) {
   Shape s;
-  s.h = h, s.w = w, s.c = c, s.oh = oh, s.ow = ow, s.cout = cout, s.k = k;
+  s.h = h, s.w = w, s.c = c, s.oh = oh, s.ow = ow, s.cout = cout, s.k = k, s.pad_top = pad_top;
   s.taps = k * k * c;
   s.taps_pad = (s.taps + 15) / 16 * 16;
   s.cout_pad = (cout + 15) / 16 * 16;
@@ -648,24 +652,26 @@ long long iv_root_wgrad_scratch(int c, int cout, int k, int blocks) {
 }
 
 // x (n, h, w, c) and dy (n, oh, ow, cout) bf16 NHWC, contiguous; dw (cout,
-// c, k, k) f32; partial >= iv_root_wgrad_scratch floats. root: 1 runs the
+// c, k, k) f32; partial >= iv_root_wgrad_scratch floats; pad_top zero rows
+// above x ((k - 1) / 2 for conv2d_same). root: 1 runs the
 // root conv's wgmma kernel, 0 the general one (ops/root_wgrad.py::_plan
 // decides, by the rule repeated here). -1: taps or outputs over the general
 // kernel's tile (K*K*C > 160 or Cout > 64); -2: the staged x rows over their
 // buffer (K*C*(127+K) > 2880), or 2^31 chunks or more; -4: ``root`` set for
 // a shape the root kernel does not take; -5: a tensor map cannot be encoded.
 int iv_root_wgrad(const void* x, const void* dy, void* dw, void* partial, int n, int h, int w,
-                  int c, int oh, int ow, int cout, int k, int blocks, int root, void* stream) {
+                  int c, int oh, int ow, int cout, int k, int pad_top, int blocks, int root,
+                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (root) {
     if (k != 7 || c != 3 || cout != kCout || w % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
         reinterpret_cast<uintptr_t>(dy) % 16)
       return -4;
     return run_root(x, dy, static_cast<float*>(dw), static_cast<float*>(partial), n, h, w, oh, ow,
-                    blocks, st);
+                    pad_top, blocks, st);
   }
   return run_general(x, dy, static_cast<float*>(dw), static_cast<float*>(partial), n, h, w, c, oh,
-                     ow, cout, k, blocks, st);
+                     ow, cout, k, pad_top, blocks, st);
 }
 
 }  // extern "C"

@@ -18,6 +18,9 @@ from the run's settings.txt; pass the input size
 ``--process_id`` sweep across ranks as training does (system.py); rank 0
 alone prints and writes, and the call returns the metrics in the process
 that ran rank 0 when it ran in this process (None after a spawn).
+``--spatial_partitions S`` splits each image's height over groups of S of
+one process's ``--num_devices`` ranks (plain eval only: TTA, windows and
+several processes refuse it, as in the JAX package).
 """
 
 from __future__ import annotations

@@ -13,10 +13,10 @@ input_vistas.py):
 
 With ``settings.synthetic_data``, random batches of the same shapes and
 dtypes (``synthetic_train_batches``, ``synthetic_eval_batches``), the same
-numbers as the JAX package's for the same seed. Across ranks each rank's
-train pipeline reads every ``process_count``-th record, from its own
-(parallel/multihost.py::shard_records); evaluation reads every record on
-every rank.
+numbers as the JAX package's for the same seed. Across ranks each batch
+shard's train pipeline reads every ``data_count``-th record, from its own
+(parallel/multihost.py::shard_records; the ranks of a spatial group read
+the same ones); evaluation reads every record on every rank.
 """
 
 from __future__ import annotations

@@ -7,9 +7,10 @@ train step concatenates them on the device). Sub-batch sizes follow
 ``Nb_per_pixel`` / ``Nb_per_bbox`` / ``Nb_per_image`` with the per-type
 aspect policies; the pipelines take seeds ``seed``, ``seed + 1`` and
 ``seed + 2``. ``Nb_per_image = 0`` gives the two-way variant. Across ranks
-``Nb_per_*`` are the global batch: each rank's pipelines make
-``Nb_per_* / process_count`` examples from their own stride of the records,
-seeded ``seed + 7919 * process_index`` (parallel/multihost.py).
+``Nb_per_*`` are the global batch: each batch shard's pipelines make
+``Nb_per_* / data_count`` examples from their own stride of the records,
+seeded ``seed + 7919 * data_index`` (parallel/multihost.py): the ranks of a
+spatial group read the same stream and hold the same images.
 """
 
 from __future__ import annotations
@@ -43,14 +44,14 @@ def train_input(settings: Settings, problem_def: ProblemDef,
     'imageids_per_image', 'rawimagespaths', 'rawlabelspaths'}."""
     if seed is None:
         seed = settings.input_seed
-    if multihost.process_count() > 1:
+    if multihost.data_count() > 1:
         settings = settings.replace(
             Nb_per_pixel=multihost.local_share(settings.Nb_per_pixel),
             Nb_per_bbox=multihost.local_share(settings.Nb_per_bbox),
             Nb_per_image=multihost.local_share(settings.Nb_per_image))
-        # decorrelate shuffle order and random crops across processes
+        # decorrelate shuffle order and random crops across batch shards
         if seed is not None:
-            seed = seed + 7919 * multihost.process_index()
+            seed = seed + 7919 * multihost.data_index()
     pp_iter = per_pixel_train_input(
         settings.replace(Nb=settings.Nb_per_pixel,
                          preserve_aspect_ratio=settings.preserve_aspect_ratio_per_pixel),

@@ -139,7 +139,7 @@ def bbox_train_input(settings: Settings, seed: Optional[int] = None) -> Iterator
             make_rng(index))
         return {"proimages": proimage, "prolabels": prolabel, "imageids": imageid}
 
-    # each process keeps a disjoint stride of the images
+    # each batch shard keeps a disjoint stride of the images
     items = core.shuffle_repeat(lambda: shard_records(imageid2bboxes.items()), seed=seed)
     for batch in core.batched(core.parallel_map(_pre, enumerate(items)), settings.Nb):
         batch["proimages"] = core.from_0_1_to_m1_1(batch["proimages"])

@@ -3,9 +3,11 @@
 Port of iv2019_tpu/input/prefetch.py. A producer thread drains the host
 pipeline and copies each batch's numpy arrays to the device ahead of the
 consumer, so the copy of step N+1 overlaps the compute of step N. Across
-ranks the device is the rank's and the batch its own rows, which no one
-splits further: JAX's check that a process's rows divide by its devices
-(prefetch.py:46-60) has nothing to check with one device a process.
+ranks the device is the rank's and the batch its batch shard's rows, which
+no one splits further by rows: JAX's check that a process's rows divide by
+its devices (prefetch.py:46-60) has nothing to check with one device a
+process. Under spatial partitioning the images stay whole here; the train
+and eval steps take the rank's band of rows on the device.
 
 For a CUDA device the producer copies each array into pinned host memory
 and issues a ``non_blocking`` copy on a side stream, then records an event

@@ -26,6 +26,15 @@ as ``conv.weight`` (OIHW) and ``norm/BatchNorm/<leaf>`` as ``norm.<leaf>``
   eligible identity unit runs as one kernel (ops/fused_block.py) under the
   JAX package's dispatch rule, in eval mode under batch norm only (the
   kernels fold the running statistics into the convs).
+
+When the active mesh splits image height (``parallel.mesh.spatial_mesh``)
+every tensor here is a band of rows of the global map, and each op with a
+spatial extent takes its halo from the other ranks of the group: a conv
+the rows its outputs read beyond the band, by the padding of
+``same_padding`` (zeros past the image's edges), then no padding along H;
+group norm sums its statistics over the group; a fused unit runs its
+kernel on the band and the halo of its dilated 3x3 (``BottleneckV1``).
+BatchNorm needs nothing more: its sums already run over every rank.
 """
 
 from __future__ import annotations
@@ -82,7 +91,12 @@ class Norm(nn.Module):
         if self.norm_type == "none":
             return x
         if self.norm_type == "group":
-            y = F.group_norm(x.float(), self.num_groups, self.scale, self.bias, self.epsilon)
+            mesh = pmesh.spatial_mesh()
+            if mesh is not None:
+                y = _group_norm_bands(x.float(), self.num_groups, self.scale, self.bias,
+                                      self.epsilon, mesh)
+            else:
+                y = F.group_norm(x.float(), self.num_groups, self.scale, self.bias, self.epsilon)
             return y.to(x.dtype)
         if self.training:
             return self._train(x)
@@ -123,6 +137,23 @@ class Norm(nn.Module):
                 self.mean.mul_(self.decay).add_(mean, alpha=1.0 - self.decay)
                 self.var.mul_(self.decay).add_(var, alpha=1.0 - self.decay)
         return y.to(x.dtype)
+
+
+def _group_norm_bands(x: torch.Tensor, groups: int, scale, bias, eps: float, mesh):
+    """Group norm of images split by height: each (image, group)'s sum and
+    sum of squares over the band, summed over the spatial group (flax's
+    E[x^2] - E[x]^2). Autograd carries the statistics' gradient back
+    through ``spatial_sum``, whose backward sums it over the group. A map
+    every rank of the group holds whole (PSP's pooled bins) counts P times
+    in the sums and in the count alike."""
+    n, c, h, w = x.shape
+    xg = x.reshape(n, groups, c // groups, h, w)
+    sums = pmesh.spatial_sum(torch.stack([xg.sum((2, 3, 4)), (xg * xg).sum((2, 3, 4))]), mesh)
+    count = (c // groups) * h * w * mesh.spatial
+    mean = sums[0] / count
+    var = torch.clamp_min(sums[1] / count - mean * mean, 0.0)
+    xhat = (xg - mean[..., None, None, None]) * torch.rsqrt(var + eps)[..., None, None, None]
+    return xhat.reshape(n, c, h, w) * scale[:, None, None] + bias[:, None, None]
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
@@ -171,9 +202,20 @@ class _GlobalBatchNorm(torch.autograd.Function):
 
 def conv_same(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, rate: int = 1,
               groups: int = 1) -> torch.Tensor:
-    """conv2d_same in the dtype of x, no bias."""
-    lo, hi = same_padding(weight.shape[-1], rate)
+    """conv2d_same in the dtype of x, no bias. On a band of rows (spatial
+    partitioning) the rows above it are the ``lo`` of the padding and the
+    rows below are what the band's last output reads, ``keff - stride -
+    lo``; the band starts on a multiple of the stride."""
+    k = weight.shape[-1]
+    lo, hi = same_padding(k, rate)
     w = weight.to(x.dtype)
+    mesh = pmesh.spatial_mesh()
+    if mesh is not None and k > 1:
+        keff = k + (k - 1) * (rate - 1)
+        x = pmesh.halo(x, lo, keff - stride - lo, mesh)
+        if lo != hi:
+            return F.conv2d(F.pad(x, (lo, hi)), w, stride=stride, dilation=rate, groups=groups)
+        return F.conv2d(x, w, stride=stride, padding=(0, lo), dilation=rate, groups=groups)
     if lo != hi:
         return F.conv2d(F.pad(x, (lo, hi, lo, hi)), w, stride=stride, dilation=rate,
                         groups=groups)
@@ -206,6 +248,23 @@ class ConvNormRelu(nn.Module):
         """(kernel, bias) with the norm folded in, both f32 (kernel OIHW)."""
         n = self.norm
         return fb.fold_bn(self.conv.weight, n.scale, n.bias, n.mean, n.var, n.epsilon)
+
+
+def fused_band_rows(h: int, rate: int, spatial: int):
+    """rank -> the rows [start, stop) of the global map each of ``spatial``
+    ranks runs a fused unit's kernel on: its band of ``h`` rows and ``rate``
+    rows past each cut, none at the image's edges (the kernel's zero padding
+    of y1 is the conv's there), grown at a cut to a multiple of 8 rows, the
+    row tile the dispatch rule asks heights to divide by."""
+    def need(q):
+        start = q * h - (rate if q > 0 else 0)
+        stop = (q + 1) * h + (rate if q < spatial - 1 else 0)
+        grow = -(stop - start) % 8
+        if q < spatial - 1:
+            return start, min(stop + grow, spatial * h)
+        return max(start - grow, 0), stop
+
+    return need
 
 
 class BottleneckV1(nn.Module):
@@ -249,7 +308,19 @@ class BottleneckV1(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, _, h, w = x.shape
-        kernel = self.fused_kernel(n, h, w)
+        mesh = pmesh.spatial_mesh()
+        if mesh is not None:
+            # every rank takes the same path (a halo exchange is collective):
+            # fused only if the rule admits every rank's rows
+            need = fused_band_rows(h, self.rate, mesh.spatial)
+            kernels = [self.fused_kernel(n, b - a, w) for a, b in map(need, range(mesh.spatial))]
+            if all(k is not None for k in kernels):
+                start = mesh.spatial_index * h - need(mesh.spatial_index)[0]
+                out = self._fused(kernels[mesh.spatial_index], pmesh.gather_rows(x, mesh, need))
+                return out.narrow(2, start, h).contiguous(memory_format=torch.channels_last)
+            kernel = None
+        else:
+            kernel = self.fused_kernel(n, h, w)
         if kernel is not None:
             return self._fused(kernel, x)
         if self.depth_in == self.depth:

@@ -25,6 +25,13 @@ Public tensors are NHWC, like the JAX package's: ``forward`` takes
 ``hierarchical_common_probabilities`` turns the three heads' distributions
 into one over the common label space (models/model.py:42-73), the
 distribution that test-time augmentation and sliding windows average.
+
+Under spatial partitioning (parallel/mesh.py) ``forward`` takes a rank's
+band of image rows and returns its band of every output: the trunk and heads
+exchange halos (models/layers.py, resnet.py), PSP sums each bin's rows over
+the group and resizes its bins back to the band's rows, the hybrid
+upsampler's 3x3 takes a halo, and the x8 upsample reads the stride-8 rows
+its band's outputs map to, wherever they lie (``ops/resize.py::resize_band``).
 """
 
 from __future__ import annotations
@@ -40,8 +47,9 @@ from torch import nn
 from iv2019_tpu_torch.config import Settings
 from iv2019_tpu_torch.models.layers import BottleneckV1, ConvNormRelu, Norm
 from iv2019_tpu_torch.models.resnet import FEATURE_EXTRACTOR_BLOCKS, RESNET50_BLOCKS, ResNetV1
-from iv2019_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_mxu
+from iv2019_tpu_torch.ops.resize import resize_band, resize_bilinear, resize_bilinear_mxu
 from iv2019_tpu_torch.ops.segment_ops import gather_cids, segment_sum_channels
+from iv2019_tpu_torch.parallel import mesh as pmesh
 from iv2019_tpu_torch.problem.taxonomy import Taxonomy, get_taxonomy
 
 __all__ = ["ConvTranspose", "HierarchicalSegmentationModel", "PSPModule", "build_model",
@@ -97,15 +105,39 @@ class PSPModule(nn.Module):
         self.conv_final = ConvNormRelu(cin + len(self.DIVS) * features, features, 1, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = pmesh.spatial_mesh()
         h, w = x.shape[2], x.shape[3]
+        rows = None
+        if mesh is not None:
+            # the bins span the global height; each rank holds its band
+            rows = (mesh.spatial_index * h, (mesh.spatial_index + 1) * h)
+            h *= mesh.spatial
         branches = [x]
         for d in self.DIVS:
             ph, pw = h // d, w // d
-            conv = self.get_submodule(f"conv{d}")(F.avg_pool2d(x, (ph, pw), (ph, pw)))
-            up = resize_bilinear(conv.permute(0, 2, 3, 1), (h, w), align_corners=True)
+            if mesh is None:
+                pooled = F.avg_pool2d(x, (ph, pw), (ph, pw))
+            else:
+                pooled = _band_avg_pool(x, ph, pw, rows[0], h, mesh)
+            conv = self.get_submodule(f"conv{d}")(pooled)
+            up = resize_bilinear(conv.permute(0, 2, 3, 1), (h, w), align_corners=True, rows=rows)
             branches.append(up.permute(0, 3, 1, 2).to(x.dtype))
         cat = torch.cat(branches, 1).contiguous(memory_format=torch.channels_last)
         return self.conv_final(cat)
+
+
+def _band_avg_pool(x: torch.Tensor, ph: int, pw: int, first: int, h: int, mesh) -> torch.Tensor:
+    """'VALID' average pools of window = stride = (ph, pw) over a map of
+    ``h`` rows split by height: the band (rows [first, first + x rows)) sums
+    its rows of each bin by two f32 matrix products with 0/1 membership
+    matrices, and the spatial group adds the sums; every rank of the group
+    then holds the (N, C, h // ph, w // pw) pooled map whole."""
+    band, w = x.shape[2], x.shape[3]
+    rows_of = torch.arange(first, first + band) // ph
+    by_h = (torch.arange(h // ph)[:, None] == rows_of[None, :]).float()
+    by_w = (torch.arange(w // pw)[:, None] == torch.arange(w)[None, :] // pw).float()
+    sums = by_h.to(x.device) @ (x.float() @ by_w.t().to(x.device))
+    return (pmesh.spatial_sum(sums, mesh) / (ph * pw)).to(x.dtype)
 
 
 class ConvTranspose(nn.Module):
@@ -123,8 +155,12 @@ class ConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype),
-                        padding=1)
+        mesh = pmesh.spatial_mesh()
+        x = x.to(self.dtype)
+        if mesh is not None:
+            return F.conv2d(pmesh.halo(x, 1, 1, mesh), self.weight.to(self.dtype),
+                            self.bias.to(self.dtype), padding=(0, 1))
+        return F.conv2d(x, self.weight.to(self.dtype), self.bias.to(self.dtype), padding=1)
 
 
 class HierarchicalSegmentationModel(nn.Module):
@@ -214,7 +250,10 @@ class HierarchicalSegmentationModel(nn.Module):
         overrides the model's for this call ("no": stride-8 outputs)."""
         tax = self.taxonomy
         method = upsampling_method or self.upsampling_method
+        mesh = pmesh.spatial_mesh()
         hf, wf = images.shape[1], images.shape[2]
+        if mesh is not None:
+            hf *= mesh.spatial  # the global height; the outputs are this rank's band
         # NHWC -> NCHW view in channels_last memory
         x = self.get_submodule("feature_extractor/base")(images.permute(0, 3, 1, 2))
         for name in self.extension:
@@ -228,7 +267,9 @@ class HierarchicalSegmentationModel(nn.Module):
                     f"softmax_classifier/{head}_logits/upsampling/conv_transpose")(logits)
             # contiguous NHWC (the fused heads' logits are channel slices)
             logits = logits.permute(0, 2, 3, 1).float().contiguous()
-            if method != "no":
+            if method != "no" and mesh is not None:
+                logits = resize_band(logits, (hf, wf), mesh)
+            elif method != "no":
                 logits = resize_bilinear_mxu(logits, (hf, wf), align_corners=True)
             preds[f"{head}_logits"] = logits
             preds[f"{head}_probabilities"] = torch.softmax(logits, dim=3)

@@ -10,6 +10,12 @@ height and width is kernel B6 (ops/root_wgrad.py) instead of the library's
 (``RootConvPallasWgrad``, resnet.py:206-257); the parameter stays
 ``conv1.conv.weight``.
 
+On a band of image rows (spatial partitioning, parallel/mesh.py) the root
+conv takes 3 rows from above and 2 from below through a halo exchange (the
+image's edges give zeros) and runs with no padding along H; B6 then gets
+the haloed band with no pad rows. The max pool takes one row from below
+(-inf past the image's bottom: TF 'SAME' pads only there for even H).
+
 With ``remat`` each bottleneck unit runs under
 ``torch.utils.checkpoint`` when autograd records it (``nn.remat``,
 resnet.py:330-339): the backward recomputes the unit's activations from
@@ -28,6 +34,7 @@ from torch import nn
 
 from iv2019_tpu_torch.models.layers import BottleneckV1, Conv, Norm, conv_same, same_padding
 from iv2019_tpu_torch.ops.root_wgrad import root_conv_wgrad, wgrad_supported
+from iv2019_tpu_torch.parallel import mesh as pmesh
 
 __all__ = [
     "FEATURE_EXTRACTOR_BLOCKS",
@@ -79,18 +86,31 @@ def unit_plan(blocks: Sequence[tuple[int, int, int]], output_stride: int):
 
 
 def max_pool_same(x: torch.Tensor, window: int = 3, stride: int = 2) -> torch.Tensor:
-    """TF 'SAME' max pooling: for even sizes only bottom and right pad."""
+    """TF 'SAME' max pooling: for even sizes only bottom and right pad. On a
+    band of rows the padding is that of the global height, and the rows the
+    band's outputs read past it come from the group (the pad rows, -inf,
+    belong to the image's edges)."""
     h, w = x.shape[2], x.shape[3]
-    pad_h = max((-(-h // stride) - 1) * stride + window - h, 0)
+    mesh = pmesh.spatial_mesh()
     pad_w = max((-(-w // stride) - 1) * stride + window - w, 0)
-    x = F.pad(x, (pad_w // 2, pad_w - pad_w // 2, pad_h // 2, pad_h - pad_h // 2),
-              value=float("-inf"))
+    if mesh is not None:
+        gh = h * mesh.spatial
+        top = max((-(-gh // stride) - 1) * stride + window - gh, 0) // 2
+        x = pmesh.halo(x, top, window - stride - top, mesh, fill=float("-inf"))
+        x = F.pad(x, (pad_w // 2, pad_w - pad_w // 2), value=float("-inf"))
+    else:
+        pad_h = max((-(-h // stride) - 1) * stride + window - h, 0)
+        x = F.pad(x, (pad_w // 2, pad_w - pad_w // 2, pad_h // 2, pad_h - pad_h // 2),
+                  value=float("-inf"))
     return F.max_pool2d(x, window, stride).contiguous(memory_format=torch.channels_last)
 
 
 class _RootConvWgrad(torch.autograd.Function):
     """conv2d_same whose weight gradient is kernel B6 where it applies
     (``_root_conv_pallas_wgrad``, resnet.py:206-234).
+
+    ``pad_rows``: zero rows above and below x, default conv2d_same's (0 on
+    a band that carries its halo).
 
     Takes x and the kernel in the compute dtype, as the JAX custom VJP does
     (the cast of the f32 parameter stays outside, so its backward carries
@@ -101,25 +121,31 @@ class _RootConvWgrad(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, weight, stride):
+    def forward(ctx, x, weight, stride, pad_rows=None):
+        pad, _ = same_padding(weight.shape[-1], 1)
+        pad_rows = pad if pad_rows is None else pad_rows
         ctx.save_for_backward(x, weight)
-        ctx.stride = stride
-        return conv_same(x, weight, stride=stride)
+        ctx.stride, ctx.pad_rows = stride, pad_rows
+        return F.conv2d(x, weight, stride=stride, padding=(pad_rows, pad))
 
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
-        k, stride = weight.shape[-1], ctx.stride
+        k, stride, rows = weight.shape[-1], ctx.stride, ctx.pad_rows
         pad, _ = same_padding(k, 1)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = torch.nn.grad.conv2d_input(x.shape, weight, dy, stride=stride, padding=pad)
+            dx = torch.nn.grad.conv2d_input(x.shape, weight, dy, stride=stride,
+                                            padding=(rows, pad))
         if ctx.needs_input_grad[1]:
-            if x.dtype == torch.bfloat16 and wgrad_supported(x.shape, dy.shape, k, stride):
-                dw = root_conv_wgrad(x, dy, kernel_size=k, stride=stride).to(weight.dtype)
+            if x.dtype == torch.bfloat16 and wgrad_supported(x.shape, dy.shape, k, stride,
+                                                             (rows, rows)):
+                dw = root_conv_wgrad(x, dy, kernel_size=k, stride=stride,
+                                     pad_rows=(rows, rows)).to(weight.dtype)
             else:
-                dw = torch.nn.grad.conv2d_weight(x, weight.shape, dy, stride=stride, padding=pad)
-        return dx, dw, None
+                dw = torch.nn.grad.conv2d_weight(x, weight.shape, dy, stride=stride,
+                                                 padding=(rows, pad))
+        return dx, dw, None, None
 
 
 class _RootConv(nn.Module):
@@ -133,9 +159,15 @@ class _RootConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        if self.wgrad_kernel and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
-            return _RootConvWgrad.apply(x, self.conv.weight.to(self.dtype), 2)
-        return conv_same(x, self.conv.weight, stride=2)
+        if not (self.wgrad_kernel and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0):
+            return conv_same(x, self.conv.weight, stride=2)
+        mesh = pmesh.spatial_mesh()
+        pad, _ = same_padding(self.conv.weight.shape[-1], 1)
+        if mesh is None:
+            return _RootConvWgrad.apply(x, self.conv.weight.to(self.dtype), 2, pad)
+        # the band's halo (zeros past the image's edges) and no pad rows
+        x = pmesh.halo(x, pad, self.conv.weight.shape[-1] - 2 - pad, mesh)
+        return _RootConvWgrad.apply(x, self.conv.weight.to(self.dtype), 2, 0)
 
 
 def _remat(unit: nn.Module, x: torch.Tensor) -> torch.Tensor:

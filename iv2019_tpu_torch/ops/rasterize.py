@@ -68,12 +68,16 @@ def rasterize_bboxes_pyloop(cids, boxes, height: int, width: int) -> np.ndarray:
 
 
 def rasterize_bboxes(cids: torch.Tensor, boxes: torch.Tensor, height: int,
-                     width: int) -> torch.Tensor:
+                     width: int, rows=None) -> torch.Tensor:
     """(N, height, width, 15) f32 multinomials of padded box lists, on the
     tensors' device.
 
     cids: (N, K) int weak class ids, padding -1; boxes: (N, K, 4) f32
-    normalized (xmin, xmax, ymin, ymax).
+    normalized (xmin, xmax, ymin, ymax). ``rows`` (a, b): only image rows
+    [a, b), (N, b - a, width, 15), the same bits as those rows of the whole
+    (a band under spatial partitioning): each valid box's rows are clamped
+    to the band, so a box above or below it scatters +1 and -1 into one
+    cell, which cancel exactly.
     """
     n, k = cids.shape
     cids = cids.to(torch.int64)
@@ -88,7 +92,10 @@ def rasterize_bboxes(cids: torch.Tensor, boxes: torch.Tensor, height: int,
     x1 = (edge(1, width) + 1).clamp(0, width)
     valid = (cids >= 0) & (cids < NUM_WEAK_CLASSES) & (y1 > y0) & (x1 > x0)
     cid = torch.where(valid, cids, 0)
-    y0, y1 = torch.where(valid, y0, height), torch.where(valid, y1, height)
+    a, b = rows or (0, height)
+    y0 = torch.where(valid, y0.clamp(a, b) - a, b - a)
+    y1 = torch.where(valid, y1.clamp(a, b) - a, b - a)
+    height = b - a
     x0, x1 = torch.where(valid, x0, width), torch.where(valid, x1, width)
 
     c = NUM_WEAK_CLASSES

@@ -5,7 +5,10 @@ The counterpart of iv2019_tpu/ops/pallas_wgrad.py::root_conv_wgrad::
     dW[o, c, kh, kw] = sum_{n, oh, ow} x[n, c, 2 oh + kh - p, 2 ow + kw - p] * dy[n, o, oh, ow]
 
 for the conv2d_same 7x7/2 root conv (p = (k - 1) / 2, zero padding), with x
-and dy rounded to bf16 and f32 accumulation.
+and dy rounded to bf16 and f32 accumulation. ``pad_rows`` (top, bottom)
+replaces p along H: a band of rows that carries its halo (spatial
+partitioning, models/resnet.py) has none, ``(0, 0)``; OH is then
+(H + top + bottom - k) / 2 + 1.
 
 The port's tensors are NCHW (in ``channels_last`` memory) and its kernels
 OIHW, so ``root_conv_wgrad`` takes x (N, C, H, W) and dy (N, Cout, H/2, W/2)
@@ -70,6 +73,7 @@ class _Plan:
     """The launch plan of B6: which kernel, its chunks and its blocks."""
 
     root: bool            # the wgmma/TMA kernel; else the general one
+    pad_top: int          # zero rows above x
     pixels: int           # output pixels per chunk
     chunks_per_row: int
     chunks: int           # n * oh * chunks_per_row, each within one output row
@@ -90,14 +94,18 @@ class _Plan:
         input column and row of the slab's first value."""
         n, r, ow0 = self.chunk(q, oh)
         column = 2 * ow0 + _ROOT_SLAB_COLUMN
-        return {"dy": (0, ow0, n * oh + r), "x": (3 * column // 4, 2 * r - 3, n),
-                "slab_origin": (column, 2 * r - 3)}
+        row = 2 * r - self.pad_top
+        return {"dy": (0, ow0, n * oh + r), "x": (3 * column // 4, row, n),
+                "slab_origin": (column, row)}
 
 
-def _plan(x_shape, cout: int, kernel_size: int, sms: int, aligned: bool = True) -> _Plan:
-    """x_shape (N, C, H, W); ``aligned``: x and dy start on 16-byte boundaries."""
+def _plan(x_shape, cout: int, kernel_size: int, sms: int, aligned: bool = True,
+          pad_rows=None) -> _Plan:
+    """x_shape (N, C, H, W); ``aligned``: x and dy start on 16-byte
+    boundaries; ``pad_rows``: (top, bottom), default conv2d_same's."""
     n, c, h, w = x_shape
-    oh, ow = h // 2, w // 2
+    top, bottom = _pad_rows(kernel_size, pad_rows)
+    oh, ow = (h + top + bottom - kernel_size) // 2 + 1, w // 2
     root = kernel_size == 7 and c == 3 and cout == 64 and w % 8 == 0 and aligned
     pixels = _ROOT_PIXELS if root else _GENERAL_PIXELS
     per_row = -(-ow // pixels)
@@ -105,28 +113,38 @@ def _plan(x_shape, cout: int, kernel_size: int, sms: int, aligned: bool = True) 
     per_block = -(-chunks // max(1, min(chunks, sms if root else _GENERAL_BLOCKS_PER_SM * sms)))
     blocks = -(-chunks // per_block)  # no block without a chunk
     taps_pad = -(-kernel_size * kernel_size * c // 16) * 16
-    return _Plan(root=root, pixels=pixels, chunks_per_row=per_row, chunks=chunks, blocks=blocks,
+    return _Plan(root=root, pad_top=top, pixels=pixels, chunks_per_row=per_row, chunks=chunks, blocks=blocks,
                  chunks_per_block=per_block,
                  partial_floats=blocks * taps_pad * (-(-cout // 16) * 16),
                  smem_bytes=_ROOT_SMEM if root else 0)
 
 
-def wgrad_supported(x_shape, dy_shape, kernel_size: int, stride: int) -> bool:
-    """Whether the kernel computes this wgrad: x (N, C, H, W), dy (N, Cout, OH, OW)."""
+def _pad_rows(kernel_size: int, pad_rows):
+    p = (kernel_size - 1) // 2
+    return (p, p) if pad_rows is None else tuple(pad_rows)
+
+
+def wgrad_supported(x_shape, dy_shape, kernel_size: int, stride: int, pad_rows=None) -> bool:
+    """Whether the kernel computes this wgrad: x (N, C, H, W), dy (N, Cout,
+    OH, OW); with the default pad rows H must be even, as W always."""
     _, _, h, w = x_shape
     _, _, oh, ow = dy_shape
-    return (stride == 2 and kernel_size % 2 == 1 and h % 2 == 0 and w % 2 == 0
-            and oh == h // 2 and ow == w // 2)
+    top, bottom = _pad_rows(kernel_size, pad_rows)
+    return (stride == 2 and kernel_size % 2 == 1 and w % 2 == 0 and ow == w // 2
+            and (h % 2 == 0 or pad_rows is not None) and min(top, bottom) >= 0
+            and oh == (h + top + bottom - kernel_size) // 2 + 1)
 
 
 def root_conv_wgrad_reference(x: torch.Tensor, dy: torch.Tensor, kernel_size: int = 7,
-                              stride: int = 2) -> torch.Tensor:
-    """The plain version: im2row of the bf16-rounded x, times the bf16-rounded
-    dy, in f32. Returns (Cout, C, k, k) f32."""
+                              stride: int = 2, pad_rows=None) -> torch.Tensor:
+    """The plain version: im2row of the bf16-rounded x (zero pad rows and
+    columns), times the bf16-rounded dy, in f32. Returns (Cout, C, k, k) f32."""
     n, c = x.shape[:2]
     cout = dy.shape[1]
-    cols = F.unfold(x.to(torch.bfloat16).float(), kernel_size, padding=(kernel_size - 1) // 2,
-                    stride=stride)  # (N, C*k*k, OH*OW), rows in (c, kh, kw) order
+    p = (kernel_size - 1) // 2
+    top, bottom = _pad_rows(kernel_size, pad_rows)
+    xp = F.pad(x.to(torch.bfloat16).float(), (p, p, top, bottom))
+    cols = F.unfold(xp, kernel_size, stride=stride)  # (N, C*k*k, OH*OW), rows in (c, kh, kw) order
     if cols.shape[2] != dy.shape[2] * dy.shape[3]:
         raise ValueError(f"dy {tuple(dy.shape)} is not the conv output of x {tuple(x.shape)}")
     d = dy.to(torch.bfloat16).float().reshape(n, cout, -1)
@@ -135,13 +153,14 @@ def root_conv_wgrad_reference(x: torch.Tensor, dy: torch.Tensor, kernel_size: in
 
 
 def root_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, kernel_size: int = 7,
-                    stride: int = 2) -> torch.Tensor:
-    """dW (Cout, C, k, k) f32 of the stride-2 conv2d_same conv; see the module docstring."""
+                    stride: int = 2, pad_rows=None) -> torch.Tensor:
+    """dW (Cout, C, k, k) f32 of the stride-2 conv2d_same conv (``pad_rows``
+    (top, bottom) zero rows instead of its own); see the module docstring."""
     if x.device.type == "cpu":
-        return root_conv_wgrad_reference(x, dy, kernel_size, stride)
+        return root_conv_wgrad_reference(x, dy, kernel_size, stride, pad_rows)
     if x.device.type != "cuda" or dy.device != x.device:
         raise ValueError(f"root_conv_wgrad: x on {x.device}, dy on {dy.device}")
-    if not wgrad_supported(x.shape, dy.shape, kernel_size, stride):
+    if not wgrad_supported(x.shape, dy.shape, kernel_size, stride, pad_rows):
         raise ValueError(f"root_conv_wgrad: no kernel for x {tuple(x.shape)}, dy "
                          f"{tuple(dy.shape)}, k={kernel_size}, stride={stride}")
     n, c, h, w = x.shape
@@ -154,7 +173,7 @@ def root_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, kernel_size: int = 7,
     lib = _build.load("root_wgrad")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = _plan(x.shape, cout, kernel_size, sms,
-                 aligned=xh.data_ptr() % 16 == 0 and dyh.data_ptr() % 16 == 0)
+                 aligned=xh.data_ptr() % 16 == 0 and dyh.data_ptr() % 16 == 0, pad_rows=pad_rows)
     lib.iv_root_wgrad_scratch.argtypes = [ctypes.c_int] * 4
     lib.iv_root_wgrad_scratch.restype = ctypes.c_longlong
     if lib.iv_root_wgrad_scratch(c, cout, kernel_size, plan.blocks) != plan.partial_floats:
@@ -162,12 +181,12 @@ def root_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, kernel_size: int = 7,
     partial = torch.empty(plan.partial_floats, dtype=torch.float32, device=x.device)
     dw = torch.empty((cout, c, kernel_size, kernel_size), dtype=torch.float32, device=x.device)
     fn = lib.iv_root_wgrad
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     # the CUDA runtime's current device is per thread: launch on the tensors'
     with torch.cuda.device(x.device):
         err = fn(xh.data_ptr(), dyh.data_ptr(), dw.data_ptr(), partial.data_ptr(), n, h, w, c,
-                 oh, ow, cout, kernel_size, plan.blocks, int(plan.root),
+                 oh, ow, cout, kernel_size, plan.pad_top, plan.blocks, int(plan.root),
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"root_conv_wgrad (x {tuple(x.shape)}, dy {tuple(dy.shape)}): "

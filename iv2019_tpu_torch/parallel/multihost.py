@@ -25,9 +25,19 @@ How the settings start the ranks (``initialize``):
   asked for (then a group of one rank).
 
 The backend is NCCL for CUDA tensors and gloo for the CPU; ``backend``
-overrides it (two gloo ranks can share one card, which NCCL refuses). A
-group that cannot start raises: nothing falls back to one process or to
-another backend.
+overrides it (two gloo ranks can share one card, which NCCL refuses, and
+``device`` then names the card). A group that cannot start raises: nothing
+falls back to one process or to another backend. With
+``spatial_partitions`` P every rank also makes the process group of each
+spatial group (P adjacent ranks), in the same order.
+
+The input of a run is read per batch shard: the P ranks of a spatial group
+read the same stream (seed ``s + 7919 * data_index``, every
+``batch_shards``-th record from ``data_index``) and hold the same images,
+whose bands they take (``data_index``, ``data_count``). Without spatial
+partitioning a batch shard is a rank. One stream per launch, split by
+rows as JAX's single process does, would cost each rank the decode of the
+whole launch's batch, and the training run is host-bound.
 """
 
 from __future__ import annotations
@@ -42,9 +52,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from iv2019_tpu_torch.parallel.mesh import Mesh, active, create_mesh, set_active, shard_rows
+from iv2019_tpu_torch.parallel.mesh import (Mesh, active, create_mesh, set_active, shard_rows,
+                                            spatial_groups)
 
 __all__ = [
+    "data_count",
+    "data_index",
     "free_port",
     "initialize",
     "is_primary",
@@ -82,15 +95,17 @@ def local_devices(settings) -> int:
 
 
 def initialize(settings=None, backend: Optional[str] = None, local_rank: int = 0,
-               init_method: Optional[str] = None) -> Optional[Mesh]:
+               init_method: Optional[str] = None, device=None) -> Optional[Mesh]:
     """Start this rank's process group and make its mesh the active one
     (``mesh.active``: one per process, as the process group is; a second
     call returns the mesh of the first).
 
     ``local_rank``: the rank's index on its host (``launch`` passes it);
     ``init_method``: where the ranks meet (default: the coordinator, or
-    torchrun's environment). Returns None for one process of one device
-    without a ``backend``.
+    torchrun's environment); ``device``: the rank's CUDA device when not
+    ``cuda:<local_rank>`` (gloo ranks that share a card; ``num_devices`` is
+    then the host's ranks, not its cards). Returns None for one process of
+    one device without a ``backend``.
     """
     if active() is not None:
         return active()
@@ -106,8 +121,12 @@ def initialize(settings=None, backend: Optional[str] = None, local_rank: int = 0
         init_method = init_method or "env://"
     else:
         # None: the count launch resolved and passes on, else this process's
-        # one device
-        local_size = 1 if settings.num_devices is None else local_devices(settings)
+        # one device; with ``device`` given, the ranks share cards and the
+        # count is as given
+        if settings.num_devices is None:
+            local_size = 1
+        else:
+            local_size = settings.num_devices if device is not None else local_devices(settings)
         if not 0 <= local_rank < local_size:
             raise ValueError(f"local rank {local_rank} outside [0, {local_size})")
         world = settings.num_processes * local_size
@@ -130,13 +149,13 @@ def initialize(settings=None, backend: Optional[str] = None, local_rank: int = 0
         else:
             init_method = f"tcp://localhost:{free_port()}"
     if settings.device == "cuda":
-        if not torch.cuda.is_available() or local_rank >= torch.cuda.device_count():
-            raise RuntimeError(f"rank {rank} needs cuda:{local_rank}, and "
+        device = torch.device(device) if device is not None else torch.device("cuda", local_rank)
+        if not torch.cuda.is_available() or device.index >= torch.cuda.device_count():
+            raise RuntimeError(f"rank {rank} needs {device}, and "
                                f"{torch.cuda.device_count()} CUDA devices are visible")
         # the CUDA runtime's current device is per thread: the kernels launch
         # on it (ops/*.py put each launch under its tensor's device too)
-        torch.cuda.set_device(local_rank)
-        device = torch.device("cuda", local_rank)
+        torch.cuda.set_device(device)
     else:
         device = torch.device("cpu")
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
@@ -146,9 +165,17 @@ def initialize(settings=None, backend: Optional[str] = None, local_rank: int = 0
                             timeout=datetime.timedelta(minutes=10))
     # host-side flags and barriers go through gloo, off the device's stream
     cpu_group = dist.new_group(backend="gloo") if backend != "gloo" else None
+    spatial_group = None
+    if settings.spatial_partitions > 1:
+        # every rank makes every group, in the same order
+        for ranks in spatial_groups(world, settings.spatial_partitions):
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                spatial_group = group
     mesh = create_mesh(world, rank, local_rank=local_rank, local_size=local_size, device=device,
                        num_slices=settings.num_slices,
-                       spatial_partitions=settings.spatial_partitions, cpu_group=cpu_group)
+                       spatial_partitions=settings.spatial_partitions, cpu_group=cpu_group,
+                       spatial_group=spatial_group)
     set_active(mesh)
     return mesh
 
@@ -172,7 +199,10 @@ def launch(fn: Callable, settings, *args):
     """``fn(settings, *args)`` on every rank of this host. With one local
     device it runs in this process and its value is returned; with more,
     each rank is a spawned process (``fn`` must be a module-level function),
-    this call returns None when all have ended, and raises if one failed."""
+    this call returns None when all have ended, and raises if one failed.
+    In a rank already started (``initialize``) it runs ``fn`` there."""
+    if active() is not None:
+        return fn(settings, *args)
     n = local_devices(settings) if settings.num_processes != 0 else 1
     if n == 1:
         return fn(settings, *args)
@@ -200,34 +230,46 @@ def is_primary() -> bool:
     return process_index() == 0
 
 
+def data_index() -> int:
+    """This rank's batch shard (its spatial group; the rank without one)."""
+    return active().data_index if active() is not None else 0
+
+
+def data_count() -> int:
+    """The batch shards of the run: the ranks over the spatial factor."""
+    return active().batch_shards if active() is not None else 1
+
+
 def local_share(n_global: int, what: str = "batch size") -> int:
-    """Per-process item count: global // process_count, exact division."""
-    pc = process_count()
+    """Per-batch-shard item count: global // data_count, exact division."""
+    pc = data_count()
     div, mod = divmod(n_global, pc)
     if mod:
-        raise ValueError(f"global {what} {n_global} not divisible by {pc} processes.")
+        raise ValueError(f"global {what} {n_global} not divisible by {pc} batch shards.")
     return div
 
 
 def shard_records(it: Iterable, index: Optional[int] = None,
                   count: Optional[int] = None) -> Iterator:
-    """Record k of a stream goes to process ``k % count``."""
-    index = process_index() if index is None else index
-    count = process_count() if count is None else count
+    """Record k of a stream goes to batch shard ``k % count``."""
+    index = data_index() if index is None else index
+    count = data_count() if count is None else count
     if count == 1:
         return iter(it)
     return itertools.islice(iter(it), index, None, count)
 
 
 def put_sharded(batch: dict, mesh: Mesh, accum: int = 1) -> dict:
-    """This rank's rows (``mesh.shard_rows``) of a global host batch, as
-    tensors on the rank's device; lists are cut the same way and other
-    values pass through."""
+    """This rank's batch shard's rows (``mesh.shard_rows``) of a global host
+    batch, as tensors on the rank's device; lists are cut the same way and
+    other values pass through. Images keep their height: a spatial group's
+    ranks take their bands in the step, after the augmentations, and box
+    tensors never split on their dim 1 (tests/test_spatial.py:104-124)."""
     out = {}
     for k, v in batch.items():
         if isinstance(v, list) or (isinstance(v, (np.ndarray, torch.Tensor))
                                    and v.ndim > 0 and v.shape[0] > 0):
-            v = shard_rows(v, mesh.rank, mesh.world, accum)
+            v = shard_rows(v, mesh.data_index, mesh.batch_shards, accum)
         if isinstance(v, np.ndarray):
             v = torch.from_numpy(np.ascontiguousarray(v))
         if isinstance(v, torch.Tensor):

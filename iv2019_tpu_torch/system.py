@@ -19,9 +19,13 @@ Across ranks (parallel/multihost.py): ``train()`` trains data-parallel and
 writes ``settings.txt`` and ``all_code.zip`` on rank 0; ``evaluate()``
 sweeps the checkpoints as JAX's multi-process sweep does (system.py:292-384):
 checkpoint i goes to host i % hosts (a host: one launch of the entry point),
-whose ranks take their rows of each batch (grouped to at least their
-number of rows, padded up to a multiple of it), and one all-reduce of the zero-filled (checkpoints, K, K)
-int64 stack gives every rank every matrix.
+whose batch shards take their rows of each batch (grouped to at least their
+number of rows, padded up to a multiple of it), and one all-reduce of the
+zero-filled (checkpoints, K, K) int64 stack gives every rank every matrix.
+Under ``spatial_partitions`` P the P ranks of a spatial group hold the same
+rows and each evaluates its band of them (``make_eval_step``); as in JAX,
+eval on a spatial mesh runs in one process only (JAX system.py:304-310), and
+TTA and sliding windows refuse it (config.py).
 """
 
 from __future__ import annotations
@@ -314,6 +318,11 @@ class SemanticSegmentation:
         Across ranks every rank returns every checkpoint's metrics (see the
         module docstring)."""
         s = self._settings
+        if s.num_processes != 1 and s.spatial_partitions > 1:
+            raise NotImplementedError(
+                "multi-process eval runs a per-process data mesh; "
+                "spatial_partitions composes with multi-process training "
+                "only.")
         mesh = multihost.initialize(s)
         primary = multihost.is_primary()
         if primary:
@@ -330,7 +339,10 @@ class SemanticSegmentation:
         # one epoch: Neval examples (reference system_factory.py:338-342)
         num_eval_steps = max(int(s.Neval / max(s.Nb, 1)), 1)
         hosts, host = (mesh.num_hosts, mesh.host) if mesh else (1, 0)
-        ranks, index = (mesh.local_size, mesh.local_rank) if mesh else (1, 0)
+        # the host's batch shards take rows; a spatial group's ranks then
+        # take bands of the same rows (make_eval_step)
+        p = mesh.spatial if mesh else 1
+        ranks, index = (mesh.local_size // p, mesh.local_rank // p) if mesh else (1, 0)
         cms = {}
         for i, step in enumerate(steps):
             if i % hosts != host:

@@ -22,7 +22,9 @@ Port of iv2019_tpu/train/loop.py:42-337, on every rank of the run
 With several ranks the state is broadcast from rank 0 after the init, the
 restore or the warm start (JAX ``replicate``); rank 0 alone writes
 checkpoints, metrics, image summaries (only while ``num_processes`` is 1,
-as JAX's while ``process_count()`` is 1), traces and prints; every rank
+as JAX's while ``process_count()`` is 1; its forward runs alone, on the
+whole image also under spatial partitioning, while the weight masks are
+rank 0's band), traces and prints; every rank
 waits at a barrier after each checkpoint save; and SIGTERM is decided by
 all ranks at once (a host all-reduce of the flag each step), so no rank
 leaves while the others wait in a collective.
@@ -112,8 +114,9 @@ def _image_summaries(model, batch, palette, weight_masks) -> dict:
     """Colorized decisions and labels of the first per-pixel image, and the
     loss weight masks (reference define_losses_hierarchical.py:140,167,187)."""
     img = batch["proimages_per_pixel"][:1]
-    # rank 0 alone runs this forward: its BatchNorm takes no collective
-    with torch.no_grad(), statistics_kept(model), pmesh.unsynced_norms():
+    # rank 0 alone runs this forward, on the whole image: no collective (no
+    # BatchNorm all-reduce, no halo exchange)
+    with torch.no_grad(), statistics_kept(model), pmesh.alone():
         decs = model(img)["decisions"][0].cpu().numpy()
     labels = batch["prolabels_per_pixel"][0].cpu().numpy()
     k = len(palette)

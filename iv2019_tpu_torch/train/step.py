@@ -54,7 +54,8 @@ from iv2019_tpu_torch.ops.augment import apply_augmentations, draw_augmentations
 from iv2019_tpu_torch.ops.confusion import confusion_matrix, mean_iou_from_cm
 from iv2019_tpu_torch.ops.fused_loss import define_losses_fused, fused_loss_available
 from iv2019_tpu_torch.ops.rasterize import rasterize_bboxes
-from iv2019_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_mxu, resize_nearest
+from iv2019_tpu_torch.ops.resize import (resize_band, resize_bilinear, resize_bilinear_mxu,
+                                         resize_nearest)
 from iv2019_tpu_torch.ops.segment_ops import gather_cids, remap_probabilities, segment_sum_channels
 from iv2019_tpu_torch.parallel import mesh as pmesh
 from iv2019_tpu_torch.problem.problem_def import load_problem_def, replace_voids
@@ -140,7 +141,18 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
     (a sum) of the gradient after the microbatches, before the division by
     accum; on the optax path rank 0 alone differentiates the regularization.
     The confusion matrix is all-reduced in int64. ``Nb_per_*`` stay global,
-    and each microbatch must divide by the ranks.
+    and each microbatch must divide by the batch shards.
+
+    When the mesh splits image height (``spatial_partitions`` P; it must be
+    the active mesh, which the model reads) the batch is the rank's batch
+    shard's whole images, which the ranks of its spatial group all hold:
+    each rank augments them with the shard's draws, takes its band of rows
+    of the images and labels (``shard_height``; boxes are rasterized for the
+    band alone, compact image labels broadcast over it) and runs the model
+    and the unfused loss on the band (JAX turns the fused loss off on a
+    spatial mesh, step.py:129-132). Every pixel lives on one rank, so the
+    all-reduced loss sums, gradient and confusion matrix are those of the
+    global batch.
     """
     settings = settings.replace(mode="train")
     fused = settings.fused_optimizer
@@ -155,14 +167,15 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
     tax = get_taxonomy(settings.per_pixel_dataset_name)
     image_hw = (settings.height_feature_extractor, settings.width_feature_extractor)
     accum = settings.grad_accum_steps
+    spatial = mesh is not None and mesh.spatial > 1
     if mesh is not None:
-        # each microbatch must shard evenly over the ranks (step.py:161-176)
+        # each microbatch must shard evenly over the batch shards (step.py:161-176)
         for name in ("Nb_per_pixel", "Nb_per_bbox", "Nb_per_image"):
             nb = getattr(settings, name)
-            if nb and (nb // accum) % mesh.world:
+            if nb and (nb // accum) % mesh.batch_shards:
                 raise ValueError(
                     f"grad_accum_steps={accum}: microbatch {name}={nb}//"
-                    f"{accum} must divide by the {mesh.world} batch shards of "
+                    f"{accum} must divide by the {mesh.batch_shards} batch shards of "
                     "the mesh.")
     # the fused loss runs the model to stride-8 logits only; degenerate
     # supervision mixes and bootstrapped CE (a batch-global sort of the raw
@@ -175,6 +188,7 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
         and settings.Nb_per_bbox // accum > 0
         and settings.Nb_per_image // accum > 0
         and settings.bootstrapping_percentage == -1
+        and not spatial
         and fused_loss_available((1, 1), image_hw, tax)
     )
     num_classes = tax.num_common_classes
@@ -188,35 +202,45 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
     def tensor(value, dtype):
         return torch.as_tensor(value, dtype=dtype, device=device)
 
+    def _band(x):
+        return pmesh.shard_height(x, mesh) if spatial else x
+
     def _assemble(batch: Mapping[str, Any], fold: int):
         """Images and labels of one (micro)batch: the per-pixel part
         augmented, the [pp | pb | pi] concat, box tensors rasterized and
-        compact image labels broadcast, on the device."""
+        compact image labels broadcast, on the device; under spatial
+        partitioning this rank's band of rows of each."""
         pp_images = tensor(batch["proimages_per_pixel"], torch.float32)
         pp_labels = tensor(batch["prolabels_per_pixel"], torch.int32)
         if augmentations:
             n, h, w = pp_images.shape[:3]
-            # the draws of the global (micro)batch, and this rank's rows of them
-            world, rank = (mesh.world, mesh.rank) if mesh is not None else (1, 0)
-            draws = draw_augmentations(settings.random_seed, fold, augmentations, n * world, h,
+            # the draws of the global (micro)batch, and this batch shard's
+            # rows of them: the ranks of a spatial group draw alike, and the
+            # median filter and the rescale see whole images
+            shards, index = (mesh.batch_shards, mesh.data_index) if mesh is not None else (1, 0)
+            draws = draw_augmentations(settings.random_seed, fold, augmentations, n * shards, h,
                                        w, settings.scaling_poi)
-            draws = {k: v[rank * n:(rank + 1) * n] if isinstance(v, torch.Tensor) else v
+            draws = {k: v[index * n:(index + 1) * n] if isinstance(v, torch.Tensor) else v
                      for k, v in draws.items()}
             pp_images, pp_labels = apply_augmentations(pp_images, pp_labels, augmentations,
                                                        draws, unlabeled_cid)
-        images = torch.cat([pp_images] + [tensor(batch[k], torch.float32) for k in (
-            "proimages_per_bbox", "proimages_per_image")], 0)
+        images = _band(torch.cat([pp_images] + [tensor(batch[k], torch.float32) for k in (
+            "proimages_per_bbox", "proimages_per_image")], 0))
+        pp_labels = _band(pp_labels)
         h, w = images.shape[1], images.shape[2]
         if "bbox_cids" in batch:
+            # box tensors are per image: the band's rows are rasterized from them
+            rows = (mesh.spatial_index * h, (mesh.spatial_index + 1) * h) if spatial else None
             per_bbox = rasterize_bboxes(tensor(batch["bbox_cids"], torch.int32),
-                                        tensor(batch["bbox_coords"], torch.float32), h, w)
+                                        tensor(batch["bbox_coords"], torch.float32),
+                                        h * (mesh.spatial if spatial else 1), w, rows=rows)
         else:
-            per_bbox = tensor(batch["prolabels_per_bbox"], torch.float32)
+            per_bbox = _band(tensor(batch["prolabels_per_bbox"], torch.float32))
         if "image_label_vecs" in batch:
             vecs = tensor(batch["image_label_vecs"], torch.float32)
             per_image = vecs[:, None, None, :].expand(vecs.shape[0], h, w, vecs.shape[1])
         else:
-            per_image = tensor(batch["prolabels_per_image"], torch.float32)
+            per_image = _band(tensor(batch["prolabels_per_image"], torch.float32))
         labels = {
             "prolabels_per_pixel": pp_labels,
             "prolabels_per_bbox": per_bbox,
@@ -538,11 +562,17 @@ def _window_sums(settings: Settings, model, probs_fn, members) -> Callable:
     return compute
 
 
-def make_eval_step(settings: Settings, model=None, tcids2ecids=None) -> Callable:
+def make_eval_step(settings: Settings, model=None, tcids2ecids=None, mesh=None) -> Callable:
     """Returns eval_step(images, prolabels) -> (K', K') int64 confusion matrix.
 
     With an ensemble (``_ensemble_sums``) the decisions are the argmax, in
-    the evaluation label space, of the summed common-space probabilities."""
+    the evaluation label space, of the summed common-space probabilities.
+    When the mesh (default: the active one) splits image height, the images
+    and labels are the rank's batch shard's whole ones: the step takes its
+    band of rows of each, and the nearest resize of the decisions to the
+    label size reads the decision rows its label rows map to, from
+    whichever rank holds them; the rank's matrix counts its band's pixels
+    (the caller sums the matrices)."""
     settings = settings.replace(mode="eval")
     model = model or build_model(settings)
     if tcids2ecids is None:
@@ -554,10 +584,16 @@ def make_eval_step(settings: Settings, model=None, tcids2ecids=None) -> Callable
     l1_cids2ecids = [tcids2ecids[c] for c in tax.l1_cids2common_cids]
     ensemble = _ensemble_sums(settings, model,
                               lambda preds: [hierarchical_common_probabilities(preds, tax)])
+    mesh = mesh if mesh is not None else pmesh.active()
+    spatial = mesh if mesh is not None and mesh.spatial > 1 else None
 
     def eval_step(images, prolabels) -> torch.Tensor:
         images = _as_images(model, images)
         prolabels = torch.as_tensor(prolabels, device=images.device)
+        label_hw = prolabels.shape[1:3]
+        if spatial is not None:
+            images = pmesh.shard_height(images, spatial)
+            prolabels = pmesh.shard_height(prolabels, spatial)
         with torch.inference_mode():
             if ensemble is None:
                 preds = model(images)
@@ -572,7 +608,10 @@ def make_eval_step(settings: Settings, model=None, tcids2ecids=None) -> Callable
                 decs = torch.argmax(probs_e, dim=-1).int()
             if settings.replace_voids:
                 decs = _replace_void_decisions(probs_e, decs)
-            decs = resize_nearest(decs, prolabels.shape[1:3], align_corners=True)
+            if spatial is not None:
+                decs = resize_band(decs, label_hw, spatial, nearest=True)
+            else:
+                decs = resize_nearest(decs, label_hw, align_corners=True)
             return confusion_matrix(prolabels, decs, num_eval_classes)
 
     return eval_step

@@ -10,7 +10,8 @@ data-parallel on N ranks, spawned here, one per device (default: every
 visible card); ``--num_processes P --coordinator_address HOST:PORT
 --process_id I`` adds hosts, each started with its own I; ``--num_processes
 0`` takes the ranks torchrun starts (parallel/multihost.py). ``Nb_per_*``
-are the global batch.
+are the global batch. ``--spatial_partitions S`` splits each image's height
+over groups of S ranks (the height must divide by 8 S).
 """
 
 from __future__ import annotations

@@ -14,7 +14,9 @@ and the root-conv wgrad must also give the same bits on two launches. The
 fused units are also checked at the feature maps evaluation gives them, and
 one evaluate on the card is held to the same evaluate on the CPU. The
 fused loss is also checked at the Vistas heads (53 / 12 / 5) at full width
-and on the logits of the fused adaptation heads in f32 compute.
+and on the logits of the fused adaptation heads in f32 compute. Spatial
+partitioning: the fused units on the haloed bands of phase 12's eval, and
+the root-conv wgrad with explicit pad rows.
 """
 
 import numpy as np
@@ -292,6 +294,41 @@ def test_root_wgrad_is_deterministic_on_card(x_shape, cout, k, channels_last):
     first, second = root_conv_wgrad(x, dy, k, 2), root_conv_wgrad(x, dy, k, 2)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+def _wgrad_band_cases():
+    """B6's band shapes of chip_smoke (phase 12's haloed band, the general
+    kernel, a band at the image's top with pad rows)."""
+    import chip_smoke
+
+    return chip_smoke.WGRAD_BAND_SHAPES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_shape,cout,k,channels_last,pad_rows", _wgrad_band_cases())
+def test_root_wgrad_with_pad_rows_matches_plain_on_card(x_shape, cout, k, channels_last,
+                                                        pad_rows):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import chip_smoke
+
+    check = chip_smoke.compare_wgrad(x_shape, cout, k, channels_last, pad_rows=pad_rows)
+    assert check["launches"] == 1
+    assert check["rel_err"] <= chip_smoke.WGRAD_REL_TOL, check
+
+
+def _band_unit_cases():
+    """(wrapper, unit, n, h, w, C, M, rate) of every trunk unit the rule
+    fuses on the haloed bands of phase 12's spatial eval (2 ranks)."""
+    import chip_smoke
+
+    return chip_smoke.spatial_band_units()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrapper,unit,n,h,w,c,m,rate", _band_unit_cases())
+def test_kernel_matches_plain_on_card_on_haloed_bands(wrapper, unit, n, h, w, c, m, rate):
+    _check_unit(wrapper, n, h, w, c, m, rate)
 
 
 def _eval_unit_cases():

@@ -310,15 +310,18 @@ def test_settings_and_build_model_accept_variant(name):
 
 
 def test_multi_device_settings_stay_refused():
-    # data parallelism is ported (tests/test_torch_parallel.py); spatial
-    # partitions are not, and several processes still need a coordinator
+    # data parallelism and spatial partitions are ported
+    # (tests/test_torch_parallel.py, tests/test_torch_spatial*.py); several
+    # processes still need a coordinator, and a spatial split a height that
+    # divides by 8 x partitions
     for kw in (dict(num_devices=2), dict(num_slices=2),
-               dict(num_processes=2, coordinator_address="h:1")):
+               dict(num_processes=2, coordinator_address="h:1"), dict(spatial_partitions=2)):
         Settings(device="cpu", learning_rate_decay=0.5, **kw).finalize()
     with pytest.raises(ValueError, match="coordinator_address"):
         Settings(device="cpu", learning_rate_decay=0.5, num_processes=2).finalize()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Settings(device="cpu", learning_rate_decay=0.5, spatial_partitions=2).finalize()
+    with pytest.raises(ValueError, match="8 x spatial_partitions"):
+        Settings(device="cpu", learning_rate_decay=0.5, spatial_partitions=2,
+                 height_feature_extractor=520).finalize()
 
 
 @pytest.mark.parametrize("name", list(VARIANTS))

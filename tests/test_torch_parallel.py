@@ -57,9 +57,10 @@ def test_create_mesh_layouts():
     assert jmesh.create_mesh(4, num_slices=2).shape == {"replica": 2, "data": 2}
     m = pmesh.create_mesh(4, 3, local_rank=1, local_size=2)
     assert (m.host, m.num_hosts, m.local_rank) == (1, 2, 1)
-    # spatial partitions pass JAX's layout check and are not ported
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pmesh.create_mesh(4, spatial_partitions=2)
+    # spatial partitions: JAX's (data, spatial) layout, spatial the fastest axis
+    m = pmesh.create_mesh(4, 1, spatial_partitions=2)
+    assert jmesh.create_mesh(4, spatial_partitions=2).shape == {"data": 2, "spatial": 2}
+    assert (m.spatial, m.batch_shards, m.data_index, m.spatial_index) == (2, 2, 0, 1)
 
 
 @pytest.mark.parametrize("nb,n", [(8, 2), (16, 4), (4, 4), (6, 4), (3, 2)])
@@ -133,8 +134,11 @@ def test_multi_device_settings_are_accepted():
                dict(num_processes=2, coordinator_address="h:1", process_id=1)):
         JaxSettings(**kw).finalize().validate()
         Settings(**kw).finalize()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Settings(spatial_partitions=2).finalize()
+    # spatial partitions too, on a height that divides by 8 x partitions
+    JaxSettings(spatial_partitions=2).finalize().validate()
+    Settings(spatial_partitions=2).finalize()
+    with pytest.raises(ValueError, match="8 x spatial_partitions"):
+        Settings(spatial_partitions=2, height_feature_extractor=520).finalize()
 
 
 def test_initialize_refuses_what_it_cannot_start(monkeypatch):

@@ -108,7 +108,8 @@ def test_cli_settings_match_jax(tmp_path):
     # a global batch of 1 + 1 + 1 cannot split over two processes
     (["--num_processes", "2", "--coordinator_address", "localhost:1"], ValueError,
      "must divide by num_processes=2"),
-    (["--spatial_partitions", "2"], NotImplementedError, "ROADMAP.md"),
+    # one device cannot hold a spatial group of two (the mesh's layout check)
+    (["--spatial_partitions", "2"], ValueError, "not divisible into 1 slices x 2 spatial"),
     # more devices than are visible
     (["--device", "cuda", "--num_devices", "99"], ValueError, "CUDA devices are visible"),
 ])

@@ -22,7 +22,13 @@ Scenarios:
 - ``preempt``: the training loop, with SIGTERM sent to rank 1 alone;
 - ``eval``: ``SemanticSegmentation.evaluate`` of the small model, run with
   ``--devices`` (the ranks of one process's devices, which take rows of
-  each eval batch).
+  each eval batch);
+- ``spatial_ops`` (with ``--spatial P``): each op with a spatial extent on
+  the rank's band of rows of a global input, forward and backward;
+- ``summary``: the training loop's image-summary forward, run by rank 0
+  alone while the other ranks wait at a host barrier.
+
+With ``--spatial P`` the ranks split image height in groups of P.
 """
 
 import argparse
@@ -249,7 +255,118 @@ def run_eval(inp, mesh):
     return [(m["global_step"], m["confusion_matrix"]) for m in system.evaluate()]
 
 
-SCENARIOS = {"ops": run_ops, "step": run_steps, "preempt": run_preempt, "eval": run_eval}
+# ------------------------------------------------------------- spatial ops
+
+
+def _spatial_op(case):
+    """(function of the input, named parameters) of a spatial-op case, its
+    parameters drawn from the case's seed (alike on every rank)."""
+    from iv2019_tpu_torch.models.layers import BottleneckV1, ConvNormRelu, Norm, conv_same
+    from iv2019_tpu_torch.models.model import ConvTranspose, PSPModule, init_model
+    from iv2019_tpu_torch.models.resnet import _RootConv, max_pool_same
+    from iv2019_tpu_torch.ops.resize import resize_band, resize_bilinear_mxu, resize_nearest
+
+    gen = torch.Generator().manual_seed(case["seed"])
+    op, kw = case["op"], case.get("kw", {})
+
+    def module(m):
+        init_model(m, gen)
+        for norm in m.modules():
+            if isinstance(norm, Norm) and norm.norm_type != "none":
+                with torch.no_grad():
+                    norm.scale.uniform_(0.5, 1.5, generator=gen)
+                    norm.bias.uniform_(-0.5, 0.5, generator=gen)
+        return m.to(memory_format=torch.channels_last)
+
+    if op == "conv":
+        w = torch.nn.Parameter(torch.randn(kw["cout"], kw["cin"], kw["k"], kw["k"],
+                                           generator=gen) * 0.2)
+        return (lambda x: conv_same(x, w, kw["stride"], kw["rate"])), {"w": w}
+    if op == "root":
+        m = module(_RootConv(getattr(torch, kw["dtype"]), wgrad_kernel=True))
+        return m, dict(m.named_parameters())
+    if op == "maxpool":
+        return max_pool_same, {}
+    if op in ("bilinear", "nearest"):
+        size = kw["size"]
+
+        def resize(x):
+            mesh = pmesh.spatial_mesh()
+            if mesh is not None:
+                return resize_band(x, size, mesh, nearest=op == "nearest")
+            if op == "nearest":
+                return resize_nearest(x, size, align_corners=True)
+            return resize_bilinear_mxu(x, size, align_corners=True)
+        return resize, {}
+    if op == "psp":
+        m = module(PSPModule(kw["cin"], kw["features"], torch.float32, kw["norm"])).train()
+        return m, dict(m.named_parameters())
+    if op == "group_norm":
+        m = module(Norm(kw["c"], norm_type="group", groups=kw["groups"]))
+        return m, dict(m.named_parameters())
+    if op == "fov":
+        m = module(ConvNormRelu(kw["c"], kw["c"], 3, rate=kw["rate"], dtype=torch.float32)).train()
+        return m, dict(m.named_parameters())
+    if op == "hybrid":
+        m = module(ConvTranspose(kw["c"], torch.float32))
+        return m, dict(m.named_parameters())
+    if op == "fused":
+        m = module(BottleneckV1(kw["c"], kw["c"], kw["m"], rate=kw["rate"], fused_block=True,
+                                dtype=torch.bfloat16)).eval()
+        return m, {}
+    raise ValueError(op)
+
+
+def _band(x, dim, mesh):
+    """The rank's band of rows of ``x`` along ``dim`` (any height)."""
+    if mesh is None or mesh.spatial == 1:
+        return x
+    n = x.shape[dim] // mesh.spatial
+    return x.narrow(dim, mesh.spatial_index * n, n)
+
+
+def run_spatial_ops(inp, mesh):
+    """Per case: the output of the rank's band (y), the gradient of its
+    input band (dx) and of the parameters (this rank's part)."""
+    out = []
+    for case in inp:
+        fn, params = _spatial_op(case)
+        x = _band(torch.from_numpy(case["x"]), case["dim"], mesh)
+        if case["x"].ndim == 4 and case["dim"] == 2:
+            x = x.contiguous(memory_format=torch.channels_last)
+        grad = x.is_floating_point() and case.get("dy") is not None
+        if grad:
+            x = x.clone().requires_grad_(True)
+        y = fn(x)
+        res = {"y": y.detach().float().numpy()}
+        if grad:
+            dy = _band(torch.from_numpy(case["dy"]), case["dim"], mesh)
+            y.backward(dy.to(y.dtype))
+            res["dx"] = x.grad.float().numpy()
+            res["grads"] = {k: p.grad.numpy() for k, p in params.items() if p.grad is not None}
+        out.append(res)
+    return out
+
+
+def run_summary(inp, mesh):
+    """Rank 0 runs the image-summary forward by itself; every rank then
+    meets at the host barrier. Returns rank 0's decisions."""
+    from iv2019_tpu_torch.train.loop import _image_summaries
+
+    model = tiny_model(inp["settings"], inp["state_dict"], inp["blocks"])
+    palette = np.arange(256 * 3, dtype=np.uint8).reshape(256, 3)
+    out = {}
+    if mesh is None or mesh.rank == 0:
+        images = _image_summaries(model, {k: torch.from_numpy(v) for k, v in inp["batch"].items()},
+                                  palette, None)
+        out["decisions"] = images["decisions"]
+    if mesh is not None:
+        pmesh.barrier(mesh)
+    return out
+
+
+SCENARIOS = {"ops": run_ops, "step": run_steps, "preempt": run_preempt, "eval": run_eval,
+             "spatial_ops": run_spatial_ops, "summary": run_summary}
 
 
 def main():
@@ -261,6 +378,7 @@ def main():
     p.add_argument("--world", type=int, required=True)
     p.add_argument("--port", type=int, required=True)
     p.add_argument("--slices", type=int, default=1)
+    p.add_argument("--spatial", type=int, default=1)
     p.add_argument("--devices", action="store_true",
                    help="the ranks of one process's devices (num_devices W), not W processes")
     args = p.parse_args()
@@ -268,11 +386,12 @@ def main():
     coordinator = f"localhost:{args.port}"
     if args.devices:
         settings = Settings(device="cpu", num_devices=args.world, coordinator_address=coordinator,
-                            num_slices=args.slices)
+                            num_slices=args.slices, spatial_partitions=args.spatial)
         mesh = multihost.initialize(settings, backend="gloo", local_rank=args.rank)
     else:
         settings = Settings(device="cpu", num_processes=args.world, process_id=args.rank,
-                            coordinator_address=coordinator, num_slices=args.slices)
+                            coordinator_address=coordinator, num_slices=args.slices,
+                            spatial_partitions=args.spatial)
         mesh = multihost.initialize(settings, backend="gloo")
     try:
         inp = torch.load(args.inp, weights_only=False)

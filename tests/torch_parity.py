@@ -210,11 +210,13 @@ def loss_inputs_np(tax, seed, n_pp, n_pb, n_pi, h=8, w=16, scale=4):
     return lr, labels, (H, W)
 
 
-def run_ranks(scenario, inp, tmp_path, world=2, timeout=120, slices=1, devices=False):
+def run_ranks(scenario, inp, tmp_path, world=2, timeout=120, slices=1, devices=False,
+              spatial=1):
     """Run ``scenario`` of tests/torch_dist_worker.py on ``world`` gloo ranks
     (separate processes, meeting at a free localhost port) with the inputs
     ``inp``; returns each rank's output. With ``devices`` the ranks are
-    those of one process's ``world`` devices, else ``world`` processes. A
+    those of one process's ``world`` devices, else ``world`` processes;
+    ``spatial`` ranks split each image's height. A
     rank that fails, or a run that outlasts ``timeout`` seconds, fails the
     test (every rank is killed)."""
     import os
@@ -225,7 +227,7 @@ def run_ranks(scenario, inp, tmp_path, world=2, timeout=120, slices=1, devices=F
     from iv2019_tpu_torch.parallel.multihost import free_port
 
     worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_dist_worker.py")
-    tag = f"{scenario}_w{world}_s{slices}{'_d' if devices else ''}"
+    tag = f"{scenario}_w{world}_s{slices}_p{spatial}{'_d' if devices else ''}"
     path = str(tmp_path / f"{tag}_in.pt")
     torch.save(inp, path)
     port = free_port()
@@ -236,7 +238,8 @@ def run_ranks(scenario, inp, tmp_path, world=2, timeout=120, slices=1, devices=F
         outs.append(out)
         procs.append(subprocess.Popen(
             [sys.executable, worker, scenario, path, out, "--rank", str(rank), "--world",
-             str(world), "--port", str(port), "--slices", str(slices)]
+             str(world), "--port", str(port), "--slices", str(slices), "--spatial",
+             str(spatial)]
             + (["--devices"] if devices else []),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env))
     logs = []
