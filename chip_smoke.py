@@ -4,7 +4,8 @@
 
 Phases, each of which fails the run on its own:
 
-1. build: compiles the port's CUDA sources (``iv2019_tpu_torch/csrc``).
+1. build: compiles the port's CUDA sources (``iv2019_tpu_torch/csrc``),
+   then the operator library and the C++ serving loader with ``g++``.
 2. kernels: each hand-written kernel against its plain PyTorch version at
    the shapes the flagship predict and train paths give it, with times
    (B1, B2 and B6 at one microbatch of the real-format run, 2 + 6 images,
@@ -154,6 +155,25 @@ Phases, each of which fails the run on its own:
    versions in phase 2. ``spatial_launches`` in the kernel line: each
    kernel's launches per rank in (a) and (b).
 
+13. export and serve (``tools/export_model.py``, ``serving/``): the
+   export CLI on phase 4's log dir and .npz (the predict phase's weights),
+   ``--fused_block --wire_u8`` at 1x512x1024 on the card: the graph holds 8
+   ``iv2019::fused_bottleneck`` and 2 ``_ct`` nodes (the registered
+   operators of ``csrc/torch_ops.cpp``, built with ``g++`` in phase 1) and
+   no arithmetic on the weights alone; the AOTInductor package served by the
+   C++ loader with no Python in its process: ``serve`` (20 timed executes,
+   p50/p90), then a ``StreamServer`` answering ``REQUESTS`` seeded u8 frames
+   one at a time and pipelined (``infer_many``): ms a request, requests a
+   second; the operator library's own counter in the loader 8 B4 and 2 B5
+   launches a request; the served decisions against the eager
+   ``--fused_block`` forward on the same frames (>= 99.9% equal) and against
+   the f32 truth (the predict phase's bar). Then the unfused program with the
+   f32 signature, exported and served alike, for its p50 beside. Printed:
+   export and compile seconds, package sizes, the phase's wall time. The
+   kernel line's ``serve_launches``: B4/B5 in those runs.
+   Phase 2 times the registered operator (``ms``) beside the ctypes route
+   to the same kernels (``ctypes_ms``).
+
 The next-to-last line is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it
 exits non-zero and prints no result.
@@ -163,6 +183,7 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -639,6 +660,7 @@ def kernel_phase(device):
                 unit=unit, C=c, M=m, rate=rate, per_request=per_request,
                 max_abs_err=float(diff.max()), max_rel_err=rel,
                 ms=time_ms(lambda: wrapper(*args, rate=rate)),
+                ctypes_ms=time_ms(lambda: fb._run(symbol, *args, rate)),
                 device_ms=device_ms(lambda: wrapper(*args, rate=rate)),
                 kernel1_ms=device_ms(lambda: fb._run(symbol, *args, rate, kernels=1, y1=y1)),
                 kernel2_ms=device_ms(lambda: fb._run(symbol, *args, rate, kernels=2, y1=y1)),
@@ -652,7 +674,8 @@ def kernel_phase(device):
             row.update(tflops=flops / row["ms"] / 1e9, bound_share=row["bound_ms"] / row["ms"],
                        device_tflops=flops / row["device_ms"] / 1e9,
                        device_bound_share=row["bound_ms"] / row["device_ms"])
-            log(f"kernel {name} {unit}: {row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
+            log(f"kernel {name} {unit}: {row['ms']:.4f} ms by the registered operator, "
+                f"{row['ctypes_ms']:.4f} by ctypes ({row['tflops']:.1f} TFLOP/s, "
                 f"{row['bound_share']:.3f} of the bound), device {row['device_ms']:.4f} ms "
                 f"= conv1 {row['kernel1_ms']:.4f} + conv2/3 {row['kernel2_ms']:.4f} "
                 f"({row['device_tflops']:.1f} TFLOP/s, {row['device_bound_share']:.3f}); "
@@ -676,6 +699,7 @@ def kernel_phase(device):
             ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
             bound_by=bound_by.pop() if len(bound_by) == 1 else "operations",
             library_ms=mean("library_ms"), device_ms=mean("device_ms"),
+            ctypes_ms=mean("ctypes_ms"),
             kernel1_ms=mean("kernel1_ms"), kernel2_ms=mean("kernel2_ms"),
             library_device_ms=mean("library_device_ms"), per_shape=rows,
         ))
@@ -1202,11 +1226,12 @@ def predict_phase(device, requests):
     return unfused.state_dict(), launches
 
 
-def cli_phase(state):
+def cli_phase(state, work):
     """The port's predict CLI over two synthetic PNGs and an .npz of the
-    predict phase's weights under the reference's variable names."""
+    predict phase's weights under the reference's variable names, in
+    ``work/predict_cli``; returns (log dir, the .npz, the problem definition), which
+    phase 13 exports from."""
     import os
-    import tempfile
 
     from PIL import Image
 
@@ -1229,26 +1254,27 @@ def cli_phase(state):
                            "problem_definitions", "cityscapes", "problem01.json")
     lids = set(load_problem_def(problem).cids2lids)
     rng = np.random.RandomState(2)
-    with tempfile.TemporaryDirectory() as tmp:
-        npz = os.path.join(tmp, "model.npz")
-        np.savez(npz, **arrays)
-        img_dir = os.path.join(tmp, "images")
-        os.makedirs(img_dir)
-        sizes = {"a": (512, 1024), "b": (600, 800)}
-        for stem, hw in sizes.items():
-            Image.fromarray(rng.randint(0, 256, (*hw, 3), dtype=np.uint8)).save(
-                os.path.join(img_dir, f"{stem}.png"))
-        log_dir = os.path.join(tmp, "log")
-        n = predict_cli.main([log_dir, problem, img_dir, "--ckpt_path", npz,
-                              "--fused_block", "--export_lids_images"])
-        if n != len(sizes):
-            raise AssertionError(f"predicted {n} images, expected {len(sizes)}")
-        for stem, hw in sizes.items():
-            with Image.open(os.path.join(log_dir, "predictions", f"{stem}_result_lids.png")) as im:
-                got = np.asarray(im)
-            if got.shape != hw or not set(np.unique(got).tolist()) <= lids:
-                raise AssertionError(f"{stem}: lids export {got.shape} {np.unique(got)}")
+    tmp = os.path.join(work, "predict_cli")
+    npz = os.path.join(tmp, "model.npz")
+    img_dir = os.path.join(tmp, "images")
+    os.makedirs(img_dir)
+    np.savez(npz, **arrays)
+    sizes = {"a": (512, 1024), "b": (600, 800)}
+    for stem, hw in sizes.items():
+        Image.fromarray(rng.randint(0, 256, (*hw, 3), dtype=np.uint8)).save(
+            os.path.join(img_dir, f"{stem}.png"))
+    log_dir = os.path.join(tmp, "log")
+    n = predict_cli.main([log_dir, problem, img_dir, "--ckpt_path", npz,
+                          "--fused_block", "--export_lids_images"])
+    if n != len(sizes):
+        raise AssertionError(f"predicted {n} images, expected {len(sizes)}")
+    for stem, hw in sizes.items():
+        with Image.open(os.path.join(log_dir, "predictions", f"{stem}_result_lids.png")) as im:
+            got = np.asarray(im)
+        if got.shape != hw or not set(np.unique(got).tolist()) <= lids:
+            raise AssertionError(f"{stem}: lids export {got.shape} {np.unique(got)}")
     log(f"cli: {n} images exported at raw size, {len(arrays)} variables in the npz")
+    return log_dir, npz, problem
 
 
 def train_batch(rng, device):
@@ -3363,6 +3389,176 @@ def multirank_phase(device, tmp, sweep):
     out.update({k: {"gloo_eval_processes": v} for k, v in evaluation.items()})
     return out
 
+
+SERVE_HW = (512, 1024)
+SERVE_ITERS = 20  # timed executes of serve(), after its warm-up
+# served u8 decisions against the eager --fused_block forward on the same
+# frames (the same operations; the package rounds to bf16 where it does)
+SERVE_DECISIONS_MIN = 0.999
+SERVE_UNITS = {"fused_bottleneck": 8, "fused_bottleneck_ct": 2}  # per request at 1x512x1024
+
+
+def build_serving():
+    """Phase 1, second part: the operator library (``csrc/torch_ops.cpp``
+    with its CUDA implementation, linked against the kernels' library) and
+    the C++ loader (``serving/aoti_loader.cc``), both with ``g++`` at once,
+    then the library loaded here, which the wrappers call on the card."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from iv2019_tpu_torch import serving
+    from iv2019_tpu_torch.ops import _build
+    from iv2019_tpu_torch.ops import fused_block as fb
+
+    t0 = time.time()
+    with ThreadPoolExecutor(2) as pool:
+        ops, loader = pool.submit(_build.build_ops), pool.submit(serving.build)
+        ops, loader = ops.result(), loader.result()
+    fb.ops_library()
+    log(f"built {ops.name} and {os.path.basename(loader)} in {time.time() - t0:.1f}s")
+
+
+def _stream_log(path):
+    """(requests served, op launches after the warm-up, op launches at the
+    end) from a StreamServer's diagnostics."""
+    lines = open(path).read().splitlines()
+    warm = json.loads(next(x for x in lines if x.startswith('{"metric"')))["detail"]
+    done = next(x for x in lines if x.startswith("streaming done:"))
+    return (int(done.split()[2]), warm["op_launches"],
+            json.loads(done.split("op_launches ", 1)[1]))
+
+
+def _eager_decisions(cli, frames, device, fused, dtype):
+    """The eager port's u8 decisions on ``frames`` (the served signature)
+    with the weights of ``cli``'s .npz."""
+    from iv2019_tpu_torch.config import Settings
+    from iv2019_tpu_torch.models.model import build_model
+    from iv2019_tpu_torch.system import restore_variables
+    from iv2019_tpu_torch.tools.export_model import ServedForward
+
+    log_dir, npz, problem = cli
+    settings = Settings(mode="predict", log_dir=log_dir, training_problem_def_path=problem,
+                        height_feature_extractor=SERVE_HW[0], width_feature_extractor=SERVE_HW[1],
+                        fused_block=fused, compute_dtype=dtype, ckpt_path=npz).finalize()
+    model = build_model(settings, device)
+    restore_variables(model, settings)
+    forward = ServedForward(model, None, True)
+    with torch.inference_mode():
+        out = [forward(torch.from_numpy(f).to(device))[0].cpu().numpy() for f in frames]
+    del model
+    torch.cuda.empty_cache()
+    return np.stack(out)
+
+
+def export_serve_phase(cli, device):
+    """Phase 13 (see the module docstring); returns B4/B5's launches in the
+    served runs."""
+    from iv2019_tpu_torch import serving
+    from iv2019_tpu_torch.tools import export_model as em
+
+    t_phase = time.time()
+    log_dir, npz, problem = cli
+    shape = (1, *SERVE_HW, 3)
+    size = ["--height", str(SERVE_HW[0]), "--width", str(SERVE_HW[1]), "--ckpt_path", npz]
+    # the export CLI as a user runs it, both programs at once: each compile
+    # is a process of its own anyway, and the two overlap on the host's cores
+    programs = {"fused": ["--fused_block", "--wire_u8"], "unfused": []}
+    procs = {key: subprocess.Popen(
+        [sys.executable, "-m", "iv2019_tpu_torch.tools.export_model", log_dir, problem,
+         os.path.join(log_dir, f"export_{key}"), *flags, *size],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for key, flags in programs.items()}
+    exported = {}
+    try:
+        for key, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(f"export_model {key} failed rc={proc.returncode}:\n"
+                                     f"{stderr[-3000:]}")
+            exported[key] = json.loads(stdout.strip().splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"export/serve: both programs exported in {time.time() - t_phase:.1f} s")
+    out = {}
+    for key, paths in exported.items():
+        program = torch.export.load(paths["program"])
+        nodes, left = em.op_nodes(program), em.weight_only_nodes(program)
+        del program
+        text = open(paths["graph"]).read()
+        want = SERVE_UNITS if key == "fused" else dict.fromkeys(SERVE_UNITS, 0)
+        if nodes != want or left or "rsqrt" in text:
+            raise AssertionError(f"{key} program: operator nodes {nodes} (expected {want}), "
+                                 f"weight arithmetic per request {left[:3]}")
+        dtype = "uint8" if key == "fused" else "float32"
+        report = serving.serve(paths["package"], shape, iters=SERVE_ITERS, input_dtype=dtype)
+        runs = SERVE_ITERS + 1  # the warm-up too
+        launched = report["detail"]["op_launches"]
+        if launched != {k: v * runs for k, v in want.items()}:
+            raise AssertionError(f"{key}: the loader launched {launched} in {runs} executes, "
+                                 f"expected {want} each")
+        out[key] = dict(export_s=paths["seconds"]["export"], compile_s=paths["seconds"]["compile"],
+                        package_mb=os.path.getsize(paths["package"]) / 1e6,
+                        graph_ops=text.count(" = torch.ops."),
+                        serve_p50_ms=report["value"], serve_p90_ms=report["detail"]["p90_ms"],
+                        serve_launches=launched, output0_bytes=report["detail"]["output0_bytes"],
+                        package=paths["package"])
+        log(f"export/serve {key}: " + json.dumps(out[key]))
+
+    # the predict phase's request count, as seeded u8 frames, one at a time
+    # and then pipelined, through one serving process
+    frames = np.random.RandomState(13).randint(0, 256, (REQUESTS, *shape)).astype(np.uint8)
+    server = serving.StreamServer(out["fused"]["package"], shape, input_dtype="uint8")
+    try:
+        server.infer(frames[0])  # waits for the load and the loader's warm-up
+        one, one_ms = [], []
+        for f in frames:
+            t0 = time.perf_counter()
+            one.append(server.infer(f))
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        piped = server.infer_many(frames)
+        piped_s = time.perf_counter() - t0
+    finally:
+        rc = server.close()
+    if rc != 0:
+        raise AssertionError(f"the serving process ended with rc {rc}")
+    served, warm, final = _stream_log(server.stderr_path)
+    per_request = {k: (final[k] - warm[k]) / served for k in final}
+    if served != 2 * REQUESTS + 1 or per_request != {k: float(v) for k, v in SERVE_UNITS.items()}:
+        raise AssertionError(f"stream: {served} requests, launches per request {per_request}")
+
+    def decisions(outputs):
+        return np.stack([np.frombuffer(b, np.uint8).reshape(shape[:3]) for b in outputs])
+
+    one, piped = decisions(one), decisions(piped)
+    fused = _eager_decisions(cli, frames, device, True, "bfloat16")
+    unfused = _eager_decisions(cli, frames, device, False, "bfloat16")
+    truth = _eager_decisions(cli, frames, device, False, "float32")
+    stats = dict(
+        one_vs_eager_fused=float((one == fused).mean()),
+        piped_vs_eager_fused=float((piped == fused).mean()),
+        piped_vs_one=float((piped == one).mean()),
+        served_vs_f32=float((one == truth).mean()),
+        eager_unfused_vs_f32=float((unfused == truth).mean()),
+        eager_fused_vs_f32=float((fused == truth).mean()),
+        stream_ms=one_ms, stream_p50_ms=_p50_p90(one_ms)[0], stream_p90_ms=_p50_p90(one_ms)[1],
+        pipelined_ms_per_request=piped_s * 1e3 / REQUESTS,
+        pipelined_requests_per_s=REQUESTS / piped_s,
+        launches_per_request=per_request, requests_served=served,
+        phase_s=time.time() - t_phase,
+    )
+    log("export/serve stream: " + json.dumps(stats))
+    if not (stats["one_vs_eager_fused"] >= SERVE_DECISIONS_MIN
+            and stats["piped_vs_eager_fused"] >= SERVE_DECISIONS_MIN):
+        raise AssertionError(f"served decisions depart from eager --fused_block predict: {stats}")
+    if not stats["served_vs_f32"] >= stats["eager_unfused_vs_f32"] - PREDICT_TRUTH_DECISIONS_SLACK:
+        raise AssertionError(f"served decisions further from f32 than the unfused path: {stats}")
+    return {k: dict(serve_runs=out["fused"]["serve_launches"][k], stream_per_request=v,
+                    stream_requests=served) for k, v in per_request.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3390,13 +3586,14 @@ def _phases(work):
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log("  " + line.strip())
+    build_serving()
     # the plain versions are the references: full f32, no TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     results = kernel_phase(device)
     state, launches = predict_phase(device, REQUESTS)
-    cli_phase(state)
+    cli = cli_phase(state, work)
     del state
     torch.cuda.empty_cache()
     step_busy_ms = train_phase(device)
@@ -3422,7 +3619,13 @@ def _phases(work):
     # this slice's path: spatial partitioning (one spatial group of two gloo
     # ranks on the card, training and evaluate_cli)
     spatial_launches = spatial_phase(device, work, sweep)
+    torch.cuda.empty_cache()
+    # this slice's path: the flagship exported with the fused units as
+    # operators, served by the C++ loader with no Python in its process
+    serve_launches = export_serve_phase(cli, device)
     for r in results:
+        if r["name"] in serve_launches:
+            r["serve_launches"] = serve_launches[r["name"]]
         r["multirank_launches"] = multirank_launches[r["name"]]
         r["spatial_launches"] = spatial_launches[r["name"]]
         if r["name"] == "fused_loss_fwd":

@@ -34,6 +34,16 @@ The wrappers take the JAX layouts: x (N, H, W, C) bf16; w1 (C, M), w2
 ``bottleneck_plain``; for a CUDA tensor they launch the kernels or raise.
 ``_plan`` holds the kernels' tile and shared-memory arithmetic in Python,
 so that the CPU tests can check it.
+
+A CUDA tensor goes through the operators ``torch.ops.iv2019.fused_bottleneck``
+and ``fused_bottleneck_ct`` of ``csrc/torch_ops.cpp`` (``ops_library``), so
+that eager calls and exported programs launch the kernels by one route; the
+launch plan is an argument, and so a constant of an exported graph. Under
+``torch.export`` the wrappers call the operators for a tensor of either
+device: the program then holds the unit as one node, which runs the kernels
+on the card and ``bottleneck_plain`` on the CPU (registered here, as is the
+fake implementation that export traces with). ``_run`` is the ctypes route
+to the same kernels, which can launch either kernel alone, for timing.
 """
 
 from __future__ import annotations
@@ -48,12 +58,15 @@ import torch.nn.functional as F
 from iv2019_tpu_torch.ops import _build
 
 __all__ = [
+    "OP_NAMES",
     "bottleneck_plain",
     "fold_bn",
     "fused_bottleneck",
     "fused_bottleneck_ct",
     "fused_bottleneck_ct_supported",
     "fused_bottleneck_supported",
+    "op_plan",
+    "ops_library",
     "pick_ct_config",
 ]
 
@@ -256,25 +269,66 @@ def _run(symbol, x, w1, b1, w2, b2, w3, b3, rate, kernels=3, y1=None):
     return out
 
 
-def _launch(symbol, wrapper, x, w1, b1, w2, b2, w3, b3, rate):
-    if x.device.type == "cpu":
+OP_NAMES = ("fused_bottleneck", "fused_bottleneck_ct")
+
+
+# The operators return a contiguous (N, H, W, C) tensor, as the CUDA
+# implementation allocates it: a compiled program lays out its readers by
+# the fake implementation's strides.
+def _op_cpu(x, w1, b1, w2, b2, w3, b3, rate, plan):
+    return bottleneck_plain(x, w1, b1, w2, b2, w3, b3, rate=rate).contiguous()
+
+
+def _op_fake(x, w1, b1, w2, b2, w3, b3, rate, plan):
+    return x.new_empty(x.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def ops_library() -> str:
+    """Load the operator library (``_build.build_ops``, built at first use)
+    into this process and register the CPU and fake implementations of its
+    two operators; returns the library's path. Raises if it cannot be
+    built or loaded."""
+    path = str(_build.build_ops())
+    torch.ops.load_library(path)
+    for name in OP_NAMES:
+        torch.library.register_fake(f"iv2019::{name}")(_op_fake)
+        torch.library.impl(f"iv2019::{name}", "CPU")(_op_cpu)
+    return path
+
+
+def op_plan(x, w1, rate) -> list[int]:
+    """The plan argument of the operators: (tile1, stages1, nc, stages2,
+    smem1, smem2) for x's device (the H100's SM count off the card)."""
+    n, h, w, c = x.shape
+    sms = (torch.cuda.get_device_properties(x.device).multi_processor_count
+           if x.device.type == "cuda" else _SMS)
+    p = _plan(n, h, w, c, w1.shape[1], rate, sms)
+    return [p.tile1, p.stages1, p.nc, p.stages2, p.smem1, p.smem2]
+
+
+def _launch(name, wrapper, x, w1, b1, w2, b2, w3, b3, rate):
+    exporting = torch.compiler.is_exporting()
+    if x.device.type == "cpu" and not exporting:
         return bottleneck_plain(x, w1, b1, w2, b2, w3, b3, rate=rate)
-    if x.device.type != "cuda":
-        raise ValueError(f"{symbol}: unsupported device {x.device}")
-    out = _run(symbol, x, w1, b1, w2, b2, w3, b3, rate)
-    wrapper.launches += 1
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"iv_{name}: unsupported device {x.device}")
+    ops_library()
+    out = getattr(torch.ops.iv2019, name)(x, w1, b1, w2, b2, w3, b3, rate, op_plan(x, w1, rate))
+    if not exporting:
+        wrapper.launches += 1
     return out
 
 
 def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, *, rate):
     """Whole identity bottleneck (block2/block3 units, and block4 units on
     maps where the rule picks the full-window kernel)."""
-    return _launch("iv_fused_bottleneck", fused_bottleneck, x, w1, b1, w2, b2, w3, b3, rate)
+    return _launch("fused_bottleneck", fused_bottleneck, x, w1, b1, w2, b2, w3, b3, rate)
 
 
 def fused_bottleneck_ct(x, w1, b1, w2, b2, w3, b3, *, rate):
     """Whole identity bottleneck (block4 units): the same kernels."""
-    return _launch("iv_fused_bottleneck_ct", fused_bottleneck_ct, x, w1, b1, w2, b2, w3, b3, rate)
+    return _launch("fused_bottleneck_ct", fused_bottleneck_ct, x, w1, b1, w2, b2, w3, b3, rate)
 
 
 fused_bottleneck.launches = 0

@@ -645,29 +645,35 @@ def make_predict_step(settings: Settings, output_size: Optional[tuple[int, int]]
             ),
         )
 
-    def predict_step(images) -> dict:
+    def predict(images) -> dict:
         images = _as_images(model, images)
         if settings.sliding_window and tuple(images.shape[1:3]) != tuple(settings.eval_size):
             raise ValueError(f"sliding-window predict compiled for eval_size {settings.eval_size} "
                              f"but got images of {tuple(images.shape[1:3])}; the predict "
                              "pipeline must resize to eval_size")
-        with torch.inference_mode():
-            if ensemble is None:
-                preds = model(images)
-                out = {k: preds[k] for k in PROB_KEYS + ("decisions",)}
-            else:
-                heads = [a / num_members for a in ensemble(images)]
-                out = dict(zip(PROB_KEYS, heads))
-                out["decisions"] = _fuse(*heads)
-            if output_size is not None:
-                for k in PROB_KEYS:
-                    out[k] = resize_bilinear(out[k], output_size, align_corners=True)
-                out["decisions"] = resize_nearest(out["decisions"], output_size, align_corners=True)
-            if settings.replace_voids:
-                # L1 probabilities in the common space, the decisions' space
-                common = remap_probabilities(out["l1_probabilities"], tax.l1_cids2common_cids)
-                out["decisions"] = _replace_void_decisions(
-                    _pad_channels(common, tax.num_common_classes), out["decisions"])
+        if ensemble is None:
+            preds = model(images)
+            out = {k: preds[k] for k in PROB_KEYS + ("decisions",)}
+        else:
+            heads = [a / num_members for a in ensemble(images)]
+            out = dict(zip(PROB_KEYS, heads))
+            out["decisions"] = _fuse(*heads)
+        if output_size is not None:
+            for k in PROB_KEYS:
+                out[k] = resize_bilinear(out[k], output_size, align_corners=True)
+            out["decisions"] = resize_nearest(out["decisions"], output_size, align_corners=True)
+        if settings.replace_voids:
+            # L1 probabilities in the common space, the decisions' space
+            common = remap_probabilities(out["l1_probabilities"], tax.l1_cids2common_cids)
+            out["decisions"] = _replace_void_decisions(
+                _pad_channels(common, tax.num_common_classes), out["decisions"])
         return out
 
+    def predict_step(images) -> dict:
+        with torch.inference_mode():
+            return predict(images)
+
+    # the step without inference mode, which torch.export cannot trace
+    # (tools/export_model.py); JAX's jitted step has it as __wrapped__ too
+    predict_step.__wrapped__ = predict
     return predict_step

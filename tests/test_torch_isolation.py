@@ -42,7 +42,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "iv2019_tpu_torch.models.model", "iv2019_tpu_torch.models.resnet",
                  "iv2019_tpu_torch.train.state", "iv2019_tpu_torch.train.optimizer",
                  "iv2019_tpu_torch.utils.convert", "iv2019_tpu_torch.parallel.mesh",
-                 "iv2019_tpu_torch.parallel.multihost"):
+                 "iv2019_tpu_torch.parallel.multihost", "iv2019_tpu_torch.tools.export_model",
+                 "iv2019_tpu_torch.serving"):
         assert name in result["imported"], name
     loaded = result["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.") or m == "jaxlib"

@@ -16,7 +16,9 @@ one evaluate on the card is held to the same evaluate on the CPU. The
 fused loss is also checked at the Vistas heads (53 / 12 / 5) at full width
 and on the logits of the fused adaptation heads in f32 compute. Spatial
 partitioning: the fused units on the haloed bands of phase 12's eval, and
-the root-conv wgrad with explicit pad rows.
+the root-conv wgrad with explicit pad rows. The fused units' registered
+operators (csrc/torch_ops.cpp), which the wrappers call, are held to the
+plain version and, bit for bit, to the ctypes route to the same kernels.
 """
 
 import numpy as np
@@ -76,6 +78,53 @@ def test_kernel_matches_plain_on_card(wrapper, c, m, rate, h, w):
 @pytest.mark.parametrize("wrapper,n,h,w,c,m,rate", CASES)
 def test_kernel_matches_plain_on_card_edges(wrapper, n, h, w, c, m, rate):
     _check_unit(wrapper, n, h, w, c, m, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrapper,c,m,rate", SHAPES[:3])
+def test_op_route_matches_plain_on_card(wrapper, c, m, rate):
+    """The registered operator (csrc/torch_ops.cpp), the route of eager
+    calls and of exported programs, against the plain version, bit for bit
+    against the ctypes route to the same kernels; its C counter goes one up."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import ctypes
+
+    import chip_smoke
+
+    lib = ctypes.CDLL(tb.ops_library())
+    lib.iv_op_launches.restype = ctypes.c_int64
+    assert lib.iv_op_has_cuda() == 1
+    rng = np.random.RandomState(2)
+    u = chip_smoke.random_unit(rng, c, m, "cuda")
+    x = torch.tensor(rng.normal(0, 1, (1, 64, 128, c)), dtype=torch.bfloat16, device="cuda")
+    args = (x, u["w1"], u["b1"], u["w2"], u["b2"], u["w3"], u["b3"])
+    which = tb.OP_NAMES.index(wrapper)
+    before = lib.iv_op_launches(which)
+    got = getattr(torch.ops.iv2019, wrapper)(*args, rate, tb.op_plan(x, u["w1"], rate))
+    by_ctypes = tb._run(f"iv_{wrapper}", *args, rate)
+    want = tb.bottleneck_plain(*args, rate=rate).float()
+    torch.cuda.synchronize()
+    assert lib.iv_op_launches(which) == before + 1
+    assert torch.equal(got, by_ctypes)
+    rel = ((got.float() - want).abs() / want.abs().clamp_min(1.0)).max().item()
+    assert rel < chip_smoke.KERNEL_REL_TOL
+
+
+@pytest.mark.gpu
+def test_op_route_refuses_what_the_kernels_do_not_take_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import chip_smoke
+
+    u = chip_smoke.random_unit(np.random.RandomState(3), 256, 128, "cuda")
+    x = torch.zeros(1, 16, 16, 256, dtype=torch.float32, device="cuda")
+    args = (x, u["w1"], u["b1"], u["w2"], u["b2"], u["w3"], u["b3"])
+    tb.ops_library()
+    with pytest.raises(RuntimeError, match="x must be"):
+        torch.ops.iv2019.fused_bottleneck(*args, 1, [64, 6, 128, 6, 0, 0])
+    with pytest.raises(RuntimeError, match="launch plan"):
+        torch.ops.iv2019.fused_bottleneck(x.bfloat16(), *args[1:], 1, [64, 6, 128, 6, 0, 0])
 
 
 # (dataset, n_pp, n_weak, stride-8 size, output size): the flagship step,
