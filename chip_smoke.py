@@ -174,6 +174,17 @@ Phases, each of which fails the run on its own:
    Phase 2 times the registered operator (``ms``) beside the ctypes route
    to the same kernels (``ctypes_ms``).
 
+14. bench (``python -m iv2019_tpu_torch.bench``, each run its own process,
+   at full width and reduced step counts, ``BENCH_RUNS``): train with B6
+   off and on, predict and eval with ``IV_FUSED_BLOCK`` 0 and 1, input,
+   the input worker-scaling curve, e2e. Each run's JSON line is printed and
+   must carry its mode's metric and a finite, positive value; the kernels'
+   launches in its timed part, which the bench reads from their counters,
+   must be exact (B1, B2, B3 once a train or e2e step, B6 only with its
+   flag; B4/B5 8 + 2 a predict request and by the dispatch rule an eval
+   step; none elsewhere). The kernel line's ``bench_launches``: each
+   kernel's launches in those runs, by run.
+
 The next-to-last line is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it
 exits non-zero and prints no result.
@@ -194,6 +205,11 @@ import warnings
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# f32 operations per output pixel of the fused loss and per parameter of the
+# update, the counts the bench adds to its step's operations
+from iv2019_tpu_torch.bench import (LOSS_BWD_OPS_PER_LOGIT, LOSS_FWD_OPS_PER_LOGIT,
+                                    LOSS_OPS_PER_PIXEL, UPDATE_OPS_PER_PARAM)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # the tensor cores, and HBM3.
@@ -279,13 +295,6 @@ TRAIN_STEPS = 8  # timed steps, after one warm-up step
 # B1, B2 and B6 launches sees: the flagship batch split in two
 REAL_ACCUM = 2
 MICRO_NB = tuple(n // REAL_ACCUM for n in TRAIN_NB)
-# f32 operations per output pixel of the fused loss, counted from the
-# kernels' arithmetic: the 4-tap upsample (9 per logit), max, exp, sum and
-# the CE terms (~6 per logit), plus the weak projection and gates (~40);
-# the backward adds the gradient (4 per logit) and its two contractions
-# (~5 per logit)
-LOSS_FWD_OPS_PER_LOGIT, LOSS_BWD_OPS_PER_LOGIT, LOSS_OPS_PER_PIXEL = 15, 24, 40
-UPDATE_OPS_PER_PARAM = 14
 # The root-conv wgrad kernel (B6) against its plain version (one f32 matrix
 # product over the same bf16 operands, cuBLAS without TF32): only the order
 # of the f32 sums differs, over up to 2.1M products per output (measured
@@ -3559,6 +3568,76 @@ def export_serve_phase(cli, device):
                     stream_requests=served) for k, v in per_request.items()}
 
 
+# phase 14: the bench's runs, (label, arguments, knobs); step counts cut from
+# the bench's defaults (20 train steps, 30 requests, 12 eval steps and input
+# batches, 20 e2e steps) to keep the phase near two minutes
+BENCH_RUNS = [
+    ("train", ["train", "6"], {}),
+    ("train_b6", ["train", "6"], {"IV_ROOT_WGRAD_PALLAS": "1"}),
+    ("predict", ["predict", "10"], {}),
+    ("predict_fused", ["predict", "10"], {"IV_FUSED_BLOCK": "1"}),
+    ("eval", ["eval", "4"], {}),
+    ("eval_fused", ["eval", "4"], {"IV_FUSED_BLOCK": "1"}),
+    ("input", ["input", "4"], {}),
+    ("input_workers", ["input", "--workers", "1,4,16", "--stage_ms", "20"], {}),
+    ("e2e", ["e2e", "4"], {}),
+]
+BENCH_METRICS = {"train": "train_images_per_sec_per_chip", "predict": "predict_p50_latency_ms",
+                 "eval": "eval_images_per_sec_per_chip", "input": "input_pipeline_images_per_sec",
+                 "input_workers": "input_pipeline_worker_scaling",
+                 "e2e": "e2e_train_images_per_sec_per_chip"}
+BENCH_TIMEOUT_S = 300
+
+
+def _bench_want(argv, knobs):
+    """The launches each kernel must make in a bench run's timed part."""
+    want = dict.fromkeys(REPLACES, 0)
+    steps = int(argv[1]) if len(argv) > 1 and argv[1].isdigit() else 0
+    if argv[0] in ("train", "e2e"):
+        want.update(fused_loss_fwd=steps, fused_loss_bwd=steps, fused_update=steps)
+        if knobs.get("IV_ROOT_WGRAD_PALLAS") == "1":
+            want["root_conv_wgrad"] = steps
+    elif argv[0] == "predict" and knobs.get("IV_FUSED_BLOCK") == "1":
+        want.update(add_launches({}, 1, TRAIN_HW[0] // 8, TRAIN_HW[1] // 8, steps))
+    elif argv[0] == "eval" and knobs.get("IV_FUSED_BLOCK") == "1":
+        want.update(add_launches({}, 8, TRAIN_HW[0] // 8, TRAIN_HW[1] // 8, steps))
+    return want
+
+
+def bench_phase():
+    """Phase 14 (see the module docstring); returns each kernel's launches
+    by bench run."""
+    t_phase = time.time()
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = {k: v for k, v in os.environ.items() if not k.startswith("IV_")}
+    launches = {name: {} for name in REPLACES}
+    for label, argv, knobs in BENCH_RUNS:
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-m", "iv2019_tpu_torch.bench", *argv],
+                              cwd=root, env={**base, **knobs}, capture_output=True, text=True,
+                              timeout=BENCH_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"bench {label} failed rc={proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        line = json.loads(lines[-1])
+        log(f"bench {label} ({time.time() - t0:.1f} s): {lines[-1]}")
+        metric = BENCH_METRICS["input_workers" if "--workers" in argv else argv[0]]
+        value = line.get("value")
+        if (len(lines) != 1 or line.get("metric") != metric
+                or not isinstance(value, (int, float)) or not np.isfinite(value) or value <= 0):
+            raise AssertionError(f"bench {label}: expected one line of {metric} with a finite, "
+                                 f"positive value, got {proc.stdout[-2000:]}")
+        got = line["detail"].get("launches", dict.fromkeys(REPLACES, 0))
+        want = _bench_want(argv, knobs)
+        if got != want:
+            raise AssertionError(f"bench {label}: launches {got}, expected {want}")
+        for name in REPLACES:
+            launches[name][label] = got[name]
+    log(f"bench: phase took {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3623,7 +3702,11 @@ def _phases(work):
     # this slice's path: the flagship exported with the fused units as
     # operators, served by the C++ loader with no Python in its process
     serve_launches = export_serve_phase(cli, device)
+    torch.cuda.empty_cache()
+    # this slice's path: the bench entry point, each mode its own process
+    bench_launches = bench_phase()
     for r in results:
+        r["bench_launches"] = bench_launches[r["name"]]
         if r["name"] in serve_launches:
             r["serve_launches"] = serve_launches[r["name"]]
         r["multirank_launches"] = multirank_launches[r["name"]]

@@ -157,6 +157,17 @@ class _RootConv(nn.Module):
         self.dtype, self.wgrad_kernel = dtype, wgrad_kernel
         self.conv = Conv(3, 64, 7)
 
+    def runs_wgrad_kernel(self, x_shape) -> bool:
+        """Whether a train step on whole images of ``x_shape`` (N, C, H, W)
+        takes this conv's weight gradient from B6: the flag, bf16 compute,
+        even H and W, and a shape the kernel takes (``_RootConvWgrad``)."""
+        n, c, h, w = x_shape
+        cout, _, k, _ = self.conv.weight.shape
+        pad, _ = same_padding(k, 1)
+        return (self.wgrad_kernel and self.dtype == torch.bfloat16 and h % 2 == 0
+                and w % 2 == 0
+                and wgrad_supported(x_shape, (n, cout, h // 2, w // 2), k, 2, (pad, pad)))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         if not (self.wgrad_kernel and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0):

@@ -65,7 +65,7 @@ from iv2019_tpu_torch.train.optimizer import make_learning_rate_fn
 from iv2019_tpu_torch.train.state import TrainState
 
 __all__ = ["PROB_KEYS", "make_eval_step", "make_predict_step", "make_train_step",
-           "settings_eval_map", "window_origins", "window_weight"]
+           "settings_eval_map", "uses_fused_loss", "window_origins", "window_weight"]
 
 PROB_KEYS = ("l1_probabilities", "l2_vehicle_probabilities", "l2_human_probabilities")
 
@@ -98,6 +98,27 @@ def _summary_weight_masks(labels, l1_decisions, tax, weak_ix):
         hum = (gather_cids(tax.per_pixel_cids2human_cids, pp[0])
                != tax.num_human_classes - 1).float()
     return {"l1_weights": l1_mask, "l2_vehicle_weights": veh, "l2_human_weights": hum}
+
+
+def uses_fused_loss(settings: Settings, model, spatial: bool = False) -> bool:
+    """Whether the train step of ``settings`` computes its loss with kernels
+    B1/B2. The fused loss runs the model to stride-8 logits only; degenerate
+    supervision mixes and bootstrapped CE (a batch-global sort of the raw L1
+    losses) take the reference loss on the upsampled logits, and so does a
+    mesh that splits image height. Decided on the microbatch, the batch each
+    loss call sees."""
+    accum = settings.grad_accum_steps
+    image_hw = (settings.height_feature_extractor, settings.width_feature_extractor)
+    return bool(
+        settings.fused_loss
+        and model.upsampling_method == "bilinear"
+        and settings.Nb_per_pixel // accum > 0
+        and settings.Nb_per_bbox // accum > 0
+        and settings.Nb_per_image // accum > 0
+        and settings.bootstrapping_percentage == -1
+        and not spatial
+        and fused_loss_available((1, 1), image_hw, get_taxonomy(settings.per_pixel_dataset_name))
+    )
 
 
 def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGDM] = None,
@@ -165,7 +186,6 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
     mesh = mesh if mesh is not None else pmesh.active()
     lr_fn = make_learning_rate_fn(settings)
     tax = get_taxonomy(settings.per_pixel_dataset_name)
-    image_hw = (settings.height_feature_extractor, settings.width_feature_extractor)
     accum = settings.grad_accum_steps
     spatial = mesh is not None and mesh.spatial > 1
     if mesh is not None:
@@ -177,20 +197,7 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
                     f"grad_accum_steps={accum}: microbatch {name}={nb}//"
                     f"{accum} must divide by the {mesh.batch_shards} batch shards of "
                     "the mesh.")
-    # the fused loss runs the model to stride-8 logits only; degenerate
-    # supervision mixes and bootstrapped CE (a batch-global sort of the raw
-    # L1 losses) take the reference loss on the upsampled logits. Decided
-    # on the microbatch, the batch each loss call sees.
-    use_fused_loss = (
-        settings.fused_loss
-        and model.upsampling_method == "bilinear"
-        and settings.Nb_per_pixel // accum > 0
-        and settings.Nb_per_bbox // accum > 0
-        and settings.Nb_per_image // accum > 0
-        and settings.bootstrapping_percentage == -1
-        and not spatial
-        and fused_loss_available((1, 1), image_hw, tax)
-    )
+    use_fused_loss = uses_fused_loss(settings, model, spatial)
     num_classes = tax.num_common_classes
     device = _device_of(model)
     params = list(model.parameters())

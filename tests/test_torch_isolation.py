@@ -43,10 +43,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "iv2019_tpu_torch.train.state", "iv2019_tpu_torch.train.optimizer",
                  "iv2019_tpu_torch.utils.convert", "iv2019_tpu_torch.parallel.mesh",
                  "iv2019_tpu_torch.parallel.multihost", "iv2019_tpu_torch.tools.export_model",
-                 "iv2019_tpu_torch.serving"):
+                 "iv2019_tpu_torch.serving", "iv2019_tpu_torch.bench"):
         assert name in result["imported"], name
     loaded = result["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.") or m == "jaxlib"
                 or m.startswith("jaxlib.") or m == "flax" or m.startswith("flax.")]
     # the port's own name shares the prefix: match the JAX package exactly
     assert not [m for m in loaded if m == "iv2019_tpu" or m.startswith("iv2019_tpu.")]
+    # nor the repository's JAX-side tools (tools/*.py): the port has its own
+    assert not [m for m in loaded if m == "tools" or m.startswith("tools.")]
