@@ -184,6 +184,31 @@ Phases, each of which fails the run on its own:
    flag; B4/B5 8 + 2 a predict request and by the dispatch rule an eval
    step; none elsewhere). The kernel line's ``bench_launches``: each
    kernel's launches in those runs, by run.
+15. quality tools (the port's TF checkpoint converter, overfit probe,
+   weak-supervision and quality A/Bs, ``quality_phase``): (a) whether
+   ``import tensorflow`` fails here (it may: nothing of this phase needs
+   it); the TF-written fixtures of ``tests/data/tf_ckpt`` (a V1 file, a V1
+   file with a kernel in two slices, a V2 bundle in two shards) converted
+   with ``full=False`` and ``full=True``, each array bit-equal to the
+   committed ``expected_*.npz`` (TF's own reads and the JAX package's
+   conversions); the CRC-32C's rate on this host, native and plain; the
+   full-width ResNet-50 warm-started from the converted V1 files (the root
+   conv and its BatchNorm, block1/unit_1/conv1: 6 variables, bit-equal) and
+   one train step on it at 2 + 2 + 2 x 128x256 (B1, B2, B3 once each, a
+   finite loss). (b) ``tools/overfit_probe.run`` in this process at its
+   default Settings and 128x256, ``PROBE_STEPS`` steps: ``learned`` must be
+   true and B1, B2, B3 must launch exactly once a step; trajectory and wall
+   time printed. (c) and (d), both at once, each its own process, cut to
+   ``WEAK_AB_CUT`` / ``QUALITY_AB_CUT``: ``python -m
+   iv2019_tpu_torch.tools.weak_ab`` (both arms through ``train_cli`` and
+   ``evaluate_cli`` on the card; ``weak_ab.json`` with a finite mIoU in
+   each arm, the table printed; the weak arm's traced steps, which
+   ``train_cli`` writes to ``profile/step_K/trace.json``, must hold one
+   launch each of B1's, B2's and B3's main kernels, the per-pixel arm's B3's
+   alone) and ``python -m iv2019_tpu_torch.tools.quality_ab`` with the
+   sliding-window evals (every mIoU finite). The kernel line's
+   ``quality_launches``: the launches of (a)'s step and (b)'s run, and the
+   traced steps' counts of (c).
 
 The next-to-last line is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it
@@ -192,6 +217,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import glob
 import io
 import json
 import os
@@ -3638,6 +3664,234 @@ def bench_phase():
     return launches
 
 
+# ---------------------------------------------------------------- phase 15
+PROBE_STEPS = 300
+PROBE_HW = (128, 256)
+WARM_HW, WARM_NB = (128, 256), (2, 2, 2)
+WEAK_AB_CUT = ["--seeds", "1", "--n_pp", "8", "--n_weak", "32", "--n_val", "8", "--ne", "4"]
+QUALITY_AB_CUT = ["--seeds", "1", "--ne", "1", "--n_train", "16", "--n_val", "8"]
+TOOL_TIMEOUT_S = 600
+TF_CKPT_DIR = os.path.join("tests", "data", "tf_ckpt")
+# (fixture, {mode: expected file}); a mode left out is not held
+TF_FIXTURES = [("v1.ckpt", {"warm": "expected_v1_warm.npz", "full": "expected_v1_full.npz"}),
+               ("v1_sliced.ckpt", {"warm": "expected_v1_sliced.npz"}),
+               ("v2", {"warm": "expected_v2_warm.npz", "full": "expected_v2_full.npz"})]
+# the main kernel of each of B1, B2, B3 in a torch.profiler trace
+TRACE_KERNELS = {"fused_loss_fwd": "fwd_walk_kernel<", "fused_loss_bwd": "bwd_walk_kernel<",
+                 "fused_update": "update_kernel<"}
+
+
+def _npz_equal(got_path, want_path):
+    got, want = np.load(got_path), np.load(want_path)
+    if sorted(got.files) != sorted(want.files):
+        return f"keys {sorted(got.files)} != {sorted(want.files)}"
+    for k in want.files:
+        g, w = got[k], want[k]
+        if (g.dtype, g.shape) != (w.dtype, w.shape) or g.tobytes() != w.tobytes():
+            return f"{k}: {g.dtype}{g.shape} differs from {w.dtype}{w.shape}"
+    return None
+
+
+def converter_check(tmp):
+    """Phase 15(a); returns the warm-started step's launches."""
+    from iv2019_tpu_torch import native
+    from iv2019_tpu_torch.bench import make_train, train_batch, train_settings
+    from iv2019_tpu_torch.models.model import build_model, init_model
+    from iv2019_tpu_torch.utils import tf_checkpoint
+    from iv2019_tpu_torch.utils.checkpoint import (convert_tf_checkpoint_to_npz,
+                                                   warm_start_from_npz)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    probe = subprocess.run([sys.executable, "-c", "import tensorflow"], capture_output=True,
+                           text=True, timeout=120)
+    log(f"quality: `import tensorflow` {'fails' if probe.returncode else 'succeeds'} here"
+        + (f" ({probe.stderr.strip().splitlines()[-1][:120]})" if probe.returncode else ""))
+    data = os.path.join(root, TF_CKPT_DIR)
+    converted = {}
+    for fixture, modes in TF_FIXTURES:
+        for mode, expected in modes.items():
+            out = os.path.join(tmp, f"{fixture}_{mode}.npz")
+            t0 = time.perf_counter()
+            n = convert_tf_checkpoint_to_npz(os.path.join(data, fixture), out,
+                                             full=mode == "full")
+            ms = (time.perf_counter() - t0) * 1e3
+            problem = _npz_equal(out, os.path.join(data, expected))
+            if problem:
+                raise AssertionError(f"converter: {fixture} {mode}: {problem}")
+            log(f"quality: converted {fixture} ({mode}): {n} variables in {ms:.1f} ms, "
+                f"bit-equal to {expected}")
+            converted[(fixture, mode)] = out
+    log(f"quality: native helpers {native.status()['fastops']}")
+    buf = np.random.RandomState(0).randint(0, 256, 64 << 20).astype(np.uint8).tobytes()
+    t0 = time.perf_counter()
+    crc = native.crc32c(buf)
+    native_s = time.perf_counter() - t0
+    if crc is None:
+        raise AssertionError(f"converter: the native CRC-32C is unavailable: {native.status()}")
+    t0 = time.perf_counter()
+    plain = tf_checkpoint.crc32c_py(buf[:1 << 20])
+    plain_s = time.perf_counter() - t0
+    if native.crc32c(buf[:1 << 20]) != plain:
+        raise AssertionError("converter: native and plain CRC-32C differ")
+    log(f"quality: CRC-32C on this host: native {64 / native_s:.1f} MB/s over 64 MB, plain "
+        f"Python {1 / plain_s:.2f} MB/s over 1 MB")
+
+    settings = train_settings(*WARM_HW, *WARM_NB)
+    model = init_model(build_model(settings), torch.Generator().manual_seed(0))
+    restored = sum(warm_start_from_npz(model, converted[(f, "warm")])
+                   for f in ("v1.ckpt", "v1_sliced.ckpt"))
+    want = np.load(os.path.join(data, "expected_v1.npz"))
+    sliced = np.load(os.path.join(data, "expected_v1_sliced.npz"))
+    state_dict = model.state_dict()
+    checks = [("feature_extractor/base.conv1.conv.weight",
+               want["resnet_v1_50/conv1/weights"].transpose(3, 2, 0, 1)),
+              ("feature_extractor/base.conv1_norm.var",
+               want["resnet_v1_50/conv1/BatchNorm/moving_variance"]),
+              ("feature_extractor/base.block1/unit_1.conv1.conv.weight",
+               sliced["resnet_v1_50/block1/unit_1/bottleneck_v1/conv1/weights"]
+               .transpose(3, 2, 0, 1))]
+    for key, value in checks:
+        if not np.array_equal(state_dict[key].float().cpu().numpy(), value):
+            raise AssertionError(f"warm start: {key} is not the converted value")
+    if restored != 6:
+        raise AssertionError(f"warm start restored {restored} variables, expected 6")
+    state, step = make_train(settings, model)
+    batch = train_batch(*WARM_HW, *WARM_NB)
+    _reset_counts()
+    state, metrics = step(state, batch)
+    loss = float(metrics["total"])
+    counts = _counts()
+    want_counts = dict(fused_loss_fwd=1, fused_loss_bwd=1, fused_update=1, root_conv_wgrad=0)
+    if counts != want_counts or not np.isfinite(loss):
+        raise AssertionError(f"warm-started step: loss {loss}, launches {counts}")
+    log(f"quality: warm start restored {restored} variables (bit-equal); one train step "
+        f"at {WARM_NB} x {WARM_HW}: loss {loss:.4f}, launches {counts}")
+    del model, state, step
+    return counts
+
+
+def probe_check():
+    """Phase 15(b); returns the run's launches."""
+    from iv2019_tpu_torch.models.model import build_model, init_model
+    from iv2019_tpu_torch.tools import overfit_probe
+
+    settings = overfit_probe.probe_settings(*PROBE_HW, device="cuda")
+    model = init_model(build_model(settings.replace(mode="train")),
+                       torch.Generator().manual_seed(0))
+    _reset_counts()
+    t0 = time.perf_counter()
+    result = overfit_probe.run(settings, model, PROBE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    log(f"quality: overfit probe, {PROBE_STEPS} steps at {PROBE_HW}: {wall:.2f} s "
+        f"({wall / PROBE_STEPS * 1e3:.2f} ms a step with its readbacks), launches {counts}")
+    log(f"quality: overfit probe {json.dumps(result)}")
+    want = dict(fused_loss_fwd=PROBE_STEPS, fused_loss_bwd=PROBE_STEPS,
+                fused_update=PROBE_STEPS, root_conv_wgrad=0)
+    if counts != want:
+        raise AssertionError(f"overfit probe: launches {counts}, expected {want}")
+    if not result["learned"]:
+        raise AssertionError(f"overfit probe did not learn: {result}")
+    del model
+    return counts
+
+
+def _trace_counts(trace):
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(v in n for n in names) for k, v in TRACE_KERNELS.items()}
+
+
+def tools_check(tmp):
+    """Phase 15(c) and (d), each tool its own process, both at once; returns
+    the weak and per-pixel arms' traced counts."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = {"weak_ab": WEAK_AB_CUT, "quality_ab": QUALITY_AB_CUT}
+    procs, t0 = {}, time.time()
+    for name, cut in runs.items():
+        workdir = os.path.join(tmp, name)
+        out = open(os.path.join(tmp, f"{name}.log"), "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", f"iv2019_tpu_torch.tools.{name}", workdir, *cut],
+            cwd=root, stdout=out, stderr=subprocess.STDOUT, text=True), out, workdir)
+    walls, outputs = {}, {}
+    try:
+        for name, (proc, out, _) in procs.items():
+            proc.wait(timeout=max(1, TOOL_TIMEOUT_S - (time.time() - t0)))
+            walls[name] = time.time() - t0
+            out.close()
+            with open(out.name) as f:
+                outputs[name] = f.read()
+            if proc.returncode != 0:
+                raise AssertionError(f"{name} failed rc={proc.returncode}:\n"
+                                     f"{outputs[name][-3000:]}")
+    finally:
+        for proc, out, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    for name in runs:
+        log(f"quality: {name} done after {walls[name]:.1f} s (both started together)")
+        for line in outputs[name].strip().splitlines()[-14:]:
+            log(f"  {line[:200]}")
+
+    with open(os.path.join(procs["weak_ab"][2], "weak_ab.json")) as f:
+        weak = json.load(f)
+    mious = weak["mean_iou_pp"] + weak["mean_iou_weak"]
+    if len(mious) != 2 or not np.all(np.isfinite(mious)) or "| **mean IoU** |" not in \
+            outputs["weak_ab"]:
+        raise AssertionError(f"weak_ab: expected a finite mIoU in both arms and the table, "
+                             f"got {weak}")
+    with open(os.path.join(procs["quality_ab"][2], "quality_ab.json")) as f:
+        quality = json.load(f)
+    keys = {f"{a}_s0_{m}" for a, m in (("base", "raw"), ("base", "ema"), ("flip", "raw"),
+                                          ("flip", "ema"), ("base", "sw_uniform"),
+                                          ("base", "sw_gauss"))}
+    if set(quality["mious"]) != keys or not np.all(np.isfinite(list(quality["mious"].values()))):
+        raise AssertionError(f"quality_ab: expected finite mIoUs for {sorted(keys)}, got "
+                             f"{quality['mious']}")
+
+    traced = {}
+    for arm, want in (("weak", dict.fromkeys(TRACE_KERNELS, 1)),
+                      ("pp", dict(fused_loss_fwd=0, fused_loss_bwd=0, fused_update=1))):
+        log_dir = next(os.path.join(procs["weak_ab"][2], d)
+                       for d in sorted(os.listdir(procs["weak_ab"][2]))
+                       if d.startswith(f"{arm}_s0_"))
+        traces = sorted(glob.glob(os.path.join(log_dir, "profile", "step_*", "trace.json")))
+        if not traces:
+            raise AssertionError(f"weak_ab {arm} arm: train_cli wrote no trace")
+        for trace in traces:
+            got = _trace_counts(trace)
+            if got != want:
+                raise AssertionError(f"weak_ab {arm} arm, {trace}: kernels {got}, "
+                                     f"expected {want} a step")
+        traced[arm] = {"traced_steps": len(traces), "per_step": want}
+        log(f"quality: weak_ab {arm} arm: {len(traces)} traced train_cli steps, each "
+            f"{want}")
+    return traced
+
+
+def quality_phase(tmp):
+    """Phase 15 (see the module docstring); returns each kernel's launches."""
+    t_phase = time.time()
+    tmp = tempfile.mkdtemp(prefix="quality_", dir=tmp)
+    warm = converter_check(tmp)
+    torch.cuda.empty_cache()
+    probe = probe_check()
+    torch.cuda.empty_cache()
+    traced = tools_check(tmp)
+    log(f"quality: phase took {time.time() - t_phase:.1f} s")
+    out = {}
+    for name in REPLACES:
+        out[name] = {"warm_started_step": warm.get(name, 0), "overfit_probe": probe.get(name, 0)}
+        for arm, t in traced.items():
+            out[name][f"weak_ab_{arm}_traced_step"] = t["per_step"].get(name, 0)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3705,7 +3959,11 @@ def _phases(work):
     torch.cuda.empty_cache()
     # this slice's path: the bench entry point, each mode its own process
     bench_launches = bench_phase()
+    torch.cuda.empty_cache()
+    # this slice's path: the TF checkpoint converter and the quality tools
+    quality_launches = quality_phase(work)
     for r in results:
+        r["quality_launches"] = quality_launches[r["name"]]
         r["bench_launches"] = bench_launches[r["name"]]
         if r["name"] in serve_launches:
             r["serve_launches"] = serve_launches[r["name"]]

@@ -1,7 +1,8 @@
 """Native (C++) helpers of the host input pipelines: build, load and bind.
 
 The port's copy of iv2019_tpu/native: ``fastops.cpp`` (TF1 bilinear and
-nearest resize, bbox rasterizing, uint8 -> f32, the label lookup) and
+nearest resize, bbox rasterizing, uint8 -> f32, the label lookup; and, the
+port's own, the CRC-32C that checks TF checkpoints) and
 ``decode.cpp`` (PNG/JPEG through the system libpng/libjpeg), each compiled
 with ``g++`` at first use into its own library under ``build/`` at the
 repository root, named by a hash of the source and the flags. ctypes
@@ -44,6 +45,7 @@ __all__ = [
     "CXX_FLAGS",
     "NativeHelpers",
     "available",
+    "crc32c",
     "decode_available",
     "decode_image",
     "map_lut_i32",
@@ -82,6 +84,8 @@ def _declare_fastops(lib: ctypes.CDLL) -> None:
     for name in ("resize_bilinear_f32", "resize_nearest_bytes", "rasterize_bboxes",
                  "u8_to_f32", "map_lut_i32"):
         getattr(lib, name).restype = None
+    lib.crc32c_extend.argtypes = [ctypes.c_uint32, _c_u8p, ctypes.c_int64]
+    lib.crc32c_extend.restype = ctypes.c_uint32
 
 
 def _declare_decode(lib: ctypes.CDLL) -> None:
@@ -271,6 +275,15 @@ class NativeHelpers:
                         len(table), _ptr(out, ctypes.c_int32))
         return out
 
+    def crc32c(self, data, crc: int = 0):
+        """CRC-32C of a bytes-like object, continuing from ``crc`` (TF's
+        ``crc32c::Extend``); the value of utils/tf_checkpoint.py::crc32c_py."""
+        lib = self._fastops.get()
+        if lib is None:
+            return None
+        buf = np.frombuffer(data, np.uint8)
+        return int(lib.crc32c_extend(crc, _ptr(buf, ctypes.c_uint8), buf.size))
+
     def decode_image(self, buf: bytes, force_rgb: bool = False):
         """PNG/JPEG bytes -> uint8 array, exactly ``np.asarray(Image.open(buf))``
         for 8-bit images (palette PNGs stay index maps), or with
@@ -304,4 +317,5 @@ resize_nearest = _HELPERS.resize_nearest
 rasterize_bboxes = _HELPERS.rasterize_bboxes
 u8_to_f32 = _HELPERS.u8_to_f32
 map_lut_i32 = _HELPERS.map_lut_i32
+crc32c = _HELPERS.crc32c
 decode_image = _HELPERS.decode_image

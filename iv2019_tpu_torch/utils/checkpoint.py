@@ -34,6 +34,9 @@ Port of iv2019_tpu/utils/checkpoint.py:36-98,141-158,300-333.
 - ``warm_start_from_npz`` loads a slim ``resnet_v1_*`` ImageNet checkpoint
   (an ``.npz`` of slim variable names) into the trunk, with the reference's
   exclusion list (define_initializers.py:100-105).
+- ``convert_tf_checkpoint_to_npz`` (checkpoint.py:421-447) makes those
+  ``.npz`` files from TF checkpoints, read by utils/tf_checkpoint.py with
+  no TensorFlow.
 
 ``torch.load`` unpickles: restore only checkpoints this program wrote.
 """
@@ -49,10 +52,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from iv2019_tpu_torch.utils.convert import _backbone_rest_to_path, group_norm_modules
+from iv2019_tpu_torch.utils import tf_checkpoint
+from iv2019_tpu_torch.utils.convert import (_backbone_rest_to_path, group_norm_modules,
+                                            tf_trained_name_to_flax_path)
 
-__all__ = ["CheckpointManager", "WARM_START_EXCLUSIONS", "slim_name_to_flax_path",
-           "warm_start_from_npz"]
+__all__ = ["CheckpointManager", "WARM_START_EXCLUSIONS", "convert_tf_checkpoint_to_npz",
+           "slim_name_to_flax_path", "warm_start_from_npz"]
 
 FORMAT = 1
 STATE_FILE = "state.pt"
@@ -289,3 +294,28 @@ def warm_start_from_npz(model: torch.nn.Module, npz_path: str) -> int:
             state[key].copy_(torch.from_numpy(np.ascontiguousarray(value, np.float32)))
             restored += 1
     return restored
+
+
+def convert_tf_checkpoint_to_npz(ckpt_path: str, out_path: str, full: bool = False) -> int:
+    """One-time TF checkpoint -> ``.npz`` conversion; returns the count of
+    variables written.
+
+    ``full=False``: the ImageNet warm-start subset, every variable whose name
+    holds none of ``WARM_START_EXCLUSIONS`` (define_initializers.py:100-105).
+    ``full=True``: the whole trained model with its EMA shadows, every
+    variable ``tf_trained_name_to_flax_path`` maps, for
+    ``utils/convert.py::restore_trained_from_npz``. ``ckpt_path``: a V2
+    prefix, a V1 file or a directory (utils/tf_checkpoint.py), checked
+    against its checksums while read.
+    """
+    reader = tf_checkpoint.load_checkpoint(ckpt_path)
+    out = {}
+    for name in reader.get_variable_to_shape_map():
+        if full:
+            if tf_trained_name_to_flax_path(name) is None:
+                continue
+        elif any(e in name for e in WARM_START_EXCLUSIONS):
+            continue
+        out[name] = reader.get_tensor(name)
+    np.savez(out_path, **out)
+    return len(out)

@@ -43,7 +43,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "iv2019_tpu_torch.train.state", "iv2019_tpu_torch.train.optimizer",
                  "iv2019_tpu_torch.utils.convert", "iv2019_tpu_torch.parallel.mesh",
                  "iv2019_tpu_torch.parallel.multihost", "iv2019_tpu_torch.tools.export_model",
-                 "iv2019_tpu_torch.serving", "iv2019_tpu_torch.bench"):
+                 "iv2019_tpu_torch.serving", "iv2019_tpu_torch.bench",
+                 "iv2019_tpu_torch.utils.tf_checkpoint", "iv2019_tpu_torch.tools.overfit_probe",
+                 "iv2019_tpu_torch.tools.weak_ab", "iv2019_tpu_torch.tools.quality_ab"):
         assert name in result["imported"], name
     loaded = result["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.") or m == "jaxlib"

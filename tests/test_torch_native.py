@@ -285,8 +285,13 @@ def test_decode_source_is_the_jax_packages():
 
 
 def test_fastops_source_differs_only_in_the_rasterizers_division():
+    """The JAX package's helpers unchanged but for the rasterizer's division;
+    the port's own CRC-32C (utils/tf_checkpoint.py) is appended after them."""
     port = _read("iv2019_tpu_torch", "native", "fastops.cpp").decode().splitlines()
     jax_copy = _read("iv2019_tpu", "native", "fastops.cpp").decode().splitlines()
+    crc_start = port.index("// CRC-32C (Castagnoli, reflected polynomial 0x82F63B78) of n bytes,")
+    crc_end = port.index('}  // extern "C"')
+    crc_block = port[crc_start:crc_end]
     diff = [line for line in difflib.unified_diff(jax_copy, port, lineterm="", n=0)
             if line[:1] in "+-" and not line.startswith(("+++", "---"))]
     assert diff == [
@@ -295,7 +300,8 @@ def test_fastops_source_differs_only_in_the_rasterizers_division():
         "+        // divide, as the numpy and on-device rasterizers do: k * (1/t)",
         "+        // differs from k / t in the last bit for some counts (5/6, 3/7)",
         "+        for (int k = 0; k < ncls; ++k) o[k] /= total;",
-    ]
+    ] + ["+" + line for line in crc_block]
+    assert "crc32c_extend" in "\n".join(crc_block)
 
 
 def test_decode_library_the_loader_cannot_open_means_pil(tmp_path, monkeypatch):
