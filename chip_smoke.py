@@ -209,6 +209,24 @@ Phases, each of which fails the run on its own:
    sliding-window evals (every mIoU finite). The kernel line's
    ``quality_launches``: the launches of (a)'s step and (b)'s run, and the
    traced steps' counts of (c).
+16. spatial memory table (``python -m
+   iv2019_tpu_torch.tools.spatial_memory_table``, each row's ranks gloo
+   processes sharing the card, ``memory_phase``): (a) the CLI with
+   ``--quick`` in a child process: 512x1024 at factor 1 (one process, one
+   image of each type) and at factor 4 (four ranks of 128 rows); both rows
+   without error, finite, ``temp`` at f 4 under ``MEMORY_TEMP_RATIO`` of f
+   1's, and the measured step's launches from the kernels' counters: B1, B2,
+   B3 once at f 1; B3 once a rank and B1/B2 never at f 4 (the spatial mesh
+   runs the unfused loss), B6 never (``root_wgrad_pallas`` off, as in the
+   JAX tool); halo exchanges on every rank at f 4. (b) One spatial group
+   against every rank of its mesh (``MEMORY_GROUP_ROW``: 256x512, ndev 4,
+   f 2; two ranks against four, at once): the largest per-rank peak within
+   ``MEMORY_GROUP_REL_TOL``. (c) (a)'s f 1 row again with ``LiveBytes``
+   counting the same step's storages on the card beside the allocator: the
+   count at or below the allocator's args and total (the allocator also
+   holds cuDNN's workspaces and rounds blocks). The kernel line's
+   ``memory_launches``: each kernel's launches in the measured steps of
+   (a)-(c), by row and rank.
 
 The next-to-last line is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it
@@ -316,7 +334,7 @@ SPATIAL_EVAL_SIZE = (1024, 2048)
 # the flagship train step: per-pixel, bbox and image-label images, input size
 TRAIN_NB = (4, 8, 4)
 TRAIN_HW = (512, 1024)
-TRAIN_STEPS = 8  # timed steps, after one warm-up step
+TRAIN_STEPS = 4  # timed steps, after one warm-up step
 # the real-format run's grad_accum_steps, and the microbatch each of its
 # B1, B2 and B6 launches sees: the flagship batch split in two
 REAL_ACCUM = 2
@@ -3596,17 +3614,18 @@ def export_serve_phase(cli, device):
 
 # phase 14: the bench's runs, (label, arguments, knobs); step counts cut from
 # the bench's defaults (20 train steps, 30 requests, 12 eval steps and input
-# batches, 20 e2e steps) to keep the phase near two minutes
+# batches, 20 e2e steps) to the fewest that exercise each mode's timed part,
+# so that the whole run stays near 700 s of its 1200
 BENCH_RUNS = [
-    ("train", ["train", "6"], {}),
-    ("train_b6", ["train", "6"], {"IV_ROOT_WGRAD_PALLAS": "1"}),
-    ("predict", ["predict", "10"], {}),
-    ("predict_fused", ["predict", "10"], {"IV_FUSED_BLOCK": "1"}),
-    ("eval", ["eval", "4"], {}),
-    ("eval_fused", ["eval", "4"], {"IV_FUSED_BLOCK": "1"}),
-    ("input", ["input", "4"], {}),
+    ("train", ["train", "3"], {}),
+    ("train_b6", ["train", "3"], {"IV_ROOT_WGRAD_PALLAS": "1"}),
+    ("predict", ["predict", "5"], {}),
+    ("predict_fused", ["predict", "5"], {"IV_FUSED_BLOCK": "1"}),
+    ("eval", ["eval", "2"], {}),
+    ("eval_fused", ["eval", "2"], {"IV_FUSED_BLOCK": "1"}),
+    ("input", ["input", "2"], {}),
     ("input_workers", ["input", "--workers", "1,4,16", "--stage_ms", "20"], {}),
-    ("e2e", ["e2e", "4"], {}),
+    ("e2e", ["e2e", "2"], {}),
 ]
 BENCH_METRICS = {"train": "train_images_per_sec_per_chip", "predict": "predict_p50_latency_ms",
                  "eval": "eval_images_per_sec_per_chip", "input": "input_pipeline_images_per_sec",
@@ -3892,6 +3911,127 @@ def quality_phase(tmp):
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+# temp memory at factor 4 against factor 1 at the same load per data shard:
+# the JAX package's own bar (tests/test_spatial_memory.py:40-42)
+MEMORY_TEMP_RATIO = 0.75
+# one spatial group against every rank of its mesh: the largest per-rank peak
+MEMORY_GROUP_REL_TOL = 0.02
+MEMORY_GROUP_ROW = dict(h=256, w=512, spatial=2, remat=False, accum=1, ndev=4, nb=2)
+MEMORY_TIMEOUT_S = 600
+
+
+def _memory_row_summary(row):
+    """A row without its per-rank detail, for the log."""
+    return {k: v for k, v in row.items() if k != "per_rank"}
+
+
+def memory_quick_check():
+    """(a): the CLI's --quick rows in a child process; returns their launches."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "iv2019_tpu_torch.tools.spatial_memory_table",
+                           "--quick"], cwd=root, capture_output=True, text=True,
+                          timeout=MEMORY_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"spatial_memory_table --quick failed rc={proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log("memory (a) " + line)
+    line = json.loads(lines[-1])
+    rows = {r["spatial"]: r for r in line["detail"]["rows"]}
+    log(f"memory (a) --quick ({time.time() - t0:.1f} s): " + json.dumps(
+        dict(line, detail=dict(line["detail"], rows=[_memory_row_summary(r)
+                                                     for r in rows.values()]))))
+    if sorted(rows) != [1, 4] or any("error" in r for r in rows.values()):
+        raise AssertionError(f"memory (a): rows {[_memory_row_summary(r) for r in rows.values()]}")
+    f1, f4 = rows[1], rows[4]
+    want = {1: {"fused_loss_fwd": [1], "fused_loss_bwd": [1], "fused_update": [1],
+                "root_conv_wgrad": [0]},
+            4: {"fused_loss_fwd": [0] * 4, "fused_loss_bwd": [0] * 4, "fused_update": [1] * 4,
+                "root_conv_wgrad": [0] * 4}}
+    problems = []
+    for f, row in rows.items():
+        if row["launches"] != want[f]:
+            problems.append(f"f {f}: launches {row['launches']}, expected {want[f]}")
+        if not row["finite"]:
+            problems.append(f"f {f}: non-finite metrics")
+    if not all(r["halo"] > 0 for r in f4["per_rank"]):
+        problems.append("f 4: a rank without halo exchanges")
+    ratio = f4["temp_gb"] / f1["temp_gb"]
+    log(f"memory (a): temp f 4 / f 1 = {ratio:.4f} (bar {MEMORY_TEMP_RATIO})")
+    if not ratio < MEMORY_TEMP_RATIO:
+        problems.append(f"temp at f 4 {f4['temp_gb']} GB not under {MEMORY_TEMP_RATIO} x f 1's "
+                        f"{f1['temp_gb']}")
+    if problems:
+        raise AssertionError("memory (a): " + "; ".join(problems))
+    return {"quick_f1": f1["launches"], "quick_f4_ranks": f4["launches"]}
+
+
+def memory_group_check():
+    """(b): one spatial group against every rank of its mesh, both at once
+    (each rank a process with an allocator of its own)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from iv2019_tpu_torch.tools import spatial_memory_table as smt
+
+    with ThreadPoolExecutor(2) as pool:
+        futures = {label: pool.submit(smt.run_row, MEMORY_GROUP_ROW, "cuda", full_mesh=full_mesh,
+                                      timeout=MEMORY_TIMEOUT_S)
+                   for label, full_mesh in (("group", False), ("mesh", True))}
+        runs = {label: f.result() for label, f in futures.items()}
+    for label, row in runs.items():
+        if "error" in row or not row["finite"]:
+            raise AssertionError(f"memory (b) {label}: {_memory_row_summary(row)}")
+    peaks = {k: [r["total_bytes"] for r in row["per_rank"]] for k, row in runs.items()}
+    gap = abs(max(peaks["group"]) - max(peaks["mesh"])) / max(peaks["mesh"])
+    log("memory (b) group against mesh: " + json.dumps(dict(
+        row=MEMORY_GROUP_ROW, peaks_bytes=peaks, rel_gap=gap,
+        group=_memory_row_summary(runs["group"]), mesh=_memory_row_summary(runs["mesh"]))))
+    if gap > MEMORY_GROUP_REL_TOL:
+        raise AssertionError(f"memory (b): the group's peak is {gap:.4f} off the mesh's "
+                             f"(bar {MEMORY_GROUP_REL_TOL})")
+    return {"group_ranks": runs["group"]["launches"], "mesh_ranks": runs["mesh"]["launches"]}
+
+
+def memory_counter_check():
+    """(c): (a)'s f 1 row with LiveBytes beside the allocator on the card."""
+    from iv2019_tpu_torch.tools import spatial_memory_table as smt
+
+    plan = [r for r in smt.row_plan(smt.parse_args(["--quick"])) if r["spatial"] == 1][0]
+    row = smt.run_row(plan, "cuda", count_live=True, timeout=MEMORY_TIMEOUT_S)
+    if "error" in row:
+        raise AssertionError(f"memory (c): {_memory_row_summary(row)}")
+    rank = row["per_rank"][0]
+    live = rank["live"]
+    out = {k: dict(allocator=rank[f"{k}_bytes"], live=live[f"{k}_bytes"],
+                   gap=rank[f"{k}_bytes"] - live[f"{k}_bytes"])
+           for k in ("args", "temp", "total", "output")}
+    log("memory (c) live bytes against the allocator, " + f"{plan['h']}x{plan['w']} f 1: "
+        + json.dumps(out))
+    if live["args_bytes"] > rank["args_bytes"] or live["total_bytes"] > rank["total_bytes"]:
+        raise AssertionError(f"memory (c): the count exceeds the allocator: {out}")
+    want = {"fused_loss_fwd": [1], "fused_loss_bwd": [1], "fused_update": [1],
+            "root_conv_wgrad": [0]}
+    if row["launches"] != want or not row["finite"]:
+        raise AssertionError(f"memory (c): launches {row['launches']}, expected {want}; "
+                             f"finite {row['finite']}")
+    return {"counted_f1": row["launches"]}
+
+
+def memory_phase():
+    """Phase 16 (see the module docstring); returns each kernel's launches
+    by row and rank."""
+    t_phase = time.time()
+    launches = memory_quick_check()
+    launches.update(memory_group_check())
+    launches.update(memory_counter_check())
+    log(f"memory: phase took {time.time() - t_phase:.1f} s")
+    names = launches["quick_f1"]
+    return {name: {label: counts[name] for label, counts in launches.items()} for name in names}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3910,59 +4050,67 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
 
 
+def _timed(times, name, fn, *args):
+    """``fn(*args)``, its wall time recorded under ``name``."""
+    t0 = time.time()
+    out = fn(*args)
+    times[name] = round(time.time() - t0, 1)
+    torch.cuda.empty_cache()
+    return out
+
+
 def _phases(work):
     from iv2019_tpu_torch.ops import _build
 
     t0 = time.time()
+    times = {}
     for stem, report in _build.build_all().items():
         log(f"built {stem} in {time.time() - t0:.1f}s")
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log("  " + line.strip())
     build_serving()
+    times["1 build"] = round(time.time() - t0, 1)
     # the plain versions are the references: full f32, no TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
-    results = kernel_phase(device)
-    state, launches = predict_phase(device, REQUESTS)
-    cli = cli_phase(state, work)
+    results = _timed(times, "2 kernels", kernel_phase, device)
+    state, launches = _timed(times, "3 predict", predict_phase, device, REQUESTS)
+    cli = _timed(times, "4 cli", cli_phase, state, work)
     del state
     torch.cuda.empty_cache()
-    step_busy_ms = train_phase(device)
-    torch.cuda.empty_cache()
+    step_busy_ms = _timed(times, "5 train", train_phase, device)
     # the train path's kernels report the launches of the training run (the
     # train phase's are printed above), B4/B5 those of the predict requests
     # and, as eval_launches, those of the --eval_all_ckpts sweep
-    run_launches, eval_launches, sweep = train_run_phase(device, step_busy_ms, work)
-    torch.cuda.empty_cache()
-    # this slice's path: the real-format training run with grad_accum_steps=2
-    real_launches, _ = real_format_phase(device)
+    run_launches, eval_launches, sweep = _timed(times, "6-7 train run and eval",
+                                                train_run_phase, device, step_busy_ms, work)
+    # the real-format training run with grad_accum_steps=2
+    real_launches, _ = _timed(times, "8 real-format train", real_format_phase, device)
     launches.update(real_launches)
-    torch.cuda.empty_cache()
     # the model variants, then the optax path and remat
-    variant_launches, vistas = variants_phase(device)
-    torch.cuda.empty_cache()
-    optax_launches, _ = optax_phase(device)
-    torch.cuda.empty_cache()
-    # this slice's path: data parallelism (NCCL at one rank, two gloo ranks
-    # on the card for training and for the evaluation sweep)
-    multirank_launches = multirank_phase(device, work, sweep)
-    torch.cuda.empty_cache()
-    # this slice's path: spatial partitioning (one spatial group of two gloo
-    # ranks on the card, training and evaluate_cli)
-    spatial_launches = spatial_phase(device, work, sweep)
-    torch.cuda.empty_cache()
-    # this slice's path: the flagship exported with the fused units as
-    # operators, served by the C++ loader with no Python in its process
-    serve_launches = export_serve_phase(cli, device)
-    torch.cuda.empty_cache()
-    # this slice's path: the bench entry point, each mode its own process
-    bench_launches = bench_phase()
-    torch.cuda.empty_cache()
-    # this slice's path: the TF checkpoint converter and the quality tools
-    quality_launches = quality_phase(work)
+    variant_launches, vistas = _timed(times, "9 variants", variants_phase, device)
+    optax_launches, _ = _timed(times, "10 optax and remat", optax_phase, device)
+    # data parallelism (NCCL at one rank, two gloo ranks on the card for
+    # training and for the evaluation sweep)
+    multirank_launches = _timed(times, "11 multi-rank", multirank_phase, device, work, sweep)
+    # spatial partitioning (one spatial group of two gloo ranks on the card,
+    # training and evaluate_cli)
+    spatial_launches = _timed(times, "12 spatial", spatial_phase, device, work, sweep)
+    # the flagship exported with the fused units as operators, served by the
+    # C++ loader with no Python in its process
+    serve_launches = _timed(times, "13 export and serve", export_serve_phase, cli, device)
+    # the bench entry point, each mode its own process
+    bench_launches = _timed(times, "14 bench", bench_phase)
+    # the TF checkpoint converter and the quality tools
+    quality_launches = _timed(times, "15 quality", quality_phase, work)
+    # this slice's path: the spatial memory table, each row's ranks gloo
+    # processes on the card
+    memory_launches = _timed(times, "16 memory table", memory_phase)
     for r in results:
+        if r["name"] in memory_launches:
+            r["memory_launches"] = memory_launches[r["name"]]
         r["quality_launches"] = quality_launches[r["name"]]
         r["bench_launches"] = bench_launches[r["name"]]
         if r["name"] in serve_launches:
@@ -3984,6 +4132,7 @@ def _phases(work):
         if r["name"] in eval_launches:
             # B4/B5 on the evaluation path: the --eval_all_ckpts sweep
             r["eval_launches"] = eval_launches[r["name"]]
+    log("chip_smoke: phase times (s) " + json.dumps(times))
     log(f"chip_smoke: {time.time() - t0:.1f} s from the build to the end")
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {

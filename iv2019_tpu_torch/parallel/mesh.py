@@ -260,22 +260,29 @@ def alone():
 
 # ------------------------------------------------------------------ collectives
 
-_stats = {"all_reduce": 0, "broadcast": 0, "bytes": 0, "halo": 0, "halo_bytes": 0}
+_stats = {"all_reduce": 0, "broadcast": 0, "bytes": 0, "halo": 0, "halo_bytes": 0,
+          "halo_buffer_bytes": 0}
 
 
 def reset_collective_stats() -> None:
-    _stats.update(all_reduce=0, broadcast=0, bytes=0, halo=0, halo_bytes=0)
+    _stats.update(all_reduce=0, broadcast=0, bytes=0, halo=0, halo_bytes=0, halo_buffer_bytes=0)
 
 
 def collective_stats() -> dict:
     """The collectives issued since the last reset, and their bytes; halo
-    exchanges (forward and backward) apart."""
+    exchanges (forward and backward) apart, with the largest halo buffer
+    (``halo_buffer_bytes``: memory a rank holds for one exchange)."""
     return dict(_stats)
 
 
 def _count(kind: str, t: torch.Tensor) -> None:
+    nbytes = t.numel() * t.element_size()
     _stats[kind] += 1
-    _stats["halo_bytes" if kind == "halo" else "bytes"] += t.numel() * t.element_size()
+    if kind == "halo":
+        _stats["halo_bytes"] += nbytes
+        _stats["halo_buffer_bytes"] = max(_stats["halo_buffer_bytes"], nbytes)
+    else:
+        _stats["bytes"] += nbytes
 
 
 def all_reduce(t: torch.Tensor, mesh: Mesh, group=None, kind: str = "all_reduce") -> torch.Tensor:
