@@ -24,7 +24,16 @@ Phases, each of which fails the run on its own:
    1024x2048 eval size, batch 2) and at phase 12's haloed bands
    (``spatial_band_units``), on each trunk unit the dispatch rule fuses
    there; B6 with explicit pad rows at ``WGRAD_BAND_SHAPES`` (phase 12's
-   band, timed beside its bound, and two edge cases).
+   band, timed beside its bound, and two edge cases). Train-mode BatchNorm
+   under ``bn_impl="fused"`` (N1 forward, N2 backward; they replace no
+   Pallas kernel): at each distinct map of the flagship train step's 66
+   batch-norm layers (found by hooks on one forward; the heads' ragged 14,
+   7 and 3 channels among them) in bf16, timed (ms, device ms, plain,
+   ``F.batch_norm`` forward and backward as the library, the bound of one
+   pass and of the algorithm's two), again in f32 and at ``BN_EDGE_SHAPES``
+   (one channel, pointers 2 bytes off 16), each against its plain version
+   at ``BN_*``'s bounds and bit for bit over two launches; the kernel line
+   gives their launch-weighted means.
 3. predict: the port's predict path at full ResNet-50 width (Cityscapes
    taxonomy, 512x1024 input, 1024x2048 output, bf16, fused blocks) on
    seeded random weights; checks the kernel launch counts, compares with
@@ -93,7 +102,15 @@ Phases, each of which fails the run on its own:
    B3 once a step; B1/B2 not under hybrid), with step ms, device busy, peak
    memory and finite losses; then B1/B2 at the Vistas heads (53/12/5,
    4 + 12 images at 64x128 -> 512x1024) against their plain versions, bit
-   for bit over two launches, timed.
+   for bit over two launches, timed. ``bn_fused`` (``bn_impl="fused"``, no
+   predict requests: eval mode ignores it): VARIANT_STEPS steps of it and
+   of the default path from the same weights, and an f32 step 1: N1/N2
+   ``FLAGSHIP_BATCH_NORMS`` times a step under fused, never under the
+   default or any other variant; fused's losses finite and falling, its
+   step-1 losses within ``BAR_FACTOR`` times the default's distance to the
+   f32 step; per path step ms, device busy, the BatchNorm and copies-and-
+   casts groups, peak memory. The kernel line's ``launches`` of N1/N2 are
+   this run's.
 10. optax path and remat: ``SemanticSegmentation.train`` with
    ``fused_optimizer=False`` and B6 to step 4, resumed to 6 (B1, B2, B6
    once a step, B3 never; an optax-kind checkpoint), ``predict_cli`` from
@@ -119,7 +136,11 @@ Phases, each of which fails the run on its own:
    in norm under the permutation, so the bf16 gradient is printed, not
    held); then 3 bf16
    steps with B6: the state bit-equal on both ranks after 2 steps; B1, B2,
-   B3, B6 once a step on each; per rank the step ms, peak memory and the time in collectives
+   B3, B6 once a step on each; step 1 in f32 with ``bn_impl="fused"`` too
+   (N1/N2 all-reduce their sums over the ranks), held to the
+   single-process fused step under ``BAR_FACTOR`` times the largest
+   reordering distance (a row permutation of the fused and of the default
+   step, the default step's two ranks), N1/N2 66 times on each rank; per rank the step ms, peak memory and the time in collectives
    (gloo stages CUDA tensors through the host: that time says nothing of
    NCCL); (c) ``evaluate_cli --eval_all_ckpts --fused_block`` as a sweep of
    two gloo processes over the train run's checkpoints 3, 6 and 8: the
@@ -176,7 +197,8 @@ Phases, each of which fails the run on its own:
 
 14. bench (``python -m iv2019_tpu_torch.bench``, each run its own process,
    at full width and reduced step counts, ``BENCH_RUNS``): train with B6
-   off and on, predict and eval with ``IV_FUSED_BLOCK`` 0 and 1, input,
+   off and on and with ``IV_BN_IMPL=fused`` (N1/N2 66 times a step),
+   predict and eval with ``IV_FUSED_BLOCK`` 0 and 1, input,
    the input worker-scaling curve, e2e. Each run's JSON line is printed and
    must carry its mode's metric and a finite, positive value; the kernels'
    launches in its timed part, which the bench reads from their counters,
@@ -283,6 +305,33 @@ LOSS_GRAD_REL_TOL = 1e-4
 UPDATE_REL_TOL = 1e-6
 UPDATE_REG_REL_TOL = 1e-5
 
+# N1 and N2 (ops/fused_bn.py) against their plain versions, which do the
+# same f32 arithmetic on the same inputs and round once to the input's
+# type. y and dx: within one bf16 ulp of the plain version's value, plus
+# BN_NEAR_ZERO of the tensor's largest |value| for values near zero (there
+# a bf16 ulp is finer than the f32 rounding of the terms: the kernel's sums
+# run in another order and its rsqrt is the hardware's); f32 outputs within
+# BN_F32_REL_TOL of the tensor's largest |value|. The statistics and the
+# gradient's sums within BN_SUM_REL_TOL of the sum of their terms'
+# magnitudes (f64 on the card), over up to 2.1M rows: f32 within a block and
+# f64 across blocks in the kernel, torch.sum's order in f32 in the plain
+# version.
+BN_NEAR_ZERO = 2.0 ** -16
+BN_F32_REL_TOL = 1e-5
+BN_SUM_REL_TOL = 1e-5
+BN_EPS = 1e-5
+# f32 operations an element: N1 sum, square, sum, then subtract, multiply,
+# add; N2 subtract, multiply, sum, multiply, sum, then subtract, multiply,
+# subtract, multiply, subtract, multiply
+BN_FWD_OPS, BN_BWD_OPS = 6, 11
+# (images, C, h, w, storage offset in elements) beside the flagship's maps:
+# one channel, a ragged odd map, pointers 2 bytes off 16 at C = 24
+BN_EDGE_SHAPES = [(2, 1, 5, 7, 0), (3, 24, 7, 9, 1), (1, 2048, 3, 5, 0), (2, 14, 33, 17, 0)]
+# train-mode BatchNorm layers of the flagship model (trunk 53, extension 1,
+# three adaptation units 9, three logit heads 3): under bn_impl="fused" N1
+# and N2 launch once each a layer a step
+FLAGSHIP_BATCH_NORMS = 66
+
 REQUESTS = 8  # predict requests of the predict phase
 
 # Fused vs unfused predict path, same weights, both bf16. The two paths round
@@ -313,6 +362,10 @@ EVAL_MAPS = [(1, 48, 96), (1, 80, 160), (1, 128, 256), (2, 64, 128)]
 # (unit, C, M, rate, identity units per forward) of the ResNet-50 trunk
 TRUNK_UNITS = [("block2", 512, 128, 1, 3), ("block3", 1024, 256, 2, 5), ("block4", 2048, 512, 4, 2)]
 REPLACES = {
+    # N1/N2 replace no Pallas kernel: the plain-JAX custom VJP's forward and
+    # backward (ops/fused_bn.py, bn_impl="fused")
+    "fused_bn_fwd": "iv2019_tpu/ops/fused_bn.py:52",
+    "fused_bn_bwd": "iv2019_tpu/ops/fused_bn.py:75",
     "fused_bottleneck": "iv2019_tpu/ops/pallas_block.py:120",
     "fused_bottleneck_ct": "iv2019_tpu/ops/pallas_block.py:354",
     "fused_loss_fwd": "iv2019_tpu/ops/fused_loss.py:196",
@@ -589,6 +642,193 @@ def update_ok(check):
     return check["vec_rel_err"] <= UPDATE_REL_TOL and check["reg_rel_err"] <= UPDATE_REG_REL_TOL
 
 
+def bn_inputs(n, c, h, w, dtype, device, seed=0, offset=0):
+    """x and dy of N1/N2 as the train step hands them over: NCHW in
+    channels_last memory, x around a per-channel mean in [-1, 1) with a
+    per-channel std in [0.5, 2), dy at the scale of a loss's gradient; f32
+    scale in [0.5, 1.5) and bias in [-0.5, 0.5). ``offset`` elements of
+    storage before x and dy (pointers off 16 bytes: the ragged load)."""
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def nhwc(values):
+        buf = torch.empty(offset + values.numel(), dtype=dtype, device=device)
+        view = buf[offset:].view(n, h, w, c)
+        view.copy_(values)
+        return view.permute(0, 3, 1, 2)
+
+    mu = torch.rand(c, generator=gen, device=device) * 2 - 1
+    sd = torch.rand(c, generator=gen, device=device) * 1.5 + 0.5
+    x = nhwc(torch.randn((n, h, w, c), generator=gen, device=device) * sd + mu)
+    dy = nhwc(torch.randn((n, h, w, c), generator=gen, device=device) * 1e-3)
+    scale = torch.rand(c, generator=gen, device=device) + 0.5
+    bias = torch.rand(c, generator=gen, device=device) - 0.5
+    return x, dy, scale, bias
+
+
+def _bn_out_err(got, want, dtype):
+    """(the largest error over what it may be, the largest |error|) of y or
+    dx against the plain version's (BN_NEAR_ZERO, BN_F32_REL_TOL)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    top = float(want.abs().max())
+    if dtype == torch.bfloat16:
+        mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+        allowed = torch.exp2(torch.floor(torch.log2(mag)) - 7) + BN_NEAR_ZERO * top
+    else:
+        allowed = torch.full_like(want, BN_F32_REL_TOL * max(top, 1e-30))
+    return float((diff / allowed).max()), float(diff.max())
+
+
+def bn_check(n, c, h, w, dtype, device, seed=0, offset=0, timed=False):
+    """N1 and N2 at one (n, c, h, w) against their plain versions on the same
+    inputs (y and dx, the statistics, the gradient's sums, the row count),
+    two launches of each bit for bit, one launch each counted; with
+    ``timed`` also ms and device ms of each beside the plain version's and
+    the library's (``F.batch_norm`` forward, and its backward alone, on the
+    same channels_last input with f32 parameters). Returns the row."""
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+
+    x, dy, scale, bias = bn_inputs(n, c, h, w, dtype, device, seed, offset)
+    before = fbn.fused_bn_fwd.launches, fbn.fused_bn_bwd.launches
+    y, mean, var, rstd, count = fbn.fused_bn_fwd(x, scale, bias, BN_EPS)
+    dx, dscale, dbias = fbn.fused_bn_bwd(x, dy, mean, rstd, scale, count)
+    launches = [fbn.fused_bn_fwd.launches - before[0], fbn.fused_bn_bwd.launches - before[1]]
+    again = fbn.fused_bn_fwd(x, scale, bias, BN_EPS)
+    again_bwd = fbn.fused_bn_bwd(x, dy, mean, rstd, scale, count)
+    bit_equal = (all(torch.equal(a, b) for a, b in zip((y, mean, var, rstd, count), again))
+                 and all(torch.equal(a, b) for a, b in zip((dx, dscale, dbias), again_bwd)))
+    py, pmean, pvar, prstd, _ = fbn.batch_norm_train_plain(x, scale, bias, BN_EPS)
+    pdx, pdscale, pdbias = fbn.batch_norm_backward_plain(x, dy, mean, rstd, scale, count)
+    torch.cuda.synchronize()
+    m = n * h * w
+    xd, dyd = x.double(), dy.double()
+    xhat = (xd - pmean.double()[:, None, None]) * prstd.double()[:, None, None]
+    mags = {"mean": xd.abs().sum((0, 2, 3)) / m, "var": (xd * xd).sum((0, 2, 3)) / m,
+            "dbias": dyd.abs().sum((0, 2, 3)), "dscale": (dyd * xhat).abs().sum((0, 2, 3))}
+    del xd, dyd, xhat
+    sums = {k: float(((a.double() - b.double()).abs() / mags[k].clamp_min(1e-30)).max())
+            for k, a, b in (("mean", mean, pmean), ("var", var, pvar),
+                            ("dbias", dbias, pdbias), ("dscale", dscale, pdscale))}
+    y_ratio, y_err = _bn_out_err(y, py, dtype)
+    dx_ratio, dx_err = _bn_out_err(dx, pdx, dtype)
+    plan = fbn.bn_plan(m, c, x.element_size(), fbn._alignment(x, y))
+    row = dict(n=n, C=c, h=h, w=w, M=m, dtype=str(dtype).split(".")[-1], offset=offset,
+               vec=plan.vec, blocks=plan.tiles * plan.splits, launches=launches,
+               bit_equal=bit_equal, count_equal=float(count) == m,
+               y_max_abs_err=y_err, y_err_over_allowed=y_ratio,
+               dx_max_abs_err=dx_err, dx_err_over_allowed=dx_ratio,
+               sum_rel_err=sums)
+    row["ok"] = (bit_equal and row["count_equal"] and launches == [1, 1] and y_ratio <= 1
+                 and dx_ratio <= 1 and max(sums.values()) <= BN_SUM_REL_TOL)
+    del py, pdx, again, again_bwd
+    if not timed:
+        return row
+    isz = x.element_size()
+    fwd = lambda: fbn.fused_bn_fwd(x, scale, bias, BN_EPS)  # noqa: E731
+    bwd = lambda: fbn.fused_bn_bwd(x, dy, mean, rstd, scale, count)  # noqa: E731
+    xl = x.detach().requires_grad_(True)
+    sl, bl = scale.detach().requires_grad_(True), bias.detach().requires_grad_(True)
+    yl = F.batch_norm(xl, None, None, sl, bl, True, 0.0, BN_EPS)
+    runs = 5 if m * c > 2 ** 26 else 20
+    # the least bytes: x (and dy) read once and y (dx) written once; the two
+    # passes of the algorithm read x (and dy) twice
+    row.update(
+        ms=time_ms(fwd), device_ms=device_ms(fwd), bwd_ms=time_ms(bwd),
+        bwd_device_ms=device_ms(bwd),
+        plain_ms=time_ms(lambda: fbn.batch_norm_train_plain(x, scale, bias, BN_EPS), runs=runs),
+        bwd_plain_ms=time_ms(lambda: fbn.batch_norm_backward_plain(x, dy, mean, rstd, scale,
+                                                                    count), runs=runs),
+        library_ms=time_ms(lambda: F.batch_norm(x, None, None, scale, bias, True, 0.0, BN_EPS)),
+        bwd_library_ms=time_ms(lambda: torch.autograd.grad(yl, (xl, sl, bl), dy,
+                                                           retain_graph=True)),
+        mbytes=2 * m * c * isz / 1e6, bwd_mbytes=3 * m * c * isz / 1e6)
+    fwd_bound = bound(2 * m * c * isz + 20 * c, BN_FWD_OPS * m * c, PEAK_F32_FLOPS)
+    bwd_bound = bound(3 * m * c * isz + 28 * c, BN_BWD_OPS * m * c, PEAK_F32_FLOPS)
+    row.update(bound_ms=fwd_bound[0], bound_by=fwd_bound[1], bwd_bound_ms=bwd_bound[0],
+               bwd_bound_by=bwd_bound[1],
+               two_pass_bound_ms=3 * m * c * isz / PEAK_BYTES_PER_S * 1e3,
+               bwd_two_pass_bound_ms=5 * m * c * isz / PEAK_BYTES_PER_S * 1e3)
+    return row
+
+
+def bn_shapes(device):
+    """((images, C, h, w), layers) of each distinct map the flagship train
+    step's BatchNorm layers normalize: the norms' inputs in one eval-mode
+    forward of a 512x1024 image, with the step's 16 images."""
+    from iv2019_tpu_torch.models.layers import Norm
+    from iv2019_tpu_torch.models.model import build_model, init_model
+
+    model = init_model(build_model(_train_settings(device)),
+                       torch.Generator().manual_seed(0)).eval()
+    seen = {}
+
+    def hook(module, inputs):
+        key = (sum(TRAIN_NB), *inputs[0].shape[1:])
+        seen[key] = seen.get(key, 0) + 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, Norm) and m.norm_type == "batch"]
+    with torch.no_grad():
+        model(torch.zeros((1, *TRAIN_HW, 3), device=device))
+    for handle in handles:
+        handle.remove()
+    if sum(seen.values()) != FLAGSHIP_BATCH_NORMS:
+        raise AssertionError(f"{sum(seen.values())} batch norms in the flagship model, "
+                             f"expected {FLAGSHIP_BATCH_NORMS}")
+    return sorted(seen.items(), key=lambda kv: -kv[0][2] * kv[0][3] * kv[0][1])
+
+
+def bn_kernels(device):
+    """N1 and N2 against their plain versions at each distinct map of the
+    flagship train step (bf16, timed), again in f32 (a compute_dtype
+    float32 run takes the same kernels), and at edge shapes (C of 1, odd
+    sizes, pointers 2 bytes off 16: one-element loads). Times are
+    launch-weighted means over the step's layers (per_shape beside)."""
+    rows, problems = [], []
+    shapes = bn_shapes(device)
+    for (n, c, h, w), layers in shapes:
+        row = bn_check(n, c, h, w, torch.bfloat16, device, seed=len(rows), timed=True)
+        row["layers"] = layers
+        log(f"kernel fused_bn {json.dumps(row)}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    checks = []
+    for (n, c, h, w), _ in shapes:
+        checks.append(bn_check(n, c, h, w, torch.float32, device, seed=len(checks)))
+        torch.cuda.empty_cache()
+    for n, c, h, w, offset in BN_EDGE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            checks.append(bn_check(n, c, h, w, dtype, device, seed=len(checks), offset=offset))
+    for row in rows + checks:
+        if not row["ok"]:
+            problems.append(row)
+    log(f"kernel fused_bn checks (f32 and edges): {json.dumps(checks)}")
+    if problems:
+        raise AssertionError(f"N1/N2 depart from their plain versions: {problems}")
+    weight = sum(r["layers"] for r in rows)
+
+    def mean(key):
+        return sum(r[key] * r["layers"] for r in rows) / weight
+
+    common = dict(route="cuda", source="iv2019_tpu_torch/csrc/fused_bn.cu", launches=None,
+                  per_shape=rows, checks=checks)
+    out = [dict(name="fused_bn_fwd", replaces=REPLACES["fused_bn_fwd"],
+                max_abs_err=max(r["y_max_abs_err"] for r in rows), ms=mean("ms"),
+                device_ms=mean("device_ms"), plain_ms=mean("plain_ms"),
+                library_ms=mean("library_ms"), bound_ms=mean("bound_ms"), bound_by="bytes",
+                two_pass_bound_ms=mean("two_pass_bound_ms"), **common),
+           dict(name="fused_bn_bwd", replaces=REPLACES["fused_bn_bwd"],
+                max_abs_err=max(r["dx_max_abs_err"] for r in rows), ms=mean("bwd_ms"),
+                device_ms=mean("bwd_device_ms"), plain_ms=mean("bwd_plain_ms"),
+                library_ms=mean("bwd_library_ms"), bound_ms=mean("bwd_bound_ms"),
+                bound_by="bytes", two_pass_bound_ms=mean("bwd_two_pass_bound_ms"), **common)]
+    for r in out:
+        log(f"kernel {r['name']} ms {r['ms']:.4f} device {r['device_ms']:.4f} plain "
+            f"{r['plain_ms']:.4f} library {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
+            f"(two passes {r['two_pass_bound_ms']:.4f}), launch-weighted over {weight} layers")
+    return out
+
+
 def fused_wrapper(n, h, w, c, m, rate):
     """The wrapper the JAX dispatch rule picks for an identity unit, or None."""
     from iv2019_tpu_torch.ops import fused_block as fb
@@ -764,6 +1004,7 @@ def kernel_phase(device):
         by_name[row["wrapper"]][key].append(row)
     results.extend(train_kernels(device))
     results.append(wgrad_kernel(device))
+    results.extend(bn_kernels(device))
     return results
 
 
@@ -1126,7 +1367,8 @@ STEP_GROUPS = (
     ("port kernels B1-B3, B6", ("fwd_walk_kernel", "bwd_walk_kernel", "update_kernel", "sum_partials",
                                 "wgrad_root_kernel", "wgrad_root_reduce_kernel",
                                 "wgrad_general_kernel", "wgrad_general_reduce_kernel")),
-    ("batchnorm", ("batchnorm", "batch_norm")),
+    ("batchnorm", ("batchnorm", "batch_norm", "bn_stats_kernel", "bn_apply_kernel",
+                   "bn_bwd_reduce_kernel", "bn_bwd_dx_kernel", "bn_combine_kernel")),
     ("conv and gemm", ("xmma", "nvjet", "gemm", "conv", "cutlass")),
     ("copies and casts", ("copy", "convert")),
 )
@@ -1363,6 +1605,19 @@ def _counts():
             "root_conv_wgrad": rw.root_conv_wgrad.launches}
 
 
+def _bn_counts():
+    """The launch counts of N1 and N2 (bn_impl="fused")."""
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+
+    return {"fused_bn_fwd": fbn.fused_bn_fwd.launches, "fused_bn_bwd": fbn.fused_bn_bwd.launches}
+
+
+def _reset_bn():
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+
+    fbn.fused_bn_fwd.launches = fbn.fused_bn_bwd.launches = 0
+
+
 def _reset_counts():
     from iv2019_tpu_torch.ops import fused_loss as fl
     from iv2019_tpu_torch.ops import fused_update as fu
@@ -1449,6 +1704,7 @@ def train_phase(device, steps=TRAIN_STEPS):
     captured, remove_hooks = capture_root_grads(runs[True]["opt"].model)
 
     _reset_counts()
+    _reset_bn()
     for i in range(steps + 1):
         # the two paths take turns, in alternating order
         for flag in (False, True) if i % 2 == 0 else (True, False):
@@ -1467,6 +1723,8 @@ def train_phase(device, steps=TRAIN_STEPS):
     want = {"fused_loss_fwd": 2 * (steps + 1), "fused_loss_bwd": 2 * (steps + 1),
             "fused_update": 2 * (steps + 1), "root_conv_wgrad": steps + 1}
     log(f"train: launches {launches}")
+    if any(_bn_counts().values()):
+        raise AssertionError(f"N1/N2 launched on the default (bn_impl=flax) path: {_bn_counts()}")
     if launches != want or runs[True]["b6"] != [1] * (steps + 1) or any(runs[False]["b6"]):
         raise AssertionError(f"launches {launches}, expected {want}; B6 per step with the flag "
                              f"{runs[True]['b6']}, without {runs[False]['b6']}")
@@ -2340,6 +2598,8 @@ VARIANTS = [
     ("hybrid", "cityscapes", dict(upsampling_method="hybrid")),
     ("group_norm", "cityscapes", dict(norm_layer="group")),
     ("fused_heads", "cityscapes", dict(fuse_adaptation=True)),
+    # train-mode BatchNorm as N1/N2 (its own runs: bn_fused_variant)
+    ("bn_fused", "cityscapes", dict(bn_impl="fused")),
 ]
 # predict requests and train steps of each variant; the optax run's steps
 # and its resume; train steps of the optax-against-fused and remat checks
@@ -2459,6 +2719,11 @@ def variants_phase(device):
     stats = {}
     for name, dataset, fields in VARIANTS:
         settings = _train_settings(device, per_pixel_dataset_name=dataset, **fields)
+        if settings.bn_impl == "fused":
+            stats[name], launches = bn_fused_variant(settings, batch)
+            for k, v in launches.items():
+                totals[k] += v
+            continue
         fb_launches, pred = variant_predict(settings.replace(mode="predict"), images, rng)
         torch.cuda.empty_cache()
         batch_norm = settings.norm_layer == "batch"
@@ -2468,12 +2733,14 @@ def variants_phase(device):
         model, step, holder = _fused_train(settings)
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
+        _reset_bn()
         runs = _steps(step, holder, batch, VARIANT_STEPS)
-        launches = _counts()
+        launches = {**_counts(), **_bn_counts()}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         bilinear = settings.upsampling_method == "bilinear"
         want = {"fused_loss_fwd": VARIANT_STEPS * bilinear, "fused_loss_bwd": VARIANT_STEPS * bilinear,
-                "fused_update": VARIANT_STEPS, "root_conv_wgrad": 0}
+                "fused_update": VARIANT_STEPS, "root_conv_wgrad": 0, "fused_bn_fwd": 0,
+                "fused_bn_bwd": 0}
         losses = [m for _, m in runs]
         profile = profile_call(lambda: step(holder["state"], batch), f"variant {name} step",
                                runs[-1][0], top=6, groups=STEP_GROUPS)
@@ -2497,7 +2764,85 @@ def variants_phase(device):
     log("variants: " + json.dumps(dict(launches=totals, **{
         k: dict(step_ms=v["step_ms"], device_busy_ms=v["device_busy_ms"],
                 peak_memory_gib=v["peak_memory_gib"]) for k, v in stats.items()})))
-    return totals, vistas
+    return totals, vistas, {k: stats["bn_fused"]["fused"]["launches"][k]
+                            for k in ("fused_bn_fwd", "fused_bn_bwd")}
+
+
+# the bn_fused variant's step-1 losses against the f32 step's: within
+# BAR_FACTOR times the default bf16 step's distance to it (floored at 1e-6
+# relative; 1e-3 for the mIoU)
+BN_TRUTH_KEYS = ("total", "l1_segmentation", "l2_vehicle_segmentation", "l2_human_segmentation",
+                 "miou")
+
+
+def bn_fused_variant(settings, batch):
+    """The bn_fused variant: VARIANT_STEPS steps of the default path
+    (``bn_impl="flax"``) and of ``bn_impl="fused"`` from the same seeded
+    weights on the constant batch, one after the other, and an f32 default
+    step 1 as the truth. N1 and N2 exactly FLAGSHIP_BATCH_NORMS times a step
+    under fused and never under flax; B1-B3 once a step in both; finite
+    losses, falling under fused; fused's step-1 losses within the bar of
+    the default's distance to the f32 step. Per run the step ms, device
+    busy, the BatchNorm and copies-and-casts groups, and the peak. Returns
+    (the runs, the fused run's launches)."""
+    from iv2019_tpu_torch.bench import train_norm_launches
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+
+    runs = {}
+    for key, s in (("default", settings.replace(bn_impl="flax")), ("fused", settings),
+                   ("f32", settings.replace(bn_impl="flax", compute_dtype="float32"))):
+        model, step, holder = _fused_train(s)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        _reset_bn()
+        copies = fbn.batch_norm_train.layout_copies
+        steps = _steps(step, holder, batch, 1 if key == "f32" else VARIANT_STEPS)
+        row = dict(launches={**_counts(), **_bn_counts()}, step_ms=[t for t, _ in steps],
+                   layout_copies=fbn.batch_norm_train.layout_copies - copies,
+                   totals=[m["total"] for _, m in steps], step1=steps[0][1],
+                   peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   batch_norms=train_norm_launches(model),
+                   finite=all(np.isfinite(v) for _, m in steps for v in m.values()))
+        if key != "f32":
+            profile = profile_call(lambda: step(holder["state"], batch),
+                                   f"variant bn_fused ({key} step)", steps[-1][0], top=6,
+                                   groups=STEP_GROUPS)
+            groups = profile["device_ms_by_group"]
+            row.update(device_busy_ms=profile["device_busy_ms"], batchnorm_ms=groups["batchnorm"],
+                       copies_and_casts_ms=groups["copies and casts"],
+                       idle_share=profile["idle_share"])
+        runs[key] = row
+        del model, step, holder
+        torch.cuda.empty_cache()
+    truth, problems = {}, []
+    for k in BN_TRUTH_KEYS:
+        f32, default, fused = (runs[r]["step1"][k] for r in ("f32", "default", "fused"))
+        floor = 1e-3 if k == "miou" else 1e-6 * abs(f32)
+        bar = BAR_FACTOR * max(abs(default - f32), floor)
+        truth[k] = dict(f32=f32, default=default, fused=fused, bar=bar)
+        if abs(fused - f32) > bar:
+            problems.append(f"step-1 {k}: {truth[k]}")
+    per_step = VARIANT_STEPS * FLAGSHIP_BATCH_NORMS
+    want = {"fused_loss_fwd": VARIANT_STEPS, "fused_loss_bwd": VARIANT_STEPS,
+            "fused_update": VARIANT_STEPS, "root_conv_wgrad": 0}
+    if runs["fused"]["launches"] != {**want, "fused_bn_fwd": per_step, "fused_bn_bwd": per_step}:
+        problems.append(f"fused launches {runs['fused']['launches']}, expected N1/N2 {per_step}")
+    if runs["default"]["launches"] != {**want, "fused_bn_fwd": 0, "fused_bn_bwd": 0}:
+        problems.append(f"default launches {runs['default']['launches']}")
+    if runs["fused"]["batch_norms"] != FLAGSHIP_BATCH_NORMS:
+        problems.append(f"{runs['fused']['batch_norms']} train-mode batch norms")
+    if not all(r["finite"] for r in runs.values()):
+        problems.append("non-finite losses")
+    if not runs["fused"]["totals"][-1] < runs["fused"]["totals"][0]:
+        problems.append(f"fused total did not fall: {runs['fused']['totals']}")
+    out = dict(runs, step1_against_f32=truth, step_ms=runs["fused"]["step_ms"],
+               device_busy_ms=runs["fused"]["device_busy_ms"],
+               peak_memory_gib=runs["fused"]["peak_memory_gib"])
+    log("variant bn_fused: " + json.dumps(out))
+    if problems:
+        raise AssertionError("variant bn_fused: " + "; ".join(problems))
+    return out, runs["fused"]["launches"]
 
 
 def optax_run(device, tmp, problem):
@@ -2873,6 +3218,16 @@ def _gloo_train_rank(rank, port, tmp):
         f32_grads = opt.grads.detach().cpu().clone()
         del opt, state, step, m
         torch.cuda.empty_cache()
+        # the same step 1 with bn_impl="fused": N1/N2 over both ranks' rows
+        _reset_bn()
+        opt, state, step = _fused_run(settings.replace(compute_dtype="float32", bn_impl="fused"),
+                                      mesh)
+        _, m = step(state, batch)
+        bn_fused = dict(history=[_metrics(m)], grads_digest=_digest([opt.grads]),
+                        launches=_bn_counts())
+        bn_fused_grads = opt.grads.detach().cpu().clone()
+        del opt, state, step, m
+        torch.cuda.empty_cache()
 
         opt, state, step = _fused_run(settings, mesh)
         # as the training loop does after its init
@@ -2904,6 +3259,7 @@ def _gloo_train_rank(rank, port, tmp):
         timed_ms = (time.perf_counter() - t0) * 1e3
         timed["bytes"] = pmesh.collective_stats()["bytes"]
         out = dict(rank=rank, rows={k: int(v.shape[0]) for k, v in batch.items()}, f32=f32,
+                   bn_fused=bn_fused,
                    history=history, step_ms=times, timed_step_ms=timed_ms,
                    collective_ms=timed["seconds"] * 1e3, collectives=colls,
                    collective_mb=timed["bytes"] / 1e6,
@@ -2913,7 +3269,8 @@ def _gloo_train_rank(rank, port, tmp):
                    grads_digest=_digest([grads]),
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         torch.save({"out": out, "grads": grads if rank == 0 else None,
-                    "f32_grads": f32_grads if rank == 0 else None},
+                    "f32_grads": f32_grads if rank == 0 else None,
+                    "bn_fused_grads": bn_fused_grads if rank == 0 else None},
                    _rank_file(tmp, "train", rank))
     finally:
         multihost.shutdown()
@@ -2999,6 +3356,16 @@ def gloo_train(device, tmp):
             layout = opt.layout
             del opt, state, step, m
             torch.cuda.empty_cache()
+    # the single-process f32 step 1 with bn_impl="fused" (N1/N2 on one
+    # rank), on the global batch and on its permutation
+    for name, b in (("global", batch), ("permuted", permuted)):
+        _reset_bn()
+        opt, state, step = _fused_run(settings.replace(compute_dtype="float32",
+                                                       bn_impl="fused"))
+        _, m = step(state, b)
+        ref["bn_fused", name] = (_metrics(m), opt.grads.detach().cpu().clone(), _bn_counts())
+        del opt, state, step, m
+        torch.cuda.empty_cache()
     del batch, permuted
     torch.cuda.empty_cache()
 
@@ -3034,6 +3401,7 @@ def gloo_train(device, tmp):
             if grad["ranks"] > grad["bar"] or grad["worst_param"]["ratio"] > BAR_FACTOR:
                 problems.append(f"f32 step-1 gradient {grad}")
         step1[dtype] = dict(losses=rows, grad_rel_norm=grad)
+    step1["bn_fused"] = bn_fused_ranks(ref, ranks, layout, problems)
     want_all_reduces = 2 * _batch_norms(settings) + 3
     summary = dict(
         ranks=RANKS, backend="gloo", device="cuda:0 (shared)", wall_s=wall_s,
@@ -3045,7 +3413,9 @@ def gloo_train(device, tmp):
                   for o in outs],
         equal_state=outs[0]["digests"] == outs[1]["digests"],
         equal_grads=(outs[0]["grads_digest"] == outs[1]["grads_digest"]
-                     and outs[0]["f32"]["grads_digest"] == outs[1]["f32"]["grads_digest"]))
+                     and outs[0]["f32"]["grads_digest"] == outs[1]["f32"]["grads_digest"]
+                     and outs[0]["bn_fused"]["grads_digest"]
+                     == outs[1]["bn_fused"]["grads_digest"]))
     log("multirank (b) two gloo ranks, train: " + json.dumps(summary))
     if not (summary["equal_state"] and summary["equal_grads"]):
         problems.append("the ranks' state or gradient differ")
@@ -3061,7 +3431,62 @@ def gloo_train(device, tmp):
                         "loss sums, the gradient, the confusion matrix)")
     if problems:
         raise AssertionError("two gloo ranks, train: " + "; ".join(problems))
-    return {k: [o["launches"][k] for o in outs] for k in outs[0]["launches"]}
+    out = {k: [o["launches"][k] for o in outs] for k in outs[0]["launches"]}
+    out.update({k: [o["bn_fused"]["launches"][k] for o in outs] for k in _bn_counts()})
+    return out
+
+
+def bn_fused_ranks(ref, ranks, layout, problems):
+    """(b)'s f32 step 1 with bn_impl="fused" on the two ranks against the
+    single-process one on the global batch: the losses and the gradient
+    (whole and parameter by parameter) within BAR_FACTOR times the largest
+    distance a reordering of the same sums shows on the card, as the
+    default step is held: permuting the rows of the fused step, of the
+    default step, and the default step's own two ranks against its single
+    process (one permutation alone is a poor sample: a near-tie of an L1
+    decision that flips moves a gated weak loss, and the L2 human head's
+    3-element norm gradient with it, by a pixel's share). N1/N2 once a
+    layer on each rank and in each single-process step. Appends to
+    ``problems``; returns the numbers."""
+    (want, want_g, single), (perm, perm_g, permuted) = (ref["bn_fused", "global"],
+                                                        ref["bn_fused", "permuted"])
+    (flax, flax_g), (flax_perm, flax_perm_g) = (ref["float32", "global"],
+                                                ref["float32", "permuted"])
+    flax_ranks, flax_ranks_g = ranks[0]["out"]["f32"]["history"][0], ranks[0]["f32_grads"]
+    got_g = ranks[0]["bn_fused_grads"]
+    rows = {}
+    for k in want:
+        floor = 1e-3 if k == "miou" else 1e-6 * abs(want[k])
+        got = [r["out"]["bn_fused"]["history"][0][k] for r in ranks]
+        noise = max(abs(perm[k] - want[k]), abs(flax_perm[k] - flax[k]),
+                    abs(flax_ranks[k] - flax[k]))
+        rows[k] = dict(single=want[k], ranks=got, permuted=perm[k],
+                       bar=BAR_FACTOR * max(noise, floor))
+        if any(abs(g - want[k]) > rows[k]["bar"] for g in got):
+            problems.append(f"bn_fused step-1 {k}: {rows[k]}")
+
+    def noise_of(part):
+        return max(_rel_norm(perm_g[part], want_g[part]),
+                   _rel_norm(flax_perm_g[part], flax_g[part]),
+                   _rel_norm(flax_ranks_g[part], flax_g[part]))
+
+    whole = slice(0, len(want_g))
+    grad = dict(ranks=_rel_norm(got_g, want_g), noise=noise_of(whole))
+    grad["bar"] = BAR_FACTOR * max(grad["noise"], 1e-7)
+    worst = None
+    for name, shape, _, offset in layout:
+        part = slice(offset, offset + int(np.prod(shape)))
+        dist, noise = _rel_norm(got_g[part], want_g[part]), noise_of(part)
+        ratio = dist / max(noise, PARAM_FLOOR)
+        if worst is None or ratio > worst["ratio"]:
+            worst = dict(param=name, ratio=ratio, ranks=dist, noise=noise)
+    grad["worst_param"] = worst
+    if grad["ranks"] > grad["bar"] or worst["ratio"] > BAR_FACTOR:
+        problems.append(f"bn_fused step-1 gradient {grad}")
+    launches = [r["out"]["bn_fused"]["launches"] for r in ranks] + [single, permuted]
+    if any(v != FLAGSHIP_BATCH_NORMS for counts in launches for v in counts.values()):
+        problems.append(f"bn_fused launches {launches}, expected {FLAGSHIP_BATCH_NORMS} each")
+    return dict(losses=rows, grad_rel_norm=grad, launches=launches)
 
 
 def _batch_norms(settings):
@@ -3440,6 +3865,7 @@ def multirank_phase(device, tmp, sweep):
     evaluation = gloo_eval(tmp, sweep)
     out = {k: {"nccl_world1": world1[k], "gloo_ranks": train[k]} for k in world1}
     out.update({k: {"gloo_eval_processes": v} for k, v in evaluation.items()})
+    out.update({k: {"gloo_ranks_bn_fused_step1": train[k]} for k in _bn_counts()})
     return out
 
 
@@ -3619,6 +4045,7 @@ def export_serve_phase(cli, device):
 BENCH_RUNS = [
     ("train", ["train", "3"], {}),
     ("train_b6", ["train", "3"], {"IV_ROOT_WGRAD_PALLAS": "1"}),
+    ("train_bn_fused", ["train", "3"], {"IV_BN_IMPL": "fused"}),
     ("predict", ["predict", "5"], {}),
     ("predict_fused", ["predict", "5"], {"IV_FUSED_BLOCK": "1"}),
     ("eval", ["eval", "2"], {}),
@@ -3642,6 +4069,9 @@ def _bench_want(argv, knobs):
         want.update(fused_loss_fwd=steps, fused_loss_bwd=steps, fused_update=steps)
         if knobs.get("IV_ROOT_WGRAD_PALLAS") == "1":
             want["root_conv_wgrad"] = steps
+        if knobs.get("IV_BN_IMPL") == "fused":
+            want.update(fused_bn_fwd=steps * FLAGSHIP_BATCH_NORMS,
+                        fused_bn_bwd=steps * FLAGSHIP_BATCH_NORMS)
     elif argv[0] == "predict" and knobs.get("IV_FUSED_BLOCK") == "1":
         want.update(add_launches({}, 1, TRAIN_HW[0] // 8, TRAIN_HW[1] // 8, steps))
     elif argv[0] == "eval" and knobs.get("IV_FUSED_BLOCK") == "1":
@@ -4090,7 +4520,9 @@ def _phases(work):
     real_launches, _ = _timed(times, "8 real-format train", real_format_phase, device)
     launches.update(real_launches)
     # the model variants, then the optax path and remat
-    variant_launches, vistas = _timed(times, "9 variants", variants_phase, device)
+    variant_launches, vistas, bn_launches = _timed(times, "9 variants", variants_phase, device)
+    # N1/N2's main path: the bn_fused variant's steps
+    launches.update(bn_launches)
     optax_launches, _ = _timed(times, "10 optax and remat", optax_phase, device)
     # data parallelism (NCCL at one rank, two gloo ranks on the card for
     # training and for the evaluation sweep)
@@ -4116,7 +4548,8 @@ def _phases(work):
         if r["name"] in serve_launches:
             r["serve_launches"] = serve_launches[r["name"]]
         r["multirank_launches"] = multirank_launches[r["name"]]
-        r["spatial_launches"] = spatial_launches[r["name"]]
+        if r["name"] in spatial_launches:
+            r["spatial_launches"] = spatial_launches[r["name"]]
         if r["name"] == "fused_loss_fwd":
             r["vistas_shape"] = vistas[0]
         if r["name"] == "fused_loss_bwd":

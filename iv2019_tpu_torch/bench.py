@@ -46,9 +46,11 @@ Metrics (``metric`` of the line):
 Knobs: ``IV_SHAPE`` ("512,1024" or "512x1024"; the two formats of
 ``bench.py``'s train and eval modes, accepted by every mode), ``IV_NB``
 ("4,8,4" for train, input and e2e; one count, default 8, for eval),
-``IV_FUSED_BLOCK``, ``IV_DENSE_LABELS``, ``IV_ROOT_WGRAD_PALLAS``, and the
-TPU layout switches ``IV_CONV_IMPL``, ``IV_BN_IMPL``, ``IV_DILATION_MODE``,
-``IV_ROOT_S2D``, which the port accepts and runs its one path for (config.py).
+``IV_FUSED_BLOCK``, ``IV_DENSE_LABELS``, ``IV_ROOT_WGRAD_PALLAS``,
+``IV_BN_IMPL`` (``fused``: train-mode BatchNorm as kernels N1/N2, one
+launch each a batch-norm layer a step), and the TPU layout switches
+``IV_CONV_IMPL``, ``IV_DILATION_MODE``, ``IV_ROOT_S2D``, which the port
+accepts and runs its one path for (config.py).
 ``bench.py`` reads ``IV_SHAPE`` and ``IV_NB`` in train and eval only; here
 predict, input and e2e read them too (predict's output is twice the input,
 the input data's native size twice it as well), so that every mode runs at
@@ -141,14 +143,26 @@ def _flag(name: str) -> bool:
 def _counters() -> dict:
     """The wrapper of each hand-written kernel, by the name chip_smoke.py
     reports it under; each counts its launches in ``.launches``."""
-    from iv2019_tpu_torch.ops import fused_block, fused_loss, fused_update, root_wgrad
+    from iv2019_tpu_torch.ops import fused_block, fused_bn, fused_loss, fused_update, root_wgrad
 
     return {"fused_loss_fwd": fused_loss.fused_loss_fwd,
             "fused_loss_bwd": fused_loss.fused_loss_bwd,
             "fused_update": fused_update.fused_update,
             "fused_bottleneck": fused_block.fused_bottleneck,
             "fused_bottleneck_ct": fused_block.fused_bottleneck_ct,
-            "root_conv_wgrad": root_wgrad.root_conv_wgrad}
+            "root_conv_wgrad": root_wgrad.root_conv_wgrad,
+            "fused_bn_fwd": fused_bn.fused_bn_fwd,
+            "fused_bn_bwd": fused_bn.fused_bn_bwd}
+
+
+def train_norm_launches(model) -> int:
+    """N1 and N2 launches each of a train step of ``model`` (in train
+    mode): one each a batch-norm layer under ``bn_impl="fused"``, else 0."""
+    from iv2019_tpu_torch.models.layers import Norm
+
+    return sum(1 for m in model.modules()
+               if isinstance(m, Norm) and m.norm_type == "batch" and m.bn_impl == "fused"
+               and m.training)
 
 
 def _reset_launches() -> None:
@@ -295,9 +309,12 @@ def train(steps: int = 20, warmup: int = 3, device: str = "cuda") -> dict:
     state = holder.pop("state")
     _sync(device)
     launched = {k: v for k, v in _launches().items() if v}
-    if device.type == "cuda" and launched != dict.fromkeys(expected, 1):
-        raise RuntimeError(f"bench train: kernel launches {launched} in one step, expected "
-                           f"one each of {sorted(expected)}")
+    want = dict.fromkeys(expected, 1)
+    norms = train_norm_launches(model)
+    if norms:
+        want.update(fused_bn_fwd=norms, fused_bn_bwd=norms)
+    if device.type == "cuda" and launched != want:
+        raise RuntimeError(f"bench train: kernel launches {launched} in one step, expected {want}")
     flops_per_step = counted + sum(v for k, v in expected.items() if k in launched)
 
     for _ in range(warmup):

@@ -13,10 +13,12 @@ on-device bbox rasterizing, compact image labels, the model variants (PSP,
 FOV conv, hybrid upsampling, group norm, fused adaptation heads), remat and
 the optax path are ported; ``rasterize_on_device``,
 ``compact_image_labels``, ``root_wgrad_pallas``, ``fuse_adaptation`` and
-``fused_optimizer`` have no flag, as in the JAX package. The TPU layout
-switches ``conv_impl``, ``bn_impl``, ``dilation_mode`` and ``root_conv_s2d``
-compute the same function as their defaults in the JAX package, and the
-port runs its one path for every value; ``enable_xla`` and ``distribute``
+``fused_optimizer`` have no flag, as in the JAX package. ``bn_impl="fused"``
+runs train-mode BatchNorm as ops/fused_bn.py (the JAX package's
+FusedBatchNorm; kernels N1/N2 on the card). The TPU layout switches
+``conv_impl``, ``dilation_mode`` and ``root_conv_s2d`` compute the same
+function as their defaults in the JAX package, and the port runs its one
+path for every value; ``enable_xla`` and ``distribute``
 are kept for parity and do nothing. Multi-device and multi-process runs
 (``num_devices``, ``num_processes``, ``num_slices``, ``spatial_partitions``;
 the train and evaluate command lines) run one rank per device

@@ -17,7 +17,12 @@ as ``conv.weight`` (OIHW) and ``norm/BatchNorm/<leaf>`` as ``norm.<leaf>``
   ``decay * ra + (1 - decay) * batch`` with the *biased* variance, as flax.
   With more than one rank (parallel/mesh.py) the train-mode statistics
   are those of the global batch: one all-reduce of the per-channel sums
-  forward, one of the gradient's sums backward.
+  forward, one of the gradient's sums backward. ``bn_impl="fused"`` (the
+  JAX package's FusedBatchNorm, layers.py:207-240) runs train-mode batch
+  norm as ops/fused_bn.py: flax's single-pass statistics and the classic
+  two-reduction backward, on the compute-type activation (kernels N1/N2
+  on the card), over every rank's rows when there are several; eval mode,
+  group norm and ``"none"`` ignore it, as in JAX.
   ``norm_type="group"`` is flax GroupNorm (``min(groups, C)`` groups,
   f32, the same in both modes, no running statistics), its parameters
   named ``scale`` and ``bias`` as flax's (weight decay applies to
@@ -44,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from iv2019_tpu_torch.ops import fused_block as fb
+from iv2019_tpu_torch.ops import fused_bn
 from iv2019_tpu_torch.parallel import mesh as pmesh
 
 __all__ = ["BottleneckV1", "Conv", "ConvNormRelu", "Norm"]
@@ -69,14 +75,18 @@ class Norm(nn.Module):
     """BatchNorm (or GroupNorm, or none) in f32 (the flax ``BatchNorm`` /
     ``GroupNorm`` variables); batch norm's mode follows ``module.train()`` /
     ``module.eval()``. ``update_stats`` False keeps the running statistics
-    where they are in train mode (a recomputed forward, models/resnet.py)."""
+    where they are in train mode (a recomputed forward, models/resnet.py).
+    ``bn_impl`` "fused" runs train-mode batch norm as ops/fused_bn.py."""
 
     def __init__(self, channels: int, epsilon: float = 1e-5, decay: float = 0.9,
-                 norm_type: str = "batch", groups: int = 32):
+                 norm_type: str = "batch", groups: int = 32, bn_impl: str = "flax"):
         super().__init__()
         if norm_type not in ("batch", "group", "none"):
             raise ValueError(f"unknown norm_type {norm_type!r}")
+        if bn_impl not in ("flax", "fused"):
+            raise ValueError(f"unknown bn_impl {bn_impl!r}")
         self.norm_type, self.epsilon, self.decay = norm_type, epsilon, decay
+        self.bn_impl = bn_impl
         self.num_groups = min(groups, channels)
         self.update_stats = True
         if norm_type == "none":
@@ -106,6 +116,8 @@ class Norm(nn.Module):
 
     def _train(self, x: torch.Tensor) -> torch.Tensor:
         mesh = pmesh.norm_mesh()
+        if self.bn_impl == "fused":
+            return self._train_fused(x, mesh)
         if mesh is not None:
             return self._train_global(x, mesh)
         # Autograd differentiates through the batch statistics, as flax's
@@ -125,6 +137,15 @@ class Norm(nn.Module):
                 self.var.mul_(self.decay).add_(batch_var * ((count - 1) / count),
                                                alpha=1.0 - self.decay)
         return y.to(x.dtype)
+
+    def _train_fused(self, x: torch.Tensor, mesh) -> torch.Tensor:
+        # FusedBatchNorm: the running statistics move with the biased variance
+        y, mean, var = fused_bn.batch_norm_train(x, self.scale, self.bias, self.epsilon, mesh)
+        if self.update_stats:
+            with torch.no_grad():
+                self.mean.mul_(self.decay).add_(mean, alpha=1.0 - self.decay)
+                self.var.mul_(self.decay).add_(var, alpha=1.0 - self.decay)
+        return y
 
     def _train_global(self, x: torch.Tensor, mesh) -> torch.Tensor:
         # statistics of the global batch, as JAX's BatchNorm under SPMD: the
@@ -227,17 +248,18 @@ class ConvNormRelu(nn.Module):
 
     ``activation=False`` still applies the norm, as the reference's logit
     heads do. ``feature_group_count`` splits the conv into that many groups;
-    ``groups`` is the group norm's.
+    ``groups`` is the group norm's, ``bn_impl`` the batch norm's.
     """
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1, rate: int = 1,
                  activation: bool = True, dtype: torch.dtype = torch.bfloat16,
-                 norm_type: str = "batch", groups: int = 32, feature_group_count: int = 1):
+                 norm_type: str = "batch", groups: int = 32, feature_group_count: int = 1,
+                 bn_impl: str = "flax"):
         super().__init__()
         self.stride, self.rate, self.activation, self.dtype = stride, rate, activation, dtype
         self.feature_group_count = feature_group_count
         self.conv = Conv(cin, cout, kernel_size, feature_group_count)
-        self.norm = Norm(cout, norm_type=norm_type, groups=groups)
+        self.norm = Norm(cout, norm_type=norm_type, groups=groups, bn_impl=bn_impl)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.norm(conv_same(x.to(self.dtype), self.conv.weight, self.stride, self.rate,
@@ -276,12 +298,12 @@ class BottleneckV1(nn.Module):
 
     def __init__(self, depth_in: int, depth: int, depth_bottleneck: int, stride: int = 1,
                  rate: int = 1, fused_block: bool = False, dtype: torch.dtype = torch.bfloat16,
-                 norm_type: str = "batch"):
+                 norm_type: str = "batch", bn_impl: str = "flax"):
         super().__init__()
         self.depth_in, self.depth, self.depth_bottleneck = depth_in, depth, depth_bottleneck
         self.stride, self.rate, self.fused_block, self.dtype = stride, rate, fused_block, dtype
         self.norm_type = norm_type
-        kw = dict(dtype=dtype, norm_type=norm_type)
+        kw = dict(dtype=dtype, norm_type=norm_type, bn_impl=bn_impl)
         if depth_in != depth:
             self.shortcut = ConvNormRelu(depth_in, depth, 1, stride, activation=False, **kw)
         self.conv1 = ConvNormRelu(depth_in, depth_bottleneck, 1, **kw)

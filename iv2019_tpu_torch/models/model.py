@@ -97,9 +97,10 @@ class PSPModule(nn.Module):
 
     DIVS = (1, 2, 3, 6)
 
-    def __init__(self, cin: int, features: int, dtype: torch.dtype, norm_type: str):
+    def __init__(self, cin: int, features: int, dtype: torch.dtype, norm_type: str,
+                 bn_impl: str = "flax"):
         super().__init__()
-        kw = dict(dtype=dtype, norm_type=norm_type)
+        kw = dict(dtype=dtype, norm_type=norm_type, bn_impl=bn_impl)
         for d in self.DIVS:
             self.add_module(f"conv{d}", ConvNormRelu(cin, features, 1, **kw))
         self.conv_final = ConvNormRelu(cin + len(self.DIVS) * features, features, 1, **kw)
@@ -172,17 +173,17 @@ class HierarchicalSegmentationModel(nn.Module):
                  batch_norm_decay: float = 0.9, root_wgrad_pallas: bool = False,
                  fov_expansion_kernel_size: int = 0, fov_expansion_kernel_rate: int = 0,
                  psp_module: bool = False, fuse_adaptation: bool = False,
-                 norm_type: str = "batch", remat: bool = False):
+                 norm_type: str = "batch", remat: bool = False, bn_impl: str = "flax"):
         super().__init__()
         if upsampling_method not in ("no", "bilinear", "hybrid"):
             raise ValueError(f"unknown upsampling_method {upsampling_method}")
         self.taxonomy = taxonomy
         self.upsampling_method = upsampling_method
         self.fuse_adaptation = fuse_adaptation
-        kw = dict(dtype=dtype, norm_type=norm_type)
+        kw = dict(dtype=dtype, norm_type=norm_type, bn_impl=bn_impl)
         base = ResNetV1(resnet_blocks or RESNET50_BLOCKS, stride_feature_extractor,
                         fused_block=fused_block, dtype=dtype, root_wgrad_pallas=root_wgrad_pallas,
-                        norm_type=norm_type, remat=remat)
+                        norm_type=norm_type, remat=remat, bn_impl=bn_impl)
         self.add_module("feature_extractor/base", base)
         c = base.depth_out
         self.extension = []
@@ -195,7 +196,7 @@ class HierarchicalSegmentationModel(nn.Module):
         self.psp_module = psp_module
         if psp_module:
             self.add_module("feature_extractor/pyramid_module",
-                            PSPModule(c, feature_dims_decreased, dtype, norm_type))
+                            PSPModule(c, feature_dims_decreased, dtype, norm_type, bn_impl))
             c = feature_dims_decreased
         widths = (taxonomy.num_l1_classes, taxonomy.num_vehicle_classes,
                   taxonomy.num_human_classes)
@@ -292,9 +293,11 @@ def build_model(settings: Settings, device=None) -> HierarchicalSegmentationMode
     with channels_last conv weights, in train mode when ``settings.mode`` is
     train and ``batch_norm_accumulate_statistics`` is set, else in eval
     mode. Weights are uninitialized: load them (utils/convert.py) or draw
-    them (``init_model``). ``conv_impl``, ``bn_impl``, ``dilation_mode`` and
-    ``root_conv_s2d`` select layouts of the same function on the TPU; the
-    port has one path for all of them."""
+    them (``init_model``). ``bn_impl="fused"`` runs train-mode batch norm
+    as ops/fused_bn.py (kernels N1/N2 on the card), as the JAX package's
+    FusedBatchNorm; ``conv_impl``, ``dilation_mode`` and ``root_conv_s2d``
+    select layouts of the same function on the TPU, and the port has one
+    path for all of them."""
     device = resolve_device(device or settings.device)
     model = HierarchicalSegmentationModel(
         taxonomy=get_taxonomy(settings.per_pixel_dataset_name),
@@ -312,6 +315,7 @@ def build_model(settings: Settings, device=None) -> HierarchicalSegmentationMode
         fuse_adaptation=settings.fuse_adaptation,
         norm_type=settings.norm_layer,
         remat=settings.remat,
+        bn_impl=settings.bn_impl,
     )
     model = model.to(device=device, memory_format=torch.channels_last)
     train = settings.mode == "train" and settings.batch_norm_accumulate_statistics

@@ -208,11 +208,11 @@ class ResNetV1(nn.Module):
     def __init__(self, blocks=RESNET50_BLOCKS, output_stride: int = 8,
                  fused_block: bool = False, dtype: torch.dtype = torch.bfloat16,
                  root_wgrad_pallas: bool = False, norm_type: str = "batch",
-                 remat: bool = False):
+                 remat: bool = False, bn_impl: str = "flax"):
         super().__init__()
         self.remat = remat
         self.conv1 = _RootConv(dtype, wgrad_kernel=root_wgrad_pallas)
-        self.conv1_norm = Norm(64, norm_type=norm_type)
+        self.conv1_norm = Norm(64, norm_type=norm_type, bn_impl=bn_impl)
         self.unit_names = []
         depth_in = 64
         for bi, units in enumerate(unit_plan(blocks, output_stride)):
@@ -220,7 +220,8 @@ class ResNetV1(nn.Module):
                 name = f"block{bi + 1}/unit_{ui + 1}"
                 self.add_module(name, BottleneckV1(
                     depth_in, depth, depth_bottleneck, stride, rate,
-                    fused_block=fused_block, dtype=dtype, norm_type=norm_type))
+                    fused_block=fused_block, dtype=dtype, norm_type=norm_type,
+                    bn_impl=bn_impl))
                 self.unit_names.append(name)
                 depth_in = depth
         self.depth_out = depth_in

@@ -1,0 +1,329 @@
+"""Train-mode BatchNorm with the classic two-reduction backward: kernels N1, N2.
+
+Port of iv2019_tpu/ops/fused_bn.py, the JAX package's ``bn_impl="fused"``:
+per channel over every non-channel axis, ``mean = E[x]``, ``var = max(0,
+E[x^2] - E[x]^2)`` (flax's single-pass form, not Welford),
+``y = (x - mean) * (rstd * scale) + bias`` with ``rstd = rsqrt(var + eps)``,
+and the backward
+
+    dbeta  = sum(dy)
+    dgamma = sum(dy * xhat),  xhat = (x - mean) * rstd
+    dx     = (scale * rstd) * (dy - dbeta / m - xhat * (dgamma / m))
+
+instead of autodiff through the statistics. A channel of constant input
+takes the unclamped branch, as JAX's does (fused_bn.py:25-29).
+
+Tensors are the port's NCHW (the statistics run over N, H and W). JAX's
+Norm casts the compute-type activation to f32 before its custom VJP, so
+this module computes that function on the activation as it is: bf16 or f32
+in, every statistic and sum in f32 (combined in f64 on the card), y and dx
+rounded to the input's type. It saves JAX's residuals ``(x, mean, rstd,
+scale)`` (and the row count) and no f32 copy of x.
+
+- ``batch_stats(x)``: the f32 (mean, var) of JAX's function of that name.
+- ``batch_norm_train(x, scale, bias, epsilon, mesh=None)``: ``(y, mean,
+  var)``, a ``torch.autograd.Function`` (``_BatchNormTrain``); only ``y``
+  carries a gradient. With a ``mesh`` (parallel/mesh.py::norm_mesh) the
+  statistics are those of every rank's rows: the per-channel sums and the
+  row count are all-reduced between the two kernels of N1, and the
+  gradient's two sums between the two kernels of N2 (one all-reduce each
+  way, as models/layers.py::_GlobalBatchNorm). The scale and bias gradients
+  are this rank's parts, which the train step's gradient all-reduce adds.
+- ``batch_norm_train_plain`` / ``batch_norm_backward_plain``: the same
+  function in plain PyTorch, in f32 whatever the input type, rounded to the
+  input's type at the end; ``fused_bn_fwd`` / ``fused_bn_bwd`` run them
+  for CPU tensors only. For a CUDA tensor they launch N1 / N2 of
+  ``csrc/fused_bn.cu`` (each two kernels and a combine) or raise.
+
+Counters: ``fused_bn_fwd.launches`` and ``fused_bn_bwd.launches`` add one
+for each launch of N1 and N2 on the card (one each a BatchNorm layer a
+microbatch); ``batch_norm_train.layout_copies`` counts the inputs (x
+forward, dy backward) that were not channels_last and were copied to it,
+on either device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional
+
+import torch
+
+from iv2019_tpu_torch.ops import _build
+from iv2019_tpu_torch.parallel import mesh as pmesh
+
+__all__ = ["BnPlan", "batch_norm_backward_plain", "batch_norm_train", "batch_norm_train_plain",
+           "batch_stats", "bn_plan", "fused_bn_bwd", "fused_bn_fwd"]
+
+_DIMS = (0, 2, 3)
+_THREADS = 256
+# blocks a launch aims at: four 256-thread blocks on each of the H100's 132 SMs
+_TARGET_BLOCKS = 132 * 4
+# rows a thread sums at least before a shape is split further
+_MIN_ROWS_PER_THREAD = 16
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def batch_stats(x: torch.Tensor):
+    """flax-identical batch statistics of NCHW ``x`` over (N, H, W), f32:
+    ``mean = E[x]``, ``var = max(0, E[x^2] - E[x]^2)``."""
+    xf = x.float()
+    mean = xf.mean(_DIMS)
+    mean2 = (xf * xf).mean(_DIMS)
+    return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
+
+
+# -- the plain versions, stage by stage -----------------------------------------------------
+
+def _stats_plain(x):
+    """(sum x, sum x^2, M): (2C + 1,) f32."""
+    xf = x.float()
+    count = xf.new_full((1,), x.numel() // x.shape[1])
+    return torch.cat([xf.sum(_DIMS), (xf * xf).sum(_DIMS), count])
+
+
+def _apply_plain(x, sums, scale, bias, epsilon):
+    c = x.shape[1]
+    count = sums[2 * c]
+    mean = sums[:c] / count
+    var = torch.clamp_min(sums[c:2 * c] / count - mean * mean, 0.0)
+    rstd = torch.rsqrt(var + epsilon)
+    mul = rstd * scale
+    y = (x.float() - mean[:, None, None]) * mul[:, None, None] + bias[:, None, None]
+    return y.to(x.dtype), mean, var, rstd
+
+
+def _bwd_sums_plain(x, dy, mean, rstd):
+    """(sum dy, sum dy * xhat): (2C,) f32."""
+    xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
+    dyf = dy.float()
+    return torch.cat([dyf.sum(_DIMS), (dyf * xhat).sum(_DIMS)])
+
+
+def _dx_plain(x, dy, mean, rstd, scale, sums, count):
+    c = x.shape[1]
+    xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
+    b = sums[:c] / count
+    d = sums[c:] / count
+    dx = (scale * rstd)[:, None, None] * (dy.float() - b[:, None, None]
+                                          - xhat * d[:, None, None])
+    return dx.to(x.dtype)
+
+
+def batch_norm_train_plain(x, scale, bias, epsilon: float):
+    """N1's function in plain PyTorch on one rank: (y, mean, var, rstd,
+    count), f32 statistics, ``y`` in x's type; ``count`` a (1,) tensor."""
+    sums = _stats_plain(x)
+    y, mean, var, rstd = _apply_plain(x, sums, scale, bias, epsilon)
+    return y, mean, var, rstd, sums[2 * x.shape[1]:]
+
+
+def batch_norm_backward_plain(x, dy, mean, rstd, scale, count):
+    """N2's function in plain PyTorch on one rank: (dx, dscale, dbias)."""
+    c = x.shape[1]
+    sums = _bwd_sums_plain(x, dy, mean, rstd)
+    return _dx_plain(x, dy, mean, rstd, scale, sums, count), sums[c:], sums[:c]
+
+
+# -- the kernels ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BnPlan:
+    """How N1 and N2 cut an (M, C) map: ``vec`` channels a thread loads at
+    once, ``tc`` channel vectors and ``256 // tc`` rows a block covers at a
+    time, ``tiles`` blocks across C, ``splits`` contiguous ranges of
+    ``rows`` rows each down M (the last may be shorter)."""
+
+    vec: int
+    tc: int
+    tiles: int
+    splits: int
+    rows: int
+
+
+def bn_plan(m: int, c: int, itemsize: int, align: int) -> BnPlan:
+    """The plan of an (m, c) map of ``itemsize``-byte elements whose
+    pointers all lie on ``align`` bytes: the widest load of at most 16
+    bytes that C and the alignment allow, and as many row splits as reach
+    ``_TARGET_BLOCKS`` blocks while each thread still sums
+    ``_MIN_ROWS_PER_THREAD`` rows. A function of its arguments alone, so
+    two launches on the same shape add in the same order."""
+    if m < 1 or c < 1:
+        raise ValueError(f"batch norm of an empty map ({m} rows, {c} channels)")
+    vec = next(v for v in (8, 4, 2, 1)
+               if v * itemsize <= 16 and c % v == 0 and align % (v * itemsize) == 0)
+    cv = c // vec
+    tc = min(1 << (cv - 1).bit_length(), _THREADS)
+    tr = _THREADS // tc
+    tiles = -(-cv // tc)
+    splits = max(1, min(-(-_TARGET_BLOCKS // tiles), m // (tr * _MIN_ROWS_PER_THREAD)))
+    rows = -(-m // splits)
+    return BnPlan(vec, tc, tiles, -(-m // rows), rows)
+
+
+def _alignment(*tensors) -> int:
+    """The largest power of two (up to 16) that every data pointer is a
+    multiple of."""
+    align = 16
+    for t in tensors:
+        while t.data_ptr() % align:
+            align //= 2
+    return align
+
+
+def _fn(name, argtypes):
+    fn = getattr(_build.load("fused_bn"), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_PLAN = [_LL, _I, _I, _I, _I, _LL, _P]  # m, c, tc, tiles, splits, rows, stream
+
+
+def _check_cuda(name, x, scale, *others):
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"{name}: x must be NCHW in channels_last memory, "
+                         f"got {tuple(x.shape)} strides {x.stride()}")
+    c = x.shape[1]
+    for t in others:
+        if t.device != x.device or t.dtype != x.dtype or t.shape != x.shape or \
+                not t.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on {t.device} does not match "
+                             f"x {tuple(x.shape)} {x.dtype} channels_last on {x.device}")
+    if scale.device != x.device or scale.dtype != torch.float32 or tuple(scale.shape) != (c,):
+        raise ValueError(f"{name}: scale must be float32 ({c},) on {x.device}")
+
+
+def fused_bn_fwd(x, scale, bias, epsilon: float, mesh=None):
+    """N1: (y, mean, var, rstd, count) of channels_last NCHW ``x``, the
+    statistics over every rank of ``mesh`` (``count``: the global row
+    count, a (1,) f32 tensor). Runs the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        sums = _stats_plain(x)
+        if mesh is not None:
+            pmesh.all_reduce(sums, mesh)
+        y, mean, var, rstd = _apply_plain(x, sums, scale, bias, epsilon)
+        return y, mean, var, rstd, sums[2 * x.shape[1]:]
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_bn_fwd: unsupported device {x.device}")
+    _check_cuda("fused_bn_fwd", x, scale)
+    if bias.device != x.device or bias.dtype != torch.float32 or bias.shape != scale.shape:
+        raise ValueError(f"fused_bn_fwd: bias must be float32 {tuple(scale.shape)} on {x.device}")
+    scale, bias = scale.contiguous(), bias.contiguous()
+    n, c = x.numel() // x.shape[1], x.shape[1]
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    plan = bn_plan(n, c, x.element_size(), _alignment(x, y))
+    partials = torch.empty((plan.splits, 2 * c), dtype=torch.float32, device=x.device)
+    sums = torch.empty(2 * c + 1, dtype=torch.float32, device=x.device)
+    mean, var, rstd = (torch.empty(c, dtype=torch.float32, device=x.device) for _ in range(3))
+    code = _DTYPE_CODE[x.dtype]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        geometry = (n, c, plan.tc, plan.tiles, plan.splits, plan.rows, stream)
+        stats = _fn("iv_bn_stats", [_I, _I, _P, _P, _P] + _PLAN)
+        err = stats(code, plan.vec, x.data_ptr(), partials.data_ptr(), sums.data_ptr(), *geometry)
+        if err:
+            raise RuntimeError(f"fused_bn_fwd ({n}, {c}) {x.dtype}: stats, CUDA error {err}")
+        if mesh is not None:
+            pmesh.all_reduce(sums, mesh)
+        apply = _fn("iv_bn_apply", [_I, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P] + _PLAN)
+        err = apply(code, plan.vec, x.data_ptr(), sums.data_ptr(), scale.data_ptr(),
+                    bias.data_ptr(), epsilon, y.data_ptr(), mean.data_ptr(), var.data_ptr(),
+                    rstd.data_ptr(), *geometry)
+        if err:
+            raise RuntimeError(f"fused_bn_fwd ({n}, {c}) {x.dtype}: apply, CUDA error {err}")
+    fused_bn_fwd.launches += 1
+    return y, mean, var, rstd, sums[2 * c:]
+
+
+def fused_bn_bwd(x, dy, mean, rstd, scale, count, mesh=None):
+    """N2: (dx, dscale, dbias) of channels_last NCHW ``x`` and ``dy``;
+    ``count`` is N1's. ``dx`` takes the sums of every rank of ``mesh``;
+    ``dscale`` and ``dbias`` are this rank's. Runs the plain version for
+    CPU tensors."""
+    c = x.shape[1]
+    if x.device.type == "cpu":
+        local = _bwd_sums_plain(x, dy, mean, rstd)
+        sums = local if mesh is None else pmesh.all_reduce(local.clone(), mesh)
+        dx = _dx_plain(x, dy, mean, rstd, scale, sums, count)
+        return dx, local[c:], local[:c]
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_bn_bwd: unsupported device {x.device}")
+    _check_cuda("fused_bn_bwd", x, scale, dy)
+    n = x.numel() // c
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    plan = bn_plan(n, c, x.element_size(), _alignment(x, dy, dx))
+    partials = torch.empty((plan.splits, 2 * c), dtype=torch.float32, device=x.device)
+    local = torch.empty(2 * c, dtype=torch.float32, device=x.device)
+    code = _DTYPE_CODE[x.dtype]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        geometry = (n, c, plan.tc, plan.tiles, plan.splits, plan.rows, stream)
+        reduce = _fn("iv_bn_bwd_reduce", [_I, _I, _P, _P, _P, _P, _P, _P] + _PLAN)
+        err = reduce(code, plan.vec, x.data_ptr(), dy.data_ptr(), mean.data_ptr(),
+                     rstd.data_ptr(), partials.data_ptr(), local.data_ptr(), *geometry)
+        if err:
+            raise RuntimeError(f"fused_bn_bwd ({n}, {c}) {x.dtype}: reduce, CUDA error {err}")
+        sums = local if mesh is None else pmesh.all_reduce(local.clone(), mesh)
+        dx_fn = _fn("iv_bn_bwd_dx", [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P] + _PLAN)
+        err = dx_fn(code, plan.vec, x.data_ptr(), dy.data_ptr(), mean.data_ptr(),
+                    rstd.data_ptr(), scale.contiguous().data_ptr(), sums.data_ptr(),
+                    count.data_ptr(), dx.data_ptr(), *geometry)
+        if err:
+            raise RuntimeError(f"fused_bn_bwd ({n}, {c}) {x.dtype}: dx, CUDA error {err}")
+    fused_bn_bwd.launches += 1
+    return dx, local[c:], local[:c]
+
+
+fused_bn_fwd.launches = 0
+fused_bn_bwd.launches = 0
+
+
+# -- the autograd function --------------------------------------------------------------------
+
+def _channels_last(t):
+    """``t`` itself when channels_last, else a channels_last copy, counted
+    in ``batch_norm_train.layout_copies``."""
+    if t.is_contiguous(memory_format=torch.channels_last):
+        return t
+    batch_norm_train.layout_copies += 1
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """``batch_norm_train`` (see the module docstring); N1 forward, N2
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, epsilon, mesh):
+        x = _channels_last(x)
+        y, mean, var, rstd, count = fused_bn_fwd(x, scale, bias, epsilon, mesh)
+        ctx.save_for_backward(x, mean, rstd, scale, count)
+        ctx.mesh = mesh
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, mean, rstd, scale, count = ctx.saved_tensors
+        if dy.dtype != x.dtype:
+            raise ValueError(f"batch_norm_train: gradient {dy.dtype} for {x.dtype} input")
+        dx, dscale, dbias = fused_bn_bwd(x, _channels_last(dy), mean, rstd, scale, count,
+                                         ctx.mesh)
+        return dx, dscale, dbias, None, None
+
+
+def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     epsilon: float, mesh: Optional[pmesh.Mesh] = None):
+    """Normalize NCHW ``x`` by its batch statistics (those of every rank of
+    ``mesh``); returns ``(y, mean, var)`` with the biased variance, which
+    moves the running statistics. The classic two-reduction backward."""
+    return _BatchNormTrain.apply(x, scale, bias, epsilon, mesh)
+
+
+batch_norm_train.layout_copies = 0

@@ -46,7 +46,7 @@ import sys
 
 import numpy as np
 
-from iv2019_tpu_torch.tools.weak_ab import save_every
+from iv2019_tpu_torch.tools.weak_ab import arm_trained, save_every
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 PROBLEM = os.path.join(
@@ -124,17 +124,11 @@ class Runner:
 
     def train(self, arm, seed):
         log_dir = self._log_dir(arm, seed)
-        if os.path.exists(os.path.join(log_dir, "checkpoints")):
-            done = any(
-                d.isdigit() for d in os.listdir(
-                    os.path.join(log_dir, "checkpoints"))
-            )
-            if done:
-                return log_dir
-            shutil.rmtree(log_dir)
-        elif os.path.isdir(log_dir):
-            shutil.rmtree(log_dir)
         ne = self.cfg["ne"]
+        if arm_trained(log_dir, self.cfg["n_train"], ne):
+            return log_dir
+        if os.path.isdir(log_dir):  # train started but never completed
+            shutil.rmtree(log_dir)
         args = [
             log_dir, "cityscapes",
             "--tfrecords_path_per_pixel", self.paths["tfrecords_train"],

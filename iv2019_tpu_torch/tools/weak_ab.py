@@ -85,6 +85,25 @@ def save_every(n_train, ne, nb=4):
     return max(1, ne * (n_train // nb) // 2)
 
 
+def final_step(n_train, ne, nb=4):
+    """The step an arm's ``train_cli`` run ends at: ``ne`` epochs of
+    ``n_train // nb`` batches (config.py::Settings.finalize; train_cli
+    saves it whatever the cadence)."""
+    return ne * (n_train // nb)
+
+
+def arm_trained(log_dir, n_train, ne, nb=4):
+    """Whether the arm's training finished: its newest numbered checkpoint
+    is the run's final step. ``checkpoints/`` alone says nothing (the
+    checkpoint manager makes it before step 1), nor does an earlier step (a
+    run that crashed, was killed or filled the disk)."""
+    try:
+        steps = [int(d) for d in os.listdir(os.path.join(log_dir, "checkpoints")) if d.isdigit()]
+    except OSError:
+        return False
+    return bool(steps) and max(steps) == final_step(n_train, ne, nb)
+
+
 def _arm_metrics(log_dir):
     """First (raw-weights) eval metrics of a finished arm, or None.
 
@@ -163,8 +182,9 @@ def run_arm(workdir, paths, arm, seed, ne, coeff=0.1, state=None,
 
     ``ema=True`` evaluates the SAME checkpoint with --restore_emas
     (recorded under arm '<arm>_ema'); reuses the trained arm in the
-    workdir, retraining only if it is gone. ``device``: where the CLIs
-    run."""
+    workdir, retraining it unless its final checkpoint is there
+    (``arm_trained``: a run cut short is cleared and trained again).
+    ``device``: where the CLIs run."""
     state_arm = f"{arm}_ema" if ema else arm
     key = _state_key(state_arm, seed, coeff, cfg or {})
     if state is not None and key in state:
@@ -185,13 +205,12 @@ def run_arm(workdir, paths, arm, seed, ne, coeff=0.1, state=None,
 
     name = arm if arm == "pp" or coeff == 0.1 else f"weak_c{coeff}"
     log_dir = os.path.join(workdir, f"{name}_s{seed}_{_cfg_tag(cfg)}")
-    has_ckpt = os.path.isdir(os.path.join(log_dir, "checkpoints"))
     if not ema:
         done = _arm_metrics(log_dir)
         if done is not None:
             print(f"[{arm} seed {seed}] reusing {log_dir}", flush=True)
             return _record(done)
-    if not has_ckpt:
+    if not arm_trained(log_dir, paths["n_pp"], ne):
         if os.path.isdir(log_dir):  # train started but never completed
             print(f"[{arm} seed {seed}] clearing partial {log_dir}", flush=True)
             shutil.rmtree(log_dir)

@@ -1,0 +1,384 @@
+"""The port's ``bn_impl="fused"`` BatchNorm against the JAX package's, on the CPU.
+
+iv2019_tpu_torch/ops/fused_bn.py (kernels N1/N2 on the card; their plain
+versions here, since the tensors lie on the CPU) against
+iv2019_tpu/ops/fused_bn.py and ``Norm(bn_impl="fused")``, inputs made with
+numpy from a seed and handed to both:
+
+- (a) ``batch_stats`` and the forward of ``batch_norm_train`` at
+  tests/test_fused_bn.py's shapes (NHWC there, NCHW here) and at one with a
+  channel of constant input: ``y`` within 1e-5, mean and var within 1e-6,
+  absolute and relative (the bounds of test_fused_bn.py). The constant is
+  2.0, whose mean both packages round exactly: XLA on the CPU takes the
+  mean of 1.5 over 240 rows as 1.5000001 (a product with the reciprocal
+  of the count), and rstd = 1/sqrt(eps) ~ 316 turns that one ulp of
+  JAX's mean into 5e-5 of y, a check of XLA's rounding rather than of the
+  branch both take;
+- (b) the gradients of x, scale and bias against ``jax.grad`` through
+  JAX's custom VJP, within 1e-4 absolute and relative, the constant
+  channel included (both take the unclamped branch: dx = scale * rstd *
+  (dy - mean(dy)) there);
+- (c) bf16 input: the port's ``Norm(bn_impl="fused")`` in train mode
+  against JAX's ``Norm(bn_impl="fused", use_running_average=False)``:
+  ``y`` within one bf16 ulp (both compute in f32 from the same bf16 values
+  and round once), the moved running statistics within 1e-6;
+- (d) eval mode, group norm and ``"none"`` ignore ``bn_impl``, as in JAX
+  (tests/test_fused_bn.py:74-82): the same values as ``bn_impl="flax"``;
+- (e) test_fused_bn.py's model and the small model of
+  tests/torch_parity.py (``SMALL_BLOCKS``) with ``bn_impl="fused"`` in both
+  packages, the same weights through utils/convert.py, one train-mode
+  forward and backward of test_fused_bn.py's loss (the mean square of the
+  L1 logits): the loss, every parameter gradient and the moved running
+  statistics at test_fused_bn.py's bounds (1e-6 relative; 2e-4 absolute /
+  2e-3 relative; 1e-5 / 1e-4), or within twice the distance at which the
+  port's default path (``bn_impl="flax"``) stands from JAX's on the same
+  inputs, where that already exceeds them (the test's docstring);
+- (f) under ``remat`` the recomputed forward leaves the running statistics
+  alone: they move once, to the values of the run without remat;
+- (g) two gloo ranks (tests/torch_dist_worker.py, scenario ``fused_bn``),
+  each with half of the batch's rows, or half of each image's rows under a
+  spatial mesh of 2, against one rank on the whole batch: y and dx rows,
+  and dscale / dbias summed over the ranks, within 1e-5 of the largest
+  value (f32; the sums are added in another order), one all-reduce forward
+  and one backward;
+- (h) ``batch_norm_train.layout_copies`` counts an x and a dy that are not
+  channels_last (here on the CPU path as on the card), and the results do
+  not change.
+
+Also the plan the wrapper gives the kernels (``bn_plan``): every row and
+channel covered once, loads no wider than the alignment allows.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_dist_worker as worker
+from iv2019_tpu.models.layers import Norm as JaxNorm
+from iv2019_tpu.models.model import HierarchicalSegmentationModel as JaxModel
+from iv2019_tpu.ops import fused_bn as jbn
+from iv2019_tpu.problem.taxonomy import get_taxonomy as jax_taxonomy
+from iv2019_tpu_torch.models.layers import Norm
+from iv2019_tpu_torch.models.model import HierarchicalSegmentationModel as TorchModel
+from iv2019_tpu_torch.models.model import init_model
+from iv2019_tpu_torch.ops import fused_bn as tbn
+from iv2019_tpu_torch.problem.taxonomy import get_taxonomy
+from iv2019_tpu_torch.utils.convert import flax_params, flax_variables, load_flax_variables
+from torch_parity import (SMALL_BLOCKS, SMALL_FDIMS, SMALL_HW, numpy_tree, randomize_stats,
+                          run_ranks, small_images, small_variables, threads)
+
+EPS = 1e-5
+# NHWC shapes of tests/test_fused_bn.py, and one with channel 5 constant
+SHAPES = {"4x6x10x16": ((4, 6, 10, 16), None), "2x1x1x3": ((2, 1, 1, 3), None),
+          "8x5x7x1": ((8, 5, 7, 1), None), "constant_channel": ((4, 6, 10, 16), 5)}
+CONSTANT = 2.0
+Y_TOL, STATS_TOL, GRAD_TOL = 1e-5, 1e-6, 1e-4
+MODEL_GRAD_ATOL, MODEL_GRAD_RTOL = 2e-4, 2e-3
+MODEL_STATS_ATOL, MODEL_STATS_RTOL = 1e-5, 1e-4
+RANK_TOL = 1e-5
+
+
+def _inputs(name, seed=0):
+    """NHWC x (randn * 3 + 1, as test_fused_bn.py), scale, bias, dy."""
+    shape, constant = SHAPES[name]
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(*shape) * 3 + 1).astype(np.float32)
+    if constant is not None:
+        x[..., constant] = CONSTANT
+    c = shape[-1]
+    scale = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    bias = rng.randn(c).astype(np.float32)
+    dy = rng.randn(*shape).astype(np.float32)
+    return x, scale, bias, dy
+
+
+def _nchw(a, dtype=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2))).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
+def _nhwc(t):
+    return t.detach().float().permute(0, 2, 3, 1).numpy()
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_forward_and_stats_match_jax(name):
+    threads()
+    x, scale, bias, _ = _inputs(name)
+    want_mean, want_var = jbn.batch_stats(jnp.asarray(x))
+    y_want, m_want, v_want = jbn.batch_norm_train(jnp.asarray(x), jnp.asarray(scale),
+                                                  jnp.asarray(bias), EPS)
+    mean, var = tbn.batch_stats(_nchw(x))
+    y, m, v = tbn.batch_norm_train(_nchw(x), torch.from_numpy(scale), torch.from_numpy(bias), EPS)
+    for got, want in ((mean, want_mean), (var, want_var), (m, m_want), (v, v_want)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=STATS_TOL, rtol=STATS_TOL)
+    np.testing.assert_allclose(_nhwc(y), np.asarray(y_want), atol=Y_TOL, rtol=Y_TOL)
+    assert y.dtype == torch.float32 and y.is_contiguous(memory_format=torch.channels_last)
+    assert not m.requires_grad and not v.requires_grad
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_gradients_match_jax_custom_vjp(name):
+    threads()
+    x, scale, bias, dy = _inputs(name, seed=1)
+
+    def loss(x, s, b):
+        y, _, _ = jbn.batch_norm_train(x, s, b, EPS)
+        return jnp.sum(y * jnp.asarray(dy))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+    xt = _nchw(x).requires_grad_(True)
+    st = torch.from_numpy(scale).requires_grad_(True)
+    bt = torch.from_numpy(bias).requires_grad_(True)
+    y, _, _ = tbn.batch_norm_train(xt, st, bt, EPS)
+    y.backward(_nchw(dy))
+    np.testing.assert_allclose(_nhwc(xt.grad), np.asarray(want[0]), atol=GRAD_TOL, rtol=GRAD_TOL)
+    np.testing.assert_allclose(st.grad.numpy(), np.asarray(want[1]), atol=GRAD_TOL, rtol=GRAD_TOL)
+    np.testing.assert_allclose(bt.grad.numpy(), np.asarray(want[2]), atol=GRAD_TOL, rtol=GRAD_TOL)
+    if SHAPES[name][1] is not None:
+        # the unclamped branch on the constant channel: xhat = 0
+        c = SHAPES[name][1]
+        g = dy[..., c]
+        branch = scale[c] / np.sqrt(EPS) * (g - g.mean())
+        np.testing.assert_allclose(_nhwc(xt.grad)[..., c], branch, rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at each |v| (8 significant bits)."""
+    mag = np.maximum(np.abs(v), 2.0 ** -126)
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+def test_norm_bf16_matches_jax_within_one_ulp():
+    threads()
+    rng = np.random.RandomState(2)
+    c = 24
+    x = (rng.randn(4, 9, 11, c) * 2 + 0.5).astype(np.float32)
+    x_bf16 = jnp.asarray(x, jnp.bfloat16)
+    params = {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+              "bias": rng.uniform(-0.5, 0.5, c).astype(np.float32)}
+    stats = {"mean": rng.uniform(-0.2, 0.2, c).astype(np.float32),
+             "var": rng.uniform(0.5, 2.0, c).astype(np.float32)}
+    jnorm = JaxNorm(use_running_average=False, bn_impl="fused")
+    variables = {"params": {"BatchNorm": params}, "batch_stats": {"BatchNorm": stats}}
+    y_want, moved = jnorm.apply(variables, x_bf16, mutable=["batch_stats"])
+    assert y_want.dtype == jnp.bfloat16
+
+    norm = Norm(c, bn_impl="fused").train()
+    with torch.no_grad():
+        for k, v in {**params, **stats}.items():
+            getattr(norm, k).copy_(torch.from_numpy(v))
+    xt = _nchw(np.asarray(x_bf16.astype(jnp.float32)), torch.bfloat16)
+    y = norm(xt)
+    assert y.dtype == torch.bfloat16
+    want = np.asarray(y_want.astype(jnp.float32))
+    assert (np.abs(_nhwc(y) - want) <= _bf16_ulp(want)).all()
+    for k in ("mean", "var"):
+        np.testing.assert_allclose(getattr(norm, k).numpy(),
+                                   np.asarray(moved["batch_stats"]["BatchNorm"][k]),
+                                   atol=STATS_TOL, rtol=STATS_TOL)
+
+
+@pytest.mark.parametrize("case", ["batch_eval", "group_train", "none_train"])
+def test_bn_impl_ignored_outside_train_mode_batch_norm(case):
+    """Eval-mode batch norm (running statistics), group norm and no norm
+    compute what they compute under ``bn_impl="flax"``; JAX's eval-mode
+    Norm with ``bn_impl="fused"`` gives the same (test_fused_bn.py:74-82)."""
+    threads()
+    rng = np.random.RandomState(3)
+    c = 16
+    x = _nchw((rng.randn(2, 5, 6, c) * 2).astype(np.float32))
+    norm_type, train = {"batch_eval": ("batch", False), "group_train": ("group", True),
+                        "none_train": ("none", True)}[case]
+    outs = {}
+    for impl in ("flax", "fused"):
+        norm = Norm(c, norm_type=norm_type, groups=4, bn_impl=impl).train(train)
+        if norm_type != "none":
+            with torch.no_grad():
+                norm.scale.copy_(torch.linspace(0.5, 1.5, c))
+                norm.bias.copy_(torch.linspace(-0.3, 0.3, c))
+        if norm_type == "batch":
+            with torch.no_grad():
+                norm.mean.copy_(torch.linspace(-0.1, 0.1, c))
+                norm.var.copy_(torch.linspace(0.8, 1.2, c))
+        outs[impl] = norm(x)
+        if norm_type == "batch":
+            outs[impl + "_stats"] = (norm.mean.clone(), norm.var.clone())
+    assert torch.equal(outs["flax"], outs["fused"])
+    if case == "batch_eval":
+        assert all(torch.equal(a, b) for a, b in zip(outs["flax_stats"], outs["fused_stats"]))
+        jnorm = JaxNorm(use_running_average=True, bn_impl="fused")
+        variables = {"params": {"BatchNorm": {"scale": np.linspace(0.5, 1.5, c, dtype=np.float32),
+                                              "bias": np.linspace(-0.3, 0.3, c,
+                                                                  dtype=np.float32)}},
+                     "batch_stats": {"BatchNorm": {"mean": np.linspace(-0.1, 0.1, c,
+                                                                       dtype=np.float32),
+                                                   "var": np.linspace(0.8, 1.2, c,
+                                                                      dtype=np.float32)}}}
+        want = jnorm.apply(variables, jnp.asarray(_nhwc(x)))
+        np.testing.assert_allclose(_nhwc(outs["fused"]), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def _leaves(tree):
+    return {jax.tree_util.keystr(k): np.asarray(v)
+            for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+# test_fused_bn.py's model (two units, 16 feature dims, 2 images at 32x64)
+# and the small model of tests/torch_parity.py (2 images at 128x128)
+MODELS = {"tiny": (((1, 32, 8), (1, 64, 16)), 16, (32, 64)),
+          "small": (SMALL_BLOCKS, SMALL_FDIMS, SMALL_HW)}
+
+
+def _model_step(name, package, bn_impl):
+    """One train-mode forward and backward of the mean square of the L1
+    logits: (loss, gradient leaves, moved-statistics leaves)."""
+    blocks, fdims, hw = MODELS[name]
+    images = small_images(5, n=2, hw=hw)
+    if name == "small":
+        variables = small_variables(0)
+    else:
+        init = JaxModel(taxonomy=jax_taxonomy("cityscapes"), resnet_blocks=blocks,
+                        feature_dims_decreased=fdims, dtype=jnp.float32)
+        variables = randomize_stats(dict(jax.jit(init.init)(jax.random.PRNGKey(0),
+                                                            jnp.asarray(images))),
+                                    np.random.RandomState(0))
+    if package == "jax":
+        model = JaxModel(taxonomy=jax_taxonomy("cityscapes"), resnet_blocks=blocks,
+                         feature_dims_decreased=fdims, dtype=jnp.float32,
+                         accumulate_norm_statistics=True, bn_impl=bn_impl)
+
+        def loss(params):
+            out, updates = model.apply({"params": params,
+                                        "batch_stats": variables["batch_stats"]},
+                                       jnp.asarray(images), mutable=["batch_stats"])
+            return jnp.mean(out["l1_logits"].astype(jnp.float32) ** 2), updates
+
+        (value, updates), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+            variables["params"])
+        return (float(value), _leaves(numpy_tree(grads)),
+                _leaves(numpy_tree(updates["batch_stats"])))
+    model = TorchModel(taxonomy=get_taxonomy("cityscapes"), resnet_blocks=blocks,
+                       feature_dims_decreased=fdims, dtype=torch.float32, bn_impl=bn_impl)
+    model = load_flax_variables(model.to(memory_format=torch.channels_last).train(),
+                                numpy_tree(variables["params"]),
+                                numpy_tree(variables["batch_stats"]))
+    value = torch.mean(model(torch.from_numpy(images))["l1_logits"] ** 2)
+    value.backward()
+    # the L2 heads take no gradient from this loss (zeros in JAX)
+    grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+             for k, p in model.named_parameters()}
+    return (float(value.detach()), _leaves(flax_params(grads, model)),
+            _leaves(flax_variables(model)["batch_stats"]))
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_model_train_step_matches_jax(name):
+    """bn_impl="fused" in both packages on the same weights and images.
+
+    Each quantity is held to test_fused_bn.py's bound (loss 1e-6 relative,
+    gradients 2e-4 / 2e-3, statistics 1e-5 / 1e-4) or, where the two
+    packages' f32 convolutions already part by more on the default path,
+    to twice the distance of the port's ``bn_impl="flax"`` from JAX's on
+    the same inputs. The loss parts by 2-4e-6 relative on both paths (the
+    convolutions round in other orders), and on the small model 10 of 102
+    gradient leaves pass 2e-4 / 2e-3 on neither path: a random net's
+    train-mode BatchNorm gradient is ill-conditioned
+    (tests/test_torch_model_variants.py measured 1-11%), while a missing or
+    wrong term of the backward moves a leaf by its own size."""
+    threads()
+    want, got = _model_step(name, "jax", "fused"), _model_step(name, "torch", "fused")
+    ref_want, ref_got = _model_step(name, "jax", "flax"), _model_step(name, "torch", "flax")
+    assert abs(got[0] - want[0]) <= max(1e-6 * abs(want[0]), 2 * abs(ref_got[0] - ref_want[0]))
+    for i, (atol, rtol) in ((1, (MODEL_GRAD_ATOL, MODEL_GRAD_RTOL)),
+                            (2, (MODEL_STATS_ATOL, MODEL_STATS_RTOL))):
+        assert got[i].keys() == want[i].keys() == ref_got[i].keys()
+        for path, w in want[i].items():
+            if np.allclose(got[i][path], w, atol=atol, rtol=rtol):
+                continue
+            err = np.linalg.norm(got[i][path] - w)
+            bar = 2 * np.linalg.norm(ref_got[i][path] - ref_want[i][path])
+            assert err <= bar, (path, err, bar)
+
+
+def test_remat_moves_running_statistics_once():
+    threads()
+    trunk = ((1, 32, 8), (1, 64, 16))
+    images = torch.from_numpy(small_images(6, n=2, hw=(32, 32)))
+    stats, grads = {}, {}
+    for remat in (False, True):
+        model = TorchModel(taxonomy=get_taxonomy("cityscapes"), resnet_blocks=trunk,
+                           feature_dims_decreased=16, dtype=torch.float32, bn_impl="fused",
+                           remat=remat)
+        model = init_model(model.to(memory_format=torch.channels_last),
+                           torch.Generator().manual_seed(0)).train()
+        before = {k: v.clone() for k, v in model.named_buffers()}
+        torch.mean(model(images)["l1_logits"] ** 2).backward()
+        stats[remat] = dict(model.named_buffers())
+        grads[remat] = {k: p.grad for k, p in model.named_parameters()}
+    assert stats[True].keys() == before.keys()
+    for k, v in stats[False].items():
+        assert not torch.equal(v, before[k]), k
+        assert torch.equal(stats[True][k], v), k
+    for k, g in grads[False].items():
+        torch.testing.assert_close(grads[True][k], g, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("spatial", [1, 2], ids=["data", "spatial"])
+def test_ranks_match_one_rank(tmp_path, spatial):
+    """Two ranks, each with half the rows (data) or half of each image's
+    rows (spatial), give the one-rank result on the whole batch."""
+    threads()
+    rng = np.random.RandomState(4)
+    n, c, h, w = 4, 6, 8, 5
+    inp = {"x": (rng.randn(n, c, h, w) * 2 + 1).astype(np.float32),
+           "dy": rng.randn(n, c, h, w).astype(np.float32),
+           "scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+           "bias": rng.randn(c).astype(np.float32), "eps": EPS}
+    ranks = run_ranks("fused_bn", inp, tmp_path, world=2, spatial=spatial)
+    one = worker.run_fused_bn(inp, None)
+    axis = 2 if spatial > 1 else 0
+    for key in ("y", "dx"):
+        got = np.concatenate([r[key] for r in ranks], axis=axis)
+        np.testing.assert_allclose(got, one[key], atol=RANK_TOL * np.abs(one[key]).max(), rtol=0)
+    for key in ("dscale", "dbias"):
+        got = sum(r[key] for r in ranks)
+        np.testing.assert_allclose(got, one[key], atol=RANK_TOL * np.abs(one[key]).max(), rtol=0)
+    for r in ranks:
+        for key in ("mean", "var"):
+            np.testing.assert_allclose(r[key], one[key], atol=RANK_TOL, rtol=RANK_TOL)
+        assert r["all_reduces"] == 2
+
+
+def test_layout_copies_counted():
+    threads()
+    x, scale, bias, dy = _inputs("4x6x10x16", seed=7)
+    results = {}
+    for layout in ("channels_last", "contiguous"):
+        fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+        xt = _nchw(x).contiguous(memory_format=fmt).requires_grad_(True)
+        before = tbn.batch_norm_train.layout_copies
+        y, _, _ = tbn.batch_norm_train(xt, torch.from_numpy(scale), torch.from_numpy(bias), EPS)
+        after_fwd = tbn.batch_norm_train.layout_copies
+        y.backward(_nchw(dy).contiguous(memory_format=fmt))
+        results[layout] = (after_fwd - before, tbn.batch_norm_train.layout_copies - after_fwd,
+                           y.detach(), xt.grad)
+    assert results["channels_last"][:2] == (0, 0)
+    assert results["contiguous"][:2] == (1, 1)
+    for a, b in zip(results["channels_last"][2:], results["contiguous"][2:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m,c,itemsize,align", [
+    (2_097_152, 64, 2, 16), (131_072, 2048, 2, 16), (131_072, 3, 2, 16), (131_072, 14, 2, 16),
+    (131_072, 2048, 4, 16), (16, 256, 2, 16), (7, 24, 2, 4), (1, 1, 4, 16), (100, 13, 4, 8)])
+def test_plan_covers_every_row_and_channel(m, c, itemsize, align):
+    plan = tbn.bn_plan(m, c, itemsize, align)
+    assert c % plan.vec == 0 and plan.vec * itemsize <= min(16, align)
+    assert 256 % plan.tc == 0
+    cv = c // plan.vec
+    assert plan.tiles * plan.tc >= cv > (plan.tiles - 1) * plan.tc
+    assert plan.splits * plan.rows >= m > (plan.splits - 1) * plan.rows
+    assert plan.tiles * plan.splits <= 132 * 4 + plan.tiles

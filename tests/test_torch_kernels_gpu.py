@@ -19,6 +19,9 @@ partitioning: the fused units on the haloed bands of phase 12's eval, and
 the root-conv wgrad with explicit pad rows. The fused units' registered
 operators (csrc/torch_ops.cpp), which the wrappers call, are held to the
 plain version and, bit for bit, to the ctypes route to the same kernels.
+Train-mode BatchNorm (N1/N2, ``bn_impl="fused"``) at ragged channel counts,
+unaligned pointers, block4's and the root's widths, in bf16 and f32, at
+chip_smoke.py's bounds.
 """
 
 import numpy as np
@@ -484,3 +487,25 @@ def test_fused_loss_on_fused_head_logits_in_f32_on_card(dataset):
     check = chip_smoke.compare_loss(tax, args, out_hw, torch.tensor([0.5, 0.07, 0.11],
                                                                      device="cuda"))
     assert chip_smoke.loss_ok(check), check
+
+
+# (images, C, h, w, storage offset in elements) of N1/N2: the heads' ragged
+# C (14, 7, 3; 2-byte and 4-byte loads), C = 24 with pointers 2 bytes off 16
+# (one-element loads), one channel, block4's 2048 at 64x128, the root's 64
+BN_SHAPES = [(16, 14, 64, 128, 0), (16, 7, 64, 128, 0), (16, 3, 64, 128, 0),
+             (3, 24, 7, 9, 1), (2, 1, 5, 7, 0), (4, 2048, 64, 128, 0), (4, 64, 256, 512, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n,c,h,w,offset", BN_SHAPES)
+def test_fused_bn_matches_plain_on_card(n, c, h, w, offset, dtype):
+    """N1 and N2 (ops/fused_bn.py) against their plain versions: y and dx,
+    the statistics and the gradient's sums at chip_smoke.py's bounds, two
+    launches bit for bit, one launch of each counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import chip_smoke
+
+    row = chip_smoke.bn_check(n, c, h, w, getattr(torch, dtype), "cuda", offset=offset)
+    assert row["ok"], row

@@ -2,7 +2,9 @@
 
 Variants: PSP (Cityscapes and Vistas heads), the FOV conv (size 3, rate 2),
 hybrid upsampling, group norm, the fused adaptation heads with batch norm
-and with group norm, and PSP + fused heads + hybrid together. Each is built
+and with group norm, PSP + fused heads + hybrid together, and
+``bn_impl="fused"`` (train-mode BatchNorm as ops/fused_bn.py, in both
+packages). Each is built
 on a short trunk (``TRUNK``) at 32 feature dims, f32 on both sides; the
 flax variables are initialized by flax, their running statistics set to
 the batch statistics of random images and randomized around them
@@ -90,6 +92,8 @@ VARIANTS = {
     "fused_heads": dict(fuse_adaptation=True),
     "fused_heads_group_norm": dict(fuse_adaptation=True, norm_type="group"),
     "psp_fused_hybrid": dict(psp_module=True, fuse_adaptation=True, upsampling_method="hybrid"),
+    # train-mode BatchNorm as ops/fused_bn.py in both packages
+    "bn_impl_fused": dict(bn_impl="fused"),
 }
 # the JAX package's layout switches: the same function as its default path
 ALIASES = {

@@ -6,6 +6,9 @@
   agree; ``main`` on planted arms writes the JAX tool's ``weak_ab.json``.
 - ``iv2019_tpu_torch/tools/quality_ab.py``: keys, log dirs, state reuse and
   the paired deltas on planted mIoUs, against the JAX tool's ``main``.
+- both tools' arms in the workdir (``_run`` replaced, no training): an arm
+  whose ``checkpoints/`` holds no step or only an early one is cleared and
+  trained again, one that holds the run's final step is reused.
 - ``iv2019_tpu_torch/tools/real_data_runbook.sh``: ``bash -n``, every
   ``python -m`` module exists in the port, the stage-2 imports resolve, and
   the ``train_cli`` / ``evaluate_cli`` lines take the JAX runbook's flags,
@@ -290,6 +293,69 @@ def test_quality_paired_deltas_on_planted_mious(tmp_path, monkeypatch, capsys):
                          "blend": (("base", "sw_gauss"), ("base", "sw_uniform"))}.items():
         want = [planted[(a[0], s, a[1])] - planted[(b[0], s, b[1])] for s in range(3)]
         assert outs["port"][name]["deltas"] == pytest.approx(want, abs=0.006)
+
+
+# -- both tools: an arm is trained only when its final checkpoint is there -----------------------
+
+# n_train 8 at Nb 4 for 2 epochs: the run ends at step 4
+ARM_CFG = {"ne": 2, "n_train": 8, "n_val": 2, "h": 16, "w": 32}
+ARM_PATHS = {"tfrecords_train": "train.tfrecords", "tfrecords_val": "val.tfrecords",
+             "openimages_image_dir": "weak", "openimages_bboxes_path": "bboxes.pkl",
+             "openimages_image_labels_path": "labels.pkl", "n_pp": 8, "n_val": 2}
+# the checkpoint steps a planted arm holds before the tool runs
+ARM_STATES = {"no_step": [], "early_step": [2], "final_step": [2, 4]}
+
+
+def _fake_run(calls):
+    """A ``_run`` that trains and evaluates nothing: train_cli leaves its
+    final checkpoint, evaluate_cli an eval_NN with one mIoU."""
+    def run(module, args, timeout=None):
+        log_dir = args[0]
+        calls.append(module.rsplit(".", 1)[-1])
+        if module.endswith("train_cli"):
+            assert not os.path.exists(log_dir), "trained into a directory that was not cleared"
+            os.makedirs(os.path.join(log_dir, "checkpoints", "4"))
+        else:
+            n = sum(d.startswith("eval_") for d in os.listdir(log_dir))
+            os.makedirs(os.path.join(log_dir, f"eval_{n:02d}"))
+            with open(os.path.join(log_dir, f"eval_{n:02d}", "all_metrics.p"), "wb") as f:
+                pickle.dump([{"mean_iou": 50.0}], f)
+    return run
+
+
+def _plant_arm(log_dir, steps):
+    os.makedirs(os.path.join(log_dir, "checkpoints"))
+    for step in steps:
+        os.makedirs(os.path.join(log_dir, "checkpoints", str(step)))
+    open(os.path.join(log_dir, "marker"), "w").close()
+
+
+@pytest.mark.parametrize("state", sorted(ARM_STATES))
+@pytest.mark.parametrize("tool", ["weak_ab", "quality_ab"])
+def test_sweep_retrains_an_unfinished_arm(tmp_path, monkeypatch, tool, state):
+    """A ``checkpoints/`` with no step, or with a step short of the run's
+    last (a run that crashed or was killed), is cleared and trained again;
+    one that holds the last step is reused and only evaluated."""
+    calls = []
+    module = weak_ab if tool == "weak_ab" else quality_ab
+    monkeypatch.setattr(module, "_run", _fake_run(calls))
+    assert weak_ab.final_step(ARM_CFG["n_train"], ARM_CFG["ne"]) == 4
+    if tool == "weak_ab":
+        cfg = {"rate": 0.2, "n_pp": 8, "n_weak": 2, "n_val": 2, "ne": ARM_CFG["ne"]}
+        log_dir = str(tmp_path / f"pp_s0_{weak_ab._cfg_tag(cfg)}")
+        _plant_arm(log_dir, ARM_STATES[state])
+        out = weak_ab.run_arm(str(tmp_path), ARM_PATHS, "pp", 0, ARM_CFG["ne"], cfg=cfg,
+                              device="cpu")
+        assert out == {"mean_iou": 50.0}
+    else:
+        runner = quality_ab.Runner(str(tmp_path), ARM_PATHS, ARM_CFG, None, device="cpu")
+        log_dir = runner._log_dir("base", 0)
+        _plant_arm(log_dir, ARM_STATES[state])
+        assert runner.evaluate("base", 0, "raw") == 50.0
+    reused = state == "final_step"
+    assert calls == (["evaluate_cli"] if reused else ["train_cli", "evaluate_cli"])
+    assert os.path.exists(os.path.join(log_dir, "marker")) == reused
+    assert weak_ab.arm_trained(log_dir, ARM_CFG["n_train"], ARM_CFG["ne"])
 
 
 # -- the runbook ------------------------------------------------------------------------------

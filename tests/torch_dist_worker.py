@@ -26,7 +26,10 @@ Scenarios:
 - ``spatial_ops`` (with ``--spatial P``): each op with a spatial extent on
   the rank's band of rows of a global input, forward and backward;
 - ``summary``: the training loop's image-summary forward, run by rank 0
-  alone while the other ranks wait at a host barrier.
+  alone while the other ranks wait at a host barrier;
+- ``fused_bn``: ``ops/fused_bn.batch_norm_train`` forward and backward on
+  the rank's rows (or, with ``--spatial P``, its band of rows of each
+  image) over the active mesh.
 
 With ``--spatial P`` the ranks split image height in groups of P.
 """
@@ -365,8 +368,33 @@ def run_summary(inp, mesh):
     return out
 
 
+def run_fused_bn(inp, mesh):
+    """``batch_norm_train`` of the rank's part of NCHW ``x`` (its rows, or
+    its band of rows of each image under a spatial mesh) and its backward
+    of ``dy``'s part: y, dx, this rank's dscale and dbias, the global
+    statistics and the collectives it made."""
+    from iv2019_tpu_torch.ops.fused_bn import batch_norm_train
+
+    def part(a):
+        if mesh is not None and mesh.spatial > 1:
+            t = _band(torch.from_numpy(a), 2, mesh)
+        else:
+            t = torch.from_numpy(rows(a, mesh))
+        return t.contiguous(memory_format=torch.channels_last)
+
+    x = part(inp["x"]).requires_grad_(True)
+    scale = torch.from_numpy(inp["scale"]).requires_grad_(True)
+    bias = torch.from_numpy(inp["bias"]).requires_grad_(True)
+    pmesh.reset_collective_stats()
+    y, mean, var = batch_norm_train(x, scale, bias, inp["eps"], pmesh.norm_mesh())
+    y.backward(part(inp["dy"]))
+    return {"y": y.detach().numpy(), "dx": x.grad.numpy(), "dscale": scale.grad.numpy(),
+            "dbias": bias.grad.numpy(), "mean": mean.numpy(), "var": var.numpy(),
+            "all_reduces": pmesh.collective_stats()["all_reduce"]}
+
+
 SCENARIOS = {"ops": run_ops, "step": run_steps, "preempt": run_preempt, "eval": run_eval,
-             "spatial_ops": run_spatial_ops, "summary": run_summary}
+             "spatial_ops": run_spatial_ops, "summary": run_summary, "fused_bn": run_fused_bn}
 
 
 def main():
