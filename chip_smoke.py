@@ -30,10 +30,13 @@ Phases, each of which fails the run on its own:
    batch-norm layers (found by hooks on one forward; the heads' ragged 14,
    7 and 3 channels among them) in bf16, timed (ms, device ms, plain,
    ``F.batch_norm`` forward and backward as the library, the bound of one
-   pass and of the algorithm's two), again in f32 and at ``BN_EDGE_SHAPES``
-   (one channel, pointers 2 bytes off 16), each against its plain version
-   at ``BN_*``'s bounds and bit for bit over two launches; the kernel line
-   gives their launch-weighted means.
+   pass and of the algorithm's two, the host's share and the shares of
+   both bounds, the two-launch path's device ms), again in f32 and at
+   ``BN_EDGE_SHAPES`` (one channel, pointers 2 bytes off 16), each against
+   its plain version at ``BN_*``'s bounds, on the one-launch path of one
+   rank (bit for bit over two runs) and on the two-launch path of a mesh
+   (bit for bit against the one launch); the kernel line gives their
+   launch-weighted means.
 3. predict: the port's predict path at full ResNet-50 width (Cityscapes
    taxonomy, 512x1024 input, 1024x2048 output, bf16, fused blocks) on
    seeded random weights; checks the kernel launch counts, compares with
@@ -310,12 +313,12 @@ UPDATE_REG_REL_TOL = 1e-5
 # type. y and dx: within one bf16 ulp of the plain version's value, plus
 # BN_NEAR_ZERO of the tensor's largest |value| for values near zero (there
 # a bf16 ulp is finer than the f32 rounding of the terms: the kernel's sums
-# run in another order and its rsqrt is the hardware's); f32 outputs within
-# BN_F32_REL_TOL of the tensor's largest |value|. The statistics and the
-# gradient's sums within BN_SUM_REL_TOL of the sum of their terms'
-# magnitudes (f64 on the card), over up to 2.1M rows: f32 within a block and
-# f64 across blocks in the kernel, torch.sum's order in f32 in the plain
-# version.
+# run in another order and its statistics are finished in f64); f32 outputs
+# within BN_F32_REL_TOL of the tensor's largest |value|. The statistics and
+# the gradient's sums within BN_SUM_REL_TOL of the sum of their terms'
+# magnitudes (f64 on the card), over up to 2.1M rows: compensated f32 a
+# thread and f64 from there on in the kernel, torch.sum's order in f32 in
+# the plain version.
 BN_NEAR_ZERO = 2.0 ** -16
 BN_F32_REL_TOL = 1e-5
 BN_SUM_REL_TOL = 1e-5
@@ -682,10 +685,14 @@ def _bn_out_err(got, want, dtype):
 def bn_check(n, c, h, w, dtype, device, seed=0, offset=0, timed=False):
     """N1 and N2 at one (n, c, h, w) against their plain versions on the same
     inputs (y and dx, the statistics, the gradient's sums, the row count),
-    two launches of each bit for bit, one launch each counted; with
-    ``timed`` also ms and device ms of each beside the plain version's and
-    the library's (``F.batch_norm`` forward, and its backward alone, on the
-    same channels_last input with f32 parameters). Returns the row."""
+    on both paths: one launch a half (the plan's path on one rank) twice,
+    bit for bit, and the two-launch path of a mesh (``_split``) once, bit for
+    bit against it; one run of each counted. With ``timed`` also ms and
+    device ms of each beside the plain version's and the library's
+    (``F.batch_norm`` forward, and its backward alone, on the same
+    channels_last input with f32 parameters), the host's share (ms -
+    device ms), the shares of the one-pass and two-pass bounds, and the
+    two-launch path's device ms. Returns the row."""
     from iv2019_tpu_torch.ops import fused_bn as fbn
 
     x, dy, scale, bias = bn_inputs(n, c, h, w, dtype, device, seed, offset)
@@ -693,10 +700,13 @@ def bn_check(n, c, h, w, dtype, device, seed=0, offset=0, timed=False):
     y, mean, var, rstd, count = fbn.fused_bn_fwd(x, scale, bias, BN_EPS)
     dx, dscale, dbias = fbn.fused_bn_bwd(x, dy, mean, rstd, scale, count)
     launches = [fbn.fused_bn_fwd.launches - before[0], fbn.fused_bn_bwd.launches - before[1]]
-    again = fbn.fused_bn_fwd(x, scale, bias, BN_EPS)
-    again_bwd = fbn.fused_bn_bwd(x, dy, mean, rstd, scale, count)
-    bit_equal = (all(torch.equal(a, b) for a, b in zip((y, mean, var, rstd, count), again))
-                 and all(torch.equal(a, b) for a, b in zip((dx, dscale, dbias), again_bwd)))
+    first = (y, mean, var, rstd, count, dx, dscale, dbias)
+    again = (*fbn.fused_bn_fwd(x, scale, bias, BN_EPS),
+             *fbn.fused_bn_bwd(x, dy, mean, rstd, scale, count))
+    split = (*fbn.fused_bn_fwd(x, scale, bias, BN_EPS, _split=True),
+             *fbn.fused_bn_bwd(x, dy, mean, rstd, scale, count, _split=True))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(first, again))
+    paths_bit_equal = all(torch.equal(a, b) for a, b in zip(first, split))
     py, pmean, pvar, prstd, _ = fbn.batch_norm_train_plain(x, scale, bias, BN_EPS)
     pdx, pdscale, pdbias = fbn.batch_norm_backward_plain(x, dy, mean, rstd, scale, count)
     torch.cuda.synchronize()
@@ -711,16 +721,22 @@ def bn_check(n, c, h, w, dtype, device, seed=0, offset=0, timed=False):
                             ("dbias", dbias, pdbias), ("dscale", dscale, pdscale))}
     y_ratio, y_err = _bn_out_err(y, py, dtype)
     dx_ratio, dx_err = _bn_out_err(dx, pdx, dtype)
-    plan = fbn.bn_plan(m, c, x.element_size(), fbn._alignment(x, y))
+    plan, bwd_plan = fbn.launch_plan(0, x, y), fbn.launch_plan(1, x, dy, dx)
+    split_plans = [fbn.launch_plan(0, x, y, split=True).path,
+                   fbn.launch_plan(1, x, dy, dx, split=True).path]
     row = dict(n=n, C=c, h=h, w=w, M=m, dtype=str(dtype).split(".")[-1], offset=offset,
-               vec=plan.vec, blocks=plan.tiles * plan.splits, launches=launches,
-               bit_equal=bit_equal, count_equal=float(count) == m,
+               vec=plan.vec, blocks=plan.tiles * plan.splits, capacity=plan.capacity,
+               bwd_blocks=bwd_plan.tiles * bwd_plan.splits, bwd_capacity=bwd_plan.capacity,
+               path=[plan.path, bwd_plan.path], split_path=split_plans, launches=launches,
+               bit_equal=bit_equal, paths_bit_equal=paths_bit_equal,
+               count_equal=float(count) == m,
                y_max_abs_err=y_err, y_err_over_allowed=y_ratio,
                dx_max_abs_err=dx_err, dx_err_over_allowed=dx_ratio,
                sum_rel_err=sums)
-    row["ok"] = (bit_equal and row["count_equal"] and launches == [1, 1] and y_ratio <= 1
-                 and dx_ratio <= 1 and max(sums.values()) <= BN_SUM_REL_TOL)
-    del py, pdx, again, again_bwd
+    row["ok"] = (bit_equal and paths_bit_equal and row["count_equal"] and launches == [1, 1]
+                 and row["path"] == ["one", "one"] and split_plans == ["split", "split"]
+                 and y_ratio <= 1 and dx_ratio <= 1 and max(sums.values()) <= BN_SUM_REL_TOL)
+    del py, pdx, again, split
     if not timed:
         return row
     isz = x.element_size()
@@ -729,25 +745,37 @@ def bn_check(n, c, h, w, dtype, device, seed=0, offset=0, timed=False):
     xl = x.detach().requires_grad_(True)
     sl, bl = scale.detach().requires_grad_(True), bias.detach().requires_grad_(True)
     yl = F.batch_norm(xl, None, None, sl, bl, True, 0.0, BN_EPS)
-    runs = 5 if m * c > 2 ** 26 else 20
+    # fewer runs where one call moves a quarter gigabyte or more
+    runs, plain_runs = (10, 5) if m * c > 2 ** 26 else (20, 20)
+    row.update(
+        ms=time_ms(fwd, runs=runs), device_ms=device_ms(fwd, runs=runs),
+        bwd_ms=time_ms(bwd, runs=runs), bwd_device_ms=device_ms(bwd, runs=runs),
+        split_device_ms=device_ms(
+            lambda: fbn.fused_bn_fwd(x, scale, bias, BN_EPS, _split=True), runs=runs),
+        bwd_split_device_ms=device_ms(lambda: fbn.fused_bn_bwd(x, dy, mean, rstd, scale, count,
+                                                               _split=True), runs=runs),
+        plain_ms=time_ms(lambda: fbn.batch_norm_train_plain(x, scale, bias, BN_EPS),
+                         runs=plain_runs),
+        bwd_plain_ms=time_ms(lambda: fbn.batch_norm_backward_plain(x, dy, mean, rstd, scale,
+                                                                    count), runs=plain_runs),
+        library_ms=time_ms(lambda: F.batch_norm(x, None, None, scale, bias, True, 0.0, BN_EPS),
+                           runs=runs),
+        bwd_library_ms=time_ms(lambda: torch.autograd.grad(yl, (xl, sl, bl), dy,
+                                                           retain_graph=True), runs=runs),
+        mbytes=2 * m * c * isz / 1e6, bwd_mbytes=3 * m * c * isz / 1e6)
     # the least bytes: x (and dy) read once and y (dx) written once; the two
     # passes of the algorithm read x (and dy) twice
-    row.update(
-        ms=time_ms(fwd), device_ms=device_ms(fwd), bwd_ms=time_ms(bwd),
-        bwd_device_ms=device_ms(bwd),
-        plain_ms=time_ms(lambda: fbn.batch_norm_train_plain(x, scale, bias, BN_EPS), runs=runs),
-        bwd_plain_ms=time_ms(lambda: fbn.batch_norm_backward_plain(x, dy, mean, rstd, scale,
-                                                                    count), runs=runs),
-        library_ms=time_ms(lambda: F.batch_norm(x, None, None, scale, bias, True, 0.0, BN_EPS)),
-        bwd_library_ms=time_ms(lambda: torch.autograd.grad(yl, (xl, sl, bl), dy,
-                                                           retain_graph=True)),
-        mbytes=2 * m * c * isz / 1e6, bwd_mbytes=3 * m * c * isz / 1e6)
     fwd_bound = bound(2 * m * c * isz + 20 * c, BN_FWD_OPS * m * c, PEAK_F32_FLOPS)
     bwd_bound = bound(3 * m * c * isz + 28 * c, BN_BWD_OPS * m * c, PEAK_F32_FLOPS)
     row.update(bound_ms=fwd_bound[0], bound_by=fwd_bound[1], bwd_bound_ms=bwd_bound[0],
                bwd_bound_by=bwd_bound[1],
                two_pass_bound_ms=3 * m * c * isz / PEAK_BYTES_PER_S * 1e3,
                bwd_two_pass_bound_ms=5 * m * c * isz / PEAK_BYTES_PER_S * 1e3)
+    for pre in ("", "bwd_"):
+        dev = row[pre + "device_ms"]
+        row.update({pre + "host_ms": row[pre + "ms"] - dev,
+                    pre + "bound_share": row[pre + "bound_ms"] / dev,
+                    pre + "two_pass_share": row[pre + "two_pass_bound_ms"] / dev})
     return row
 
 
@@ -779,11 +807,11 @@ def bn_shapes(device):
 
 
 def bn_kernels(device):
-    """N1 and N2 against their plain versions at each distinct map of the
-    flagship train step (bf16, timed), again in f32 (a compute_dtype
-    float32 run takes the same kernels), and at edge shapes (C of 1, odd
-    sizes, pointers 2 bytes off 16: one-element loads). Times are
-    launch-weighted means over the step's layers (per_shape beside)."""
+    """N1 and N2 against their plain versions, on both paths, at each
+    distinct map of the flagship train step (bf16, timed), again in f32 (a
+    compute_dtype float32 run takes the same kernels), and at edge shapes
+    (C of 1, odd sizes, pointers 2 bytes off 16: one-element loads). Times
+    are launch-weighted means over the step's layers (per_shape beside)."""
     rows, problems = [], []
     shapes = bn_shapes(device)
     for (n, c, h, w), layers in shapes:
@@ -812,20 +840,27 @@ def bn_kernels(device):
 
     common = dict(route="cuda", source="iv2019_tpu_torch/csrc/fused_bn.cu", launches=None,
                   per_shape=rows, checks=checks)
-    out = [dict(name="fused_bn_fwd", replaces=REPLACES["fused_bn_fwd"],
-                max_abs_err=max(r["y_max_abs_err"] for r in rows), ms=mean("ms"),
-                device_ms=mean("device_ms"), plain_ms=mean("plain_ms"),
-                library_ms=mean("library_ms"), bound_ms=mean("bound_ms"), bound_by="bytes",
-                two_pass_bound_ms=mean("two_pass_bound_ms"), **common),
-           dict(name="fused_bn_bwd", replaces=REPLACES["fused_bn_bwd"],
-                max_abs_err=max(r["dx_max_abs_err"] for r in rows), ms=mean("bwd_ms"),
-                device_ms=mean("bwd_device_ms"), plain_ms=mean("bwd_plain_ms"),
-                library_ms=mean("bwd_library_ms"), bound_ms=mean("bwd_bound_ms"),
-                bound_by="bytes", two_pass_bound_ms=mean("bwd_two_pass_bound_ms"), **common)]
+    out = []
+    for name, pre, err in (("fused_bn_fwd", "", "y_max_abs_err"),
+                           ("fused_bn_bwd", "bwd_", "dx_max_abs_err")):
+        bounds = {k: mean(pre + k) for k in ("bound_ms", "two_pass_bound_ms", "device_ms")}
+        out.append(dict(
+            name=name, replaces=REPLACES[name], max_abs_err=max(r[err] for r in rows),
+            ms=mean(pre + "ms"), device_ms=bounds["device_ms"], host_ms=mean(pre + "host_ms"),
+            split_device_ms=mean(pre + "split_device_ms"), plain_ms=mean(pre + "plain_ms"),
+            library_ms=mean(pre + "library_ms"), bound_ms=bounds["bound_ms"], bound_by="bytes",
+            two_pass_bound_ms=bounds["two_pass_bound_ms"],
+            bound_share=bounds["bound_ms"] / bounds["device_ms"],
+            two_pass_share=bounds["two_pass_bound_ms"] / bounds["device_ms"],
+            path=sorted({r["path"][1 if pre else 0] for r in rows}),
+            under_library=all(r[pre + "ms"] <= r[pre + "library_ms"] for r in rows), **common))
     for r in out:
-        log(f"kernel {r['name']} ms {r['ms']:.4f} device {r['device_ms']:.4f} plain "
+        log(f"kernel {r['name']} ms {r['ms']:.4f} device {r['device_ms']:.4f} host "
+            f"{r['host_ms']:.4f} split path device {r['split_device_ms']:.4f} plain "
             f"{r['plain_ms']:.4f} library {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
-            f"(two passes {r['two_pass_bound_ms']:.4f}), launch-weighted over {weight} layers")
+            f"(two passes {r['two_pass_bound_ms']:.4f}; shares {r['bound_share']:.3f} / "
+            f"{r['two_pass_share']:.3f}), paths {r['path']}, under the library at every map "
+            f"{r['under_library']}, launch-weighted over {weight} layers")
     return out
 
 
@@ -1367,8 +1402,7 @@ STEP_GROUPS = (
     ("port kernels B1-B3, B6", ("fwd_walk_kernel", "bwd_walk_kernel", "update_kernel", "sum_partials",
                                 "wgrad_root_kernel", "wgrad_root_reduce_kernel",
                                 "wgrad_general_kernel", "wgrad_general_reduce_kernel")),
-    ("batchnorm", ("batchnorm", "batch_norm", "bn_stats_kernel", "bn_apply_kernel",
-                   "bn_bwd_reduce_kernel", "bn_bwd_dx_kernel", "bn_combine_kernel")),
+    ("batchnorm", ("batchnorm", "batch_norm", "bn_fwd_kernel", "bn_bwd_kernel")),
     ("conv and gemm", ("xmma", "nvjet", "gemm", "conv", "cutlass")),
     ("copies and casts", ("copy", "convert")),
 )
@@ -2836,10 +2870,16 @@ def bn_fused_variant(settings, batch):
         problems.append("non-finite losses")
     if not runs["fused"]["totals"][-1] < runs["fused"]["totals"][0]:
         problems.append(f"fused total did not fall: {runs['fused']['totals']}")
+    # the last step of each run: wall (its p50 here), device busy, idle share
+    steps = {k: dict(wall_ms=runs[k]["step_ms"][-1], busy_ms=runs[k]["device_busy_ms"],
+                     idle_share=runs[k]["idle_share"]) for k in ("default", "fused")}
     out = dict(runs, step1_against_f32=truth, step_ms=runs["fused"]["step_ms"],
                device_busy_ms=runs["fused"]["device_busy_ms"],
-               peak_memory_gib=runs["fused"]["peak_memory_gib"])
+               peak_memory_gib=runs["fused"]["peak_memory_gib"], step_vs_default=steps)
     log("variant bn_fused: " + json.dumps(out))
+    log("variant bn_fused step (wall, busy ms, idle share): fused "
+        + " / ".join(f"{steps['fused'][k]:.4f}" for k in steps["fused"]) + " against default "
+        + " / ".join(f"{steps['default'][k]:.4f}" for k in steps["default"]))
     if problems:
         raise AssertionError("variant bn_fused: " + "; ".join(problems))
     return out, runs["fused"]["launches"]

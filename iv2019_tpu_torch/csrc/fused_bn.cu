@@ -11,318 +11,504 @@
 // What they compute, per channel c over the M = N * H * W rows of x, laid
 // out (M, C) with channels contiguous (the NHWC storage of a channels_last
 // tensor):
-//   N1  bn_stats_kernel     per-block f32 sums of x and x^2 -> partials
-//       bn_combine_kernel   the partials in one fixed order, in f64 ->
-//                           sums[0:2C] (f32), sums[2C] = M
-//       (the wrapper all-reduces sums over the ranks of a mesh here)
-//       bn_apply_kernel     mean = s1 / m, var = max(0, s2 / m - mean^2),
-//                           rstd = rsqrt(var + eps),
-//                           y = (x - mean) * (rstd * scale) + bias
-//   N2  bn_bwd_reduce_kernel  per-block f32 sums of dy and dy * xhat,
-//                           xhat = (x - mean) * rstd -> partials
-//       bn_combine_kernel   -> sums[0:2C] = (dbeta, dgamma)
-//       (the wrapper all-reduces a copy of them over the ranks)
-//       bn_bwd_dx_kernel    dx = (scale * rstd)
-//                                * (dy - dbeta / m - xhat * (dgamma / m))
+//   N1  bn_fwd_kernel   reduction: sums of x and x^2 -> f64 sums[0:2C],
+//                       sums[2C] = M (the wrapper all-reduces them over a
+//                       mesh here); elementwise: mean = s1 / m,
+//                       var = max(0, s2 / m - mean^2), rstd = rsqrt(var + eps)
+//                       (in f64, each rounded once to f32), then in f32
+//                       y = (x - mean) * (rstd * scale) + bias
+//   N2  bn_bwd_kernel   reduction: sums of dy and dy * xhat,
+//                       xhat = (x - mean) * rstd -> f64 sums[0:2C] =
+//                       (dbeta, dgamma), their f32 roundings the scale and
+//                       bias gradients (the wrapper all-reduces a copy);
+//                       elementwise: dx = (scale * rstd)
+//                                    * (dy - dbeta / m - xhat * (dgamma / m))
 // in JAX's association (fused_bn.py:63-64, :82-85). The variance is JAX's
-// single-pass E[x^2] - E[x]^2, clamped at 0 (not Welford), so both
-// packages cancel alike on channels with a large mean; a channel of
+// single-pass E[x^2] - E[x]^2, clamped at 0 (not Welford); a channel of
 // constant input takes the unclamped branch in the backward, as JAX's does.
 //
-// What bounds them on the H100: bytes. N1 reads x twice (the statistics,
-// then y) and writes y: 3 x sizeof(T) bytes an element, 6 in bf16; N2 reads
-// x and dy twice and writes dx: 5 x sizeof(T), 10 in bf16. A few f32
-// operations an element are far below the ~20 FLOP a byte at which f32
-// arithmetic outside the tensor cores would bound them. The design only
-// streams: each thread owns V contiguous channels (16-byte loads of 8 bf16
-// or 4 f32 where C and the pointers allow, else 8, 4 or 2 bytes, down to one
-// element for ragged C such as the heads' 3, 7 and 14), a block covers tc
-// channel vectors of tr = 256 / tc rows at a time, and the grid splits the
-// rows into ``splits`` contiguous ranges, picked from M and C by the
-// wrapper (ops/fused_bn.py::bn_plan) so that every shape fills the 132 SMs.
+// What bounds them on the H100: bytes. The least is one pass: x (and dy)
+// read once, y (dx) written once, 2 x sizeof(T) bytes an element in N1 and
+// 3 x sizeof(T) in N2 (4 and 6 in bf16). The algorithm reads x (and dy) a
+// second time after the statistics, so from HBM it moves up to 3 and 5 x
+// sizeof(T); a few f32 operations an element are far below the ~20 FLOP a
+// byte at which f32 arithmetic would bound it. The design, against what
+// held the first version (two kernels and a combine a half) back:
 //
-// Determinism. Blocks run in no order, so no block adds into another's
-// result: each writes its per-channel partials (f32: a thread's own rows,
-// then the block's rows in the order of its threads) to its own slot, and
-// the combine adds the slots in a fixed order in f64. The plan depends on
-// the shape and the pointers' alignment only, so two launches on the same
-// inputs give the same bits. Every element-wise product and sum is rounded
-// on its own (the _rn intrinsics: no FMA contraction), as the plain
+// - Launches: one a half on one rank (mode kOneLaunch). A persistent grid
+//   of co-resident blocks (launched cooperatively, sized by the wrapper from
+//   cudaOccupancyMaxActiveBlocksPerMultiprocessor, iv_bn_capacity) reduces
+//   its rows to per-block partials, meets at a grid barrier, adds the
+//   partials (the 2C values in groups of 8, spread over the blocks), meets
+//   at a second barrier, and runs the elementwise pass. The combine is
+//   inside the reduction; there is no combine launch and one C call.
+// - With a mesh the same kernel runs as two cooperative launches on the
+//   same grid (kReduce: the partials, the barrier and the combine; kApply:
+//   the elementwise pass), with the wrapper's all-reduce between them. Both
+//   paths run the same arithmetic on the same plan, so on one rank they
+//   give the same bits; so do two launches.
+// - The second pass: rows in the same forward order as the first, plain
+//   stores. L2 holds too little of a map of 268 MB or more to cut its
+//   second read. At 34-134 MB a reversed walk (the rows the reduction read
+//   last, still in L2, first) read 4-9% less device time in an earlier
+//   version, beside cp.async rings and streaming stores, which together
+//   timed alike launch-weighted (PERF.md, §6); none is kept until a
+//   change measures the walk alone.
+// - Bytes in flight: each thread loads kFwdStages (N1) or kBwdStages (N2,
+//   each of x and dy) rows' vectors into registers before it adds the
+//   first, and a block covers at most 32 channel vectors (512 contiguous
+//   bytes of a row). Loads are 16 bytes (8 bf16, 4 f32) where C and the
+//   pointers allow, else 8, 4 or 2 bytes, down to one element for ragged C
+//   such as the heads' 3, 7 and 14.
+// - Reads of the sums: each block reads its channel tile's sums once into
+//   shared memory; a read by every thread queued at the L2 slices that hold
+//   them.
+//
+// Accuracy and determinism. A thread sums its own rows in order as a
+// compensated (Kahan) f32 sum; the block adds its row lanes in a fixed tree
+// in f64 and writes its partials (f64) to its own slot; the partials are
+// added in f64 in a fixed order (value j's slice k of 32 adds splits k,
+// k + 32, ..., then the slices in order), and the statistics are finished in
+// f64 and rounded once. Blocks run in no order, and no block adds into
+// another's result; the plan depends on the shape, the pointers' alignment
+// and the kernel's occupancy only. Every element-wise product and sum is
+// rounded on its own (the _rn intrinsics: no FMA contraction), as the plain
 // PyTorch version's separate tensor operations are.
 //
+// The workspace (f32, one allocation a call; ops/fused_bn.py::_layout):
+// the f64 sums at [0, 4C + 2) floats, the f32 outputs from 4C + 2 (N1:
+// count, mean, var, rstd; N2: dbias, dscale), the f64 partials (splits x
+// 2C) from ``partials_at``.
+//
 // Plain C interface (no PyTorch headers), loaded with ctypes by
-// iv2019_tpu_torch/ops/fused_bn.py. Each entry point returns
-// cudaGetLastError(), or -1 for a type or vector width it does not take.
+// iv2019_tpu_torch/ops/fused_bn.py. Each entry point returns the launch's
+// CUDA error, or -1 for a mode, type or vector width it does not take.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <type_traits>
+#include <utility>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCombineLanes = 32;  // channels a combine block covers
-constexpr int kCombineSlices = 16;  // ranges of splits it adds in parallel
+constexpr int kLanes = 8;  // values a combine group covers
+constexpr int kSlices = kThreads / kLanes;  // ranges of splits it adds in parallel
+constexpr int kFwdStages = 8;  // rows loaded before the first is added, N1
+constexpr int kBwdStages = 4;  // N2, each of x and dy
 
-// V contiguous elements of type T, loaded as one vector and widened to f32
-// (and narrowed and stored back).
+enum Mode : int { kOneLaunch = 0, kReduce = 1, kApply = 2 };
+
+template <int Bytes>
+struct RawOf;
+template <>
+struct RawOf<16> { using type = uint4; };
+template <>
+struct RawOf<8> { using type = uint2; };
+template <>
+struct RawOf<4> { using type = unsigned int; };
+template <>
+struct RawOf<2> { using type = unsigned short; };
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// V contiguous elements of type T as one raw vector: widened to f32, and
+// narrowed and stored.
 template <typename T, int V>
-struct Pack;
-
-template <int V>
-struct Pack<float, V> {
-  static __device__ __forceinline__ void load(const float* p, float* out) {
-    if constexpr (V == 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p);
-      out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-    } else if constexpr (V == 2) {
-      const float2 v = *reinterpret_cast<const float2*>(p);
-      out[0] = v.x; out[1] = v.y;
-    } else {
-      out[0] = *p;
-    }
-  }
-  static __device__ __forceinline__ void store(float* p, const float* in) {
-    if constexpr (V == 4) {
-      *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-    } else if constexpr (V == 2) {
-      *reinterpret_cast<float2*>(p) = make_float2(in[0], in[1]);
-    } else {
-      *p = in[0];
-    }
-  }
-};
-
-template <int V>
-struct Pack<__nv_bfloat16, V> {
-  // V bf16 values as raw 16-bit words: 16, 8, 4 or 2 bytes
-  using Raw = typename std::conditional<
-      V == 8, uint4, typename std::conditional<
-          V == 4, uint2, typename std::conditional<V == 2, unsigned int,
-                                                   unsigned short>::type>::type>::type;
+struct Pack {
+  using Raw = typename RawOf<sizeof(T) * V>::type;
   union U {
     Raw raw;
-    __nv_bfloat16 h[V];
+    T e[V];
   };
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* out) {
+  static __device__ __forceinline__ void unpack(Raw r, float* out) {
     U u;
-    u.raw = *reinterpret_cast<const Raw*>(p);
+    u.raw = r;
 #pragma unroll
-    for (int j = 0; j < V; ++j) out[j] = __bfloat162float(u.h[j]);
+    for (int j = 0; j < V; ++j) out[j] = widen(u.e[j]);
   }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* in) {
+  static __device__ __forceinline__ void store(T* p, const float* in) {
     U u;
 #pragma unroll
-    for (int j = 0; j < V; ++j) u.h[j] = __float2bfloat16_rn(in[j]);
+    for (int j = 0; j < V; ++j) u.e[j] = narrow<T>(in[j]);
     *reinterpret_cast<Raw*>(p) = u.raw;
   }
 };
 
-// The block's place in the plan: its channel vector, its rows.
+// A thread's place in the plan: its channel vector (blockIdx.x's tile of tc
+// vectors), its row lane ty of tr = 256 / tc, and the rows of that lane in
+// the block's split (blockIdx.y's range of split_rows rows): first, first +
+// tr, ..., ``rows`` of them.
 struct Tile {
-  int tx, ty, tr;
+  int tx, ty, tr, tc;
   int c0;  // first channel of this thread's vector
   bool active;  // the vector lies inside C
-  long long r0, r1;  // rows [r0, r1) of the block's split
+  long long first;
+  int rows;
 };
 
-template <int V>
-__device__ __forceinline__ Tile tile_of(long long m, int c, int tc, long long rows) {
+__device__ __forceinline__ Tile tile_of(long long m, int c, int tc, long long split_rows, int v) {
   Tile t;
+  t.tc = tc;
   t.tx = threadIdx.x % tc;
   t.ty = threadIdx.x / tc;
   t.tr = kThreads / tc;
-  t.c0 = (blockIdx.x * tc + t.tx) * V;
+  t.c0 = (blockIdx.x * tc + t.tx) * v;
   t.active = t.c0 < c;
-  t.r0 = static_cast<long long>(blockIdx.y) * rows;
-  t.r1 = t.r0 + rows < m ? t.r0 + rows : m;
+  const long long b0 = static_cast<long long>(blockIdx.y) * split_rows;
+  const long long b1 = b0 + split_rows < m ? b0 + split_rows : m;
+  t.first = b0 + t.ty;
+  t.rows = t.first < b1 ? static_cast<int>((b1 - t.first + t.tr - 1) / t.tr) : 0;
   return t;
 }
 
-// The block's per-thread sums a[V], b[V], added over its tr row lanes in
-// the order of the lanes (f32) and written to this block's slot of
-// ``partials`` (splits, 2C): a at [0, C), b at [C, 2C).
-template <int V>
-__device__ __forceinline__ void block_partials(const Tile& t, const float* a, const float* b,
-                                               int c, float* partials) {
-  __shared__ float red[2][kThreads * 8];
+// The thread's rows k = 0, 1, ..., rows - 1 in order (row k's vector of
+// each of the N tensors at src[i] + k * step): S rows' vectors are loaded
+// into registers before ``body(k, raw)`` sees the first of them, so S loads
+// a tensor are in flight at once.
+template <int S, int N, typename Raw, typename Body>
+__device__ __forceinline__ void walk_rows(const Raw* const (&src)[N], long long step, int rows,
+                                          Body body) {
+  for (int k0 = 0; k0 < rows; k0 += S) {
+    Raw raw[S][N];
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    red[0][threadIdx.x * V + j] = a[j];
-    red[1][threadIdx.x * V + j] = b[j];
-  }
-  __syncthreads();
-  if (t.ty != 0 || !t.active) return;
-  const int tc = kThreads / t.tr;
-  float* slot = partials + static_cast<long long>(blockIdx.y) * 2 * c;
+    for (int u = 0; u < S; ++u) {
+      if (k0 + u < rows) {
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    float sa = 0.0f, sb = 0.0f;
-    for (int lane = 0; lane < t.tr; ++lane) {
-      sa = __fadd_rn(sa, red[0][(lane * tc + t.tx) * V + j]);
-      sb = __fadd_rn(sb, red[1][(lane * tc + t.tx) * V + j]);
-    }
-    slot[t.c0 + j] = sa;
-    slot[c + t.c0 + j] = sb;
-  }
-}
-
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-bn_stats_kernel(const T* __restrict__ x, float* __restrict__ partials, long long m, int c,
-                int tc, long long rows) {
-  const Tile t = tile_of<V>(m, c, tc, rows);
-  float s1[V], s2[V];
-#pragma unroll
-  for (int j = 0; j < V; ++j) s1[j] = s2[j] = 0.0f;
-  if (t.active) {
-#pragma unroll 4
-    for (long long r = t.r0 + t.ty; r < t.r1; r += t.tr) {
-      float v[V];
-      Pack<T, V>::load(x + r * c + t.c0, v);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        s1[j] = __fadd_rn(s1[j], v[j]);
-        s2[j] = __fadd_rn(s2[j], __fmul_rn(v[j], v[j]));
+        for (int i = 0; i < N; ++i) raw[u][i] = src[i][(k0 + u) * step];
       }
     }
-  }
-  block_partials<V>(t, s1, s2, c, partials);
-}
-
-// sums[j] = the f64 sum over s of partials[s][j], in the order of s (each
-// of kCombineSlices lanes adds every kCombineSlices-th split, then the
-// lanes are added in order), rounded to f32; sums[n] = count when count
-// >= 0.
-__global__ void __launch_bounds__(kCombineLanes * kCombineSlices)
-bn_combine_kernel(const float* __restrict__ partials, int splits, int n, float* __restrict__ sums,
-                  float count) {
-  __shared__ double red[kCombineSlices][kCombineLanes];
-  const int lane = threadIdx.x % kCombineLanes;
-  const int slice = threadIdx.x / kCombineLanes;
-  const int j = blockIdx.x * kCombineLanes + lane;
-  double acc = 0.0;
-  if (j < n) {
-#pragma unroll 8
-    for (int s = slice; s < splits; s += kCombineSlices) {
-      acc += static_cast<double>(partials[static_cast<long long>(s) * n + j]);
+#pragma unroll
+    for (int u = 0; u < S; ++u) {
+      if (k0 + u < rows) body(k0 + u, raw[u]);
     }
   }
-  red[slice][lane] = acc;
+}
+
+// A thread's compensated (Kahan) f32 sums of V values over its rows, in row
+// order: ``sum`` and the negative of what its roundings dropped, ``lost``,
+// so that sum - lost carries the f32 sum's lost bits; as accurate as f64
+// running sums without f64 registers or conversions in the row loop.
+template <int V>
+struct KahanSum {
+  float sum[V], lost[V];
+  __device__ __forceinline__ KahanSum() {
+#pragma unroll
+    for (int j = 0; j < V; ++j) sum[j] = lost[j] = 0.0f;
+  }
+  __device__ __forceinline__ void add(int j, float v) {
+    const float y = __fsub_rn(v, lost[j]);
+    const float t = __fadd_rn(sum[j], y);
+    lost[j] = __fsub_rn(__fsub_rn(t, sum[j]), y);
+    sum[j] = t;
+  }
+  __device__ __forceinline__ double value(int j) const {
+    return __dsub_rn(static_cast<double>(sum[j]), static_cast<double>(lost[j]));
+  }
+};
+
+// The block's per-thread sums a, b (compensated f32 over the thread's own
+// rows), in f64, added over its tr row lanes in a fixed tree (f64, in
+// ``red``: 2 x 256 x V doubles) and written to the block's slot of the
+// partials (f64): a at [0, C), b at [C, 2C).
+template <int V>
+__device__ __forceinline__ void block_partials(const Tile& t, const KahanSum<V>& a,
+                                               const KahanSum<V>& b, int c, double* slot,
+                                               double* red) {
+  const int i = threadIdx.x * V;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    red[i + j] = a.value(j);
+    red[kThreads * V + i + j] = b.value(j);
+  }
+  __syncthreads();
+  for (int s = t.tr / 2; s > 0; s /= 2) {
+    if (t.ty < s) {
+      const int o = i + s * t.tc * V;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        red[i + j] = __dadd_rn(red[i + j], red[o + j]);
+        red[kThreads * V + i + j] = __dadd_rn(red[kThreads * V + i + j], red[kThreads * V + o + j]);
+      }
+    }
+    __syncthreads();
+  }
+  if (t.ty == 0 && t.active) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      slot[t.c0 + j] = red[i + j];
+      slot[c + t.c0 + j] = red[kThreads * V + i + j];
+    }
+  }
+}
+
+// Where a half writes its sums: ``sums`` (f64, n values) and, for N2,
+// ``out`` (their f32 roundings: dbias, dscale); N1 also writes the row
+// count ``count`` to sums[n].
+struct SumsOut {
+  double* sums;
+  float* out;
+  double count;
+};
+
+// Group g's kLanes values of the partials (splits, n), a thread a (value,
+// slice): value j's slice k is the f64 sum of partials[s][j] for s = k, k +
+// kSlices, ... in order, and its total the f64 sum of its slices in order
+// (each from 0.0). ``red``: kSlices x kLanes.
+__device__ __forceinline__ void combine_group(const double* partials, int splits, int n, int g,
+                                              const SumsOut& o, double* red) {
+  const int lane = threadIdx.x % kLanes;
+  const int slice = threadIdx.x / kLanes;
+  const int j = g * kLanes + lane;
+  double acc = 0.0;
+  if (j < n) {
+#pragma unroll 4
+    for (int s = slice; s < splits; s += kSlices) {
+      acc = __dadd_rn(acc, __ldcg(partials + static_cast<long long>(s) * n + j));
+    }
+  }
+  red[slice * kLanes + lane] = acc;
   __syncthreads();
   if (slice == 0 && j < n) {
     double total = 0.0;
-    for (int k = 0; k < kCombineSlices; ++k) total += red[k][lane];
-    sums[j] = static_cast<float>(total);
+    for (int k = 0; k < kSlices; ++k) total = __dadd_rn(total, red[k * kLanes + lane]);
+    o.sums[j] = total;
+    if (o.out) o.out[j] = __double2float_rn(total);
   }
-  if (count >= 0.0f && blockIdx.x == 0 && threadIdx.x == 0) sums[n] = count;
+  __syncthreads();
 }
 
+// After the block's partials are written: every block meets at a grid
+// barrier, and the groups of the 2C values are combined across the blocks;
+// a count >= 0 goes to sums[n]. Every block of a cooperative grid calls it.
+__device__ __forceinline__ void combine(const double* partials, int n, const SumsOut& o,
+                                        double* red) {
+  const int blocks = gridDim.x * gridDim.y;
+  const int block = blockIdx.y * gridDim.x + blockIdx.x;
+  cg::this_grid().sync();
+  const int groups = (n + kLanes - 1) / kLanes;
+  for (int g = block; g < groups; g += blocks) combine_group(partials, gridDim.y, n, g, o, red);
+  if (o.count >= 0.0 && block == 0 && threadIdx.x == 0) o.sums[n] = o.count;
+}
+
+// The 2 x tc x V f64 sums of the block's channel tile (and, with ``count``,
+// the value after the 2C sums) into ``own``, read once a block: every block
+// reads the same few lines, so a read by every thread would queue at the L2
+// slices that hold them.
+__device__ __forceinline__ void tile_sums(const double* sums, int c, int tcv, bool count,
+                                          double* own) {
+  const int c0 = blockIdx.x * tcv;
+  for (int i = threadIdx.x; i < 2 * tcv; i += kThreads) {
+    const int ch = c0 + i % tcv;
+    if (ch < c) own[i] = __ldcg(sums + (i < tcv ? 0 : c) + ch);
+  }
+  if (count && threadIdx.x == 0) own[2 * tcv] = __ldcg(sums + 2 * c);
+  __syncthreads();
+}
+
+// The workspace (floats): the f64 sums [0, 4C + 2), then the f32 outputs
+// from 4C + 2 (N1: count, mean, var, rstd; N2: dbias, dscale), the f64
+// partials from ``partials_at``.
+struct Workspace {
+  double* sums;
+  float* out;
+  double* partials;
+  __device__ __forceinline__ Workspace(float* ws, int c, long long partials_at)
+      : sums(reinterpret_cast<double*>(ws)),
+        out(ws + 4LL * c + 2),
+        partials(reinterpret_cast<double*>(ws + partials_at)) {}
+};
+
+// At least two blocks an SM (128 registers a thread); iv_bn_capacity asks
+// the card how many it holds.
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-bn_apply_kernel(const T* __restrict__ x, const float* __restrict__ sums,
-                const float* __restrict__ scale, const float* __restrict__ bias, float eps,
-                T* __restrict__ y, float* __restrict__ mean_out, float* __restrict__ var_out,
-                float* __restrict__ rstd_out, long long m, int c, int tc, long long rows) {
-  const Tile t = tile_of<V>(m, c, tc, rows);
+__global__ void __launch_bounds__(kThreads, 2)
+bn_fwd_kernel(int mode, const T* __restrict__ x, const float* __restrict__ scale,
+              const float* __restrict__ bias, float eps, T* __restrict__ y, float* ws,
+              long long m, int c, int tc, long long split_rows, long long partials_at) {
+  using P = Pack<T, V>;
+  using Raw = typename P::Raw;
+  __shared__ double red[2 * kThreads * V];  // the block's row lanes, added in a tree
+  __shared__ double red64[2 * kThreads + 1];  // the combine's scratch, then the tile's sums
+  const Tile t = tile_of(m, c, tc, split_rows, V);
+  const int n = 2 * c;
+  const Workspace w(ws, c, partials_at);
+  float* count_out = w.out;
+  float* mean_out = w.out + 1;
+  float* var_out = mean_out + c;
+  float* rstd_out = var_out + c;
+  const long long step = static_cast<long long>(t.tr) * c / V;  // in vectors
+  const Raw* const src[1] = {reinterpret_cast<const Raw*>(x + t.first * c + t.c0)};
+  if (mode != kApply) {
+    KahanSum<V> s1, s2;
+    if (t.active) {
+      walk_rows<kFwdStages, 1>(src, step, t.rows, [&](int, const Raw* raw) {
+        float v[V];
+        P::unpack(raw[0], v);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          s1.add(j, v[j]);
+          s2.add(j, __fmul_rn(v[j], v[j]));
+        }
+      });
+    }
+    block_partials<V>(t, s1, s2, c, w.partials + static_cast<long long>(blockIdx.y) * n, red);
+    combine(w.partials, n, SumsOut{w.sums, nullptr, static_cast<double>(m)}, red64);
+    if (mode == kReduce) return;
+    cg::this_grid().sync();
+  }
+  // the statistics in f64 from the f64 sums (of every rank, after the
+  // all-reduce of a mesh), each rounded once to f32
+  const int tcv = t.tc * V;
+  tile_sums(w.sums, c, tcv, true, red64);
+  const double count = red64[2 * tcv];
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+    *count_out = __double2float_rn(count);
+  }
   if (!t.active) return;
-  const float count = sums[2 * c];
   float mean[V], mul[V], add[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
     const int ch = t.c0 + j;
-    mean[j] = __fdiv_rn(sums[ch], count);
-    const float var = fmaxf(0.0f, __fsub_rn(__fdiv_rn(sums[c + ch], count),
-                                            __fmul_rn(mean[j], mean[j])));
-    const float rstd = rsqrtf(__fadd_rn(var, eps));
+    const int i = t.tx * V + j;
+    const double mean64 = __ddiv_rn(red64[i], count);
+    const double var64 = fmax(0.0, __dsub_rn(__ddiv_rn(red64[tcv + i], count),
+                                             __dmul_rn(mean64, mean64)));
+    const float rstd = __double2float_rn(__drcp_rn(__dsqrt_rn(__dadd_rn(var64, eps))));
+    mean[j] = __double2float_rn(mean64);
     mul[j] = __fmul_rn(rstd, scale[ch]);
     add[j] = bias[ch];
     if (blockIdx.y == 0 && t.ty == 0) {
       mean_out[ch] = mean[j];
-      var_out[ch] = var;
+      var_out[ch] = __double2float_rn(var64);
       rstd_out[ch] = rstd;
     }
   }
-#pragma unroll 4
-  for (long long r = t.r0 + t.ty; r < t.r1; r += t.tr) {
+  T* yp = y + t.first * c + t.c0;
+  walk_rows<kFwdStages, 1>(src, step, t.rows, [&](int k, const Raw* raw) {
     float v[V];
-    Pack<T, V>::load(x + r * c + t.c0, v);
+    P::unpack(raw[0], v);
 #pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = __fadd_rn(__fmul_rn(__fsub_rn(v[j], mean[j]), mul[j]), add[j]);
-    Pack<T, V>::store(y + r * c + t.c0, v);
-  }
+    for (int j = 0; j < V; ++j) {
+      v[j] = __fadd_rn(__fmul_rn(__fsub_rn(v[j], mean[j]), mul[j]), add[j]);
+    }
+    P::store(yp + k * step * V, v);
+  });
 }
 
+// At least two blocks an SM, as N1.
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-bn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                     const float* __restrict__ mean, const float* __restrict__ rstd,
-                     float* __restrict__ partials, long long m, int c, int tc, long long rows) {
-  const Tile t = tile_of<V>(m, c, tc, rows);
-  float db[V], dg[V], mu[V], rs[V];
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    db[j] = dg[j] = 0.0f;
-    mu[j] = t.active ? mean[t.c0 + j] : 0.0f;
-    rs[j] = t.active ? rstd[t.c0 + j] : 0.0f;
-  }
-  if (t.active) {
-#pragma unroll 4
-    for (long long r = t.r0 + t.ty; r < t.r1; r += t.tr) {
-      float xv[V], gv[V];
-      Pack<T, V>::load(x + r * c + t.c0, xv);
-      Pack<T, V>::load(dy + r * c + t.c0, gv);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float xhat = __fmul_rn(__fsub_rn(xv[j], mu[j]), rs[j]);
-        db[j] = __fadd_rn(db[j], gv[j]);
-        dg[j] = __fadd_rn(dg[j], __fmul_rn(gv[j], xhat));
-      }
+__global__ void __launch_bounds__(kThreads, 2)
+bn_bwd_kernel(int mode, const T* __restrict__ x, const T* __restrict__ dy,
+              const float* __restrict__ mean, const float* __restrict__ rstd,
+              const float* __restrict__ scale, const float* __restrict__ count_ptr,
+              const double* sums_in, T* __restrict__ dx, float* ws, long long m, int c, int tc,
+              long long split_rows, long long partials_at) {
+  using P = Pack<T, V>;
+  using Raw = typename P::Raw;
+  __shared__ double red[2 * kThreads * V];  // the block's row lanes, added in a tree
+  __shared__ double red64[2 * kThreads];  // the combine's scratch, then the tile's sums
+  const Tile t = tile_of(m, c, tc, split_rows, V);
+  const int n = 2 * c;
+  const Workspace w(ws, c, partials_at);
+  const long long step = static_cast<long long>(t.tr) * c / V;  // in vectors
+  const long long at = t.first * c + t.c0;
+  const Raw* const src[2] = {reinterpret_cast<const Raw*>(x + at),
+                             reinterpret_cast<const Raw*>(dy + at)};
+  // the tile's mean and rstd, read from shared memory in the row loops (in
+  // registers beside the compensated sums or the staged rows they spill)
+  __shared__ float murs[2 * kThreads];
+  const int tcv = t.tc * V;
+  for (int i = threadIdx.x; i < tcv; i += kThreads) {
+    const int ch = blockIdx.x * tcv + i;
+    if (ch < c) {
+      murs[i] = mean[ch];
+      murs[tcv + i] = rstd[ch];
     }
   }
-  block_partials<V>(t, db, dg, c, partials);
-}
-
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-bn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                 const float* __restrict__ mean, const float* __restrict__ rstd,
-                 const float* __restrict__ scale, const float* __restrict__ sums,
-                 const float* __restrict__ count_ptr, T* __restrict__ dx, long long m, int c,
-                 int tc, long long rows) {
-  const Tile t = tile_of<V>(m, c, tc, rows);
+  __syncthreads();
+  const float* mu = murs + t.tx * V;
+  const float* rs = murs + tcv + t.tx * V;
+  if (mode != kApply) {
+    KahanSum<V> db, dg;
+    if (t.active) {
+      walk_rows<kBwdStages, 2>(src, step, t.rows, [&](int, const Raw* raw) {
+        float xv[V], gv[V];
+        P::unpack(raw[0], xv);
+        P::unpack(raw[1], gv);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xhat = __fmul_rn(__fsub_rn(xv[j], mu[j]), rs[j]);
+          db.add(j, gv[j]);
+          dg.add(j, __fmul_rn(gv[j], xhat));
+        }
+      });
+    }
+    block_partials<V>(t, db, dg, c, w.partials + static_cast<long long>(blockIdx.y) * n, red);
+    combine(w.partials, n, SumsOut{w.sums, w.out, -1.0}, red64);
+    if (mode == kReduce) return;
+    cg::this_grid().sync();
+  }
+  tile_sums(sums_in, c, tcv, false, red64);
   if (!t.active) return;
-  const float count = *count_ptr;
-  float mu[V], rs[V], a[V], b[V], d[V];
+  const double count = static_cast<double>(*count_ptr);
+  float a[V], b[V], d[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
     const int ch = t.c0 + j;
-    mu[j] = mean[ch];
-    rs[j] = rstd[ch];
+    const int i = t.tx * V + j;
     a[j] = __fmul_rn(scale[ch], rs[j]);
-    b[j] = __fdiv_rn(sums[ch], count);
-    d[j] = __fdiv_rn(sums[c + ch], count);
+    b[j] = __double2float_rn(__ddiv_rn(red64[i], count));
+    d[j] = __double2float_rn(__ddiv_rn(red64[tcv + i], count));
   }
-#pragma unroll 4
-  for (long long r = t.r0 + t.ty; r < t.r1; r += t.tr) {
+  T* dxp = dx + at;
+  walk_rows<kBwdStages, 2>(src, step, t.rows, [&](int k, const Raw* raw) {
     float xv[V], gv[V];
-    Pack<T, V>::load(x + r * c + t.c0, xv);
-    Pack<T, V>::load(dy + r * c + t.c0, gv);
+    P::unpack(raw[0], xv);
+    P::unpack(raw[1], gv);
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const float xhat = __fmul_rn(__fsub_rn(xv[j], mu[j]), rs[j]);
       xv[j] = __fmul_rn(a[j], __fsub_rn(__fsub_rn(gv[j], b[j]), __fmul_rn(xhat, d[j])));
     }
-    Pack<T, V>::store(dx + r * c + t.c0, xv);
-  }
+    P::store(dxp + k * step * V, xv);
+  });
 }
 
-void combine(const float* partials, int splits, int n, float* sums, float count,
-             cudaStream_t stream) {
-  const int blocks = (n + kCombineLanes - 1) / kCombineLanes;
-  bn_combine_kernel<<<blocks, kCombineLanes * kCombineSlices, 0, stream>>>(partials, splits, n,
-                                                                          sums, count);
+// One cooperative launch of ``kernel`` on the plan's (tiles, splits) grid:
+// the grid barriers need every block resident, and the launch fails, and
+// does not hang, on a grid the card cannot hold at once.
+template <typename... Exp, typename... Act>
+cudaError_t launch(void (*kernel)(Exp...), int tiles, int splits, cudaStream_t stream,
+                   Act&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Act>(args)...);
+}
+
+int finish(cudaError_t err) {
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 }  // namespace
@@ -339,63 +525,60 @@ void combine(const float* partials, int splits, int n, float* sums, float count,
   else if (dtype == 1 && vec == 1) { CALL(__nv_bfloat16, 1); } \
   else { return -1; }
 
-// N1, first half: sums (2C + 1 floats) = (sum x, sum x^2, M).
-extern "C" int iv_bn_stats(int dtype, int vec, const void* x, float* partials, float* sums,
-                           long long m, int c, int tc, int tiles, int splits, long long rows,
-                           cudaStream_t stream) {
-  const dim3 grid(tiles, splits);
-#define IV_BN_STATS(T, V)                                                                  \
-  bn_stats_kernel<T, V><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), partials, \
-                                                        m, c, tc, rows)
-  IV_BN_DISPATCH(IV_BN_STATS)
-#undef IV_BN_STATS
-  combine(partials, splits, 2 * c, sums, static_cast<float>(m), stream);
-  return static_cast<int>(cudaGetLastError());
+// The blocks of N1's (half 0) or N2's (half 1) kernel that the current
+// device holds at once: the largest grid of a launch.
+extern "C" int iv_bn_capacity(int half, int dtype, int vec, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (half != 0 && half != 1) return -1;
+#define IV_BN_CAPACITY(T, V)                                                              \
+  if (err == cudaSuccess) {                                                               \
+    err = half == 0                                                                       \
+              ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bn_fwd_kernel<T, V>, \
+                                                              kThreads, 0)                \
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bn_bwd_kernel<T, V>, \
+                                                              kThreads, 0);               \
+  }
+  IV_BN_DISPATCH(IV_BN_CAPACITY)
+#undef IV_BN_CAPACITY
+  *blocks = per_sm * sms;
+  return finish(err);
 }
 
-// N1, second half: y, mean, var (biased), rstd from the (all-reduced) sums.
-extern "C" int iv_bn_apply(int dtype, int vec, const void* x, const float* sums,
-                           const float* scale, const float* bias, float eps, void* y,
-                           float* mean, float* var, float* rstd, long long m, int c, int tc,
-                           int tiles, int splits, long long rows, cudaStream_t stream) {
-  const dim3 grid(tiles, splits);
-#define IV_BN_APPLY(T, V)                                                                   \
-  bn_apply_kernel<T, V><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), sums, scale, \
-                                                        bias, eps, static_cast<T*>(y), mean,  \
-                                                        var, rstd, m, c, tc, rows)
-  IV_BN_DISPATCH(IV_BN_APPLY)
-#undef IV_BN_APPLY
-  return static_cast<int>(cudaGetLastError());
+// N1 in ``mode``: kOneLaunch (y, mean, var, rstd and the sums with the row
+// count in ``ws``), kReduce (the sums alone), kApply (the rest, from the
+// sums in ``ws``, all-reduced in between by the wrapper).
+extern "C" int iv_bn_fwd(int mode, int dtype, int vec, const void* x, const float* scale,
+                         const float* bias, float eps, void* y, float* ws, long long m, int c,
+                         int tc, int tiles, int splits, long long split_rows,
+                         long long partials_at, cudaStream_t stream) {
+  if (mode < kOneLaunch || mode > kApply) return -1;
+  cudaError_t err = cudaSuccess;
+#define IV_BN_FWD(T, V)                                                                     \
+  err = launch(&bn_fwd_kernel<T, V>, tiles, splits, stream, mode, static_cast<const T*>(x), \
+               scale, bias, eps, static_cast<T*>(y), ws, m, c, tc, split_rows, partials_at)
+  IV_BN_DISPATCH(IV_BN_FWD)
+#undef IV_BN_FWD
+  return finish(err);
 }
 
-// N2, first half: sums (2C floats) = (sum dy, sum dy * xhat).
-extern "C" int iv_bn_bwd_reduce(int dtype, int vec, const void* x, const void* dy,
-                                const float* mean, const float* rstd, float* partials,
-                                float* sums, long long m, int c, int tc, int tiles, int splits,
-                                long long rows, cudaStream_t stream) {
-  const dim3 grid(tiles, splits);
-#define IV_BN_BWD_REDUCE(T, V)                                                           \
-  bn_bwd_reduce_kernel<T, V><<<grid, kThreads, 0, stream>>>(                             \
-      static_cast<const T*>(x), static_cast<const T*>(dy), mean, rstd, partials, m, c, tc, \
-      rows)
-  IV_BN_DISPATCH(IV_BN_BWD_REDUCE)
-#undef IV_BN_BWD_REDUCE
-  combine(partials, splits, 2 * c, sums, -1.0f, stream);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// N2, second half: dx from the (all-reduced) sums and the forward's row
+// N2 in ``mode``: kOneLaunch (dx, and the local sums (dbeta, dgamma) in
+// ``ws``), kReduce (the local sums alone), kApply (dx from ``sums``: the
+// all-reduced copy, or ``ws`` itself on one rank). ``count`` is N1's row
 // count (device memory, so the host never waits for it).
-extern "C" int iv_bn_bwd_dx(int dtype, int vec, const void* x, const void* dy,
-                            const float* mean, const float* rstd, const float* scale,
-                            const float* sums, const float* count, void* dx, long long m, int c,
-                            int tc, int tiles, int splits, long long rows, cudaStream_t stream) {
-  const dim3 grid(tiles, splits);
-#define IV_BN_BWD_DX(T, V)                                                                  \
-  bn_bwd_dx_kernel<T, V><<<grid, kThreads, 0, stream>>>(                                    \
-      static_cast<const T*>(x), static_cast<const T*>(dy), mean, rstd, scale, sums, count, \
-      static_cast<T*>(dx), m, c, tc, rows)
-  IV_BN_DISPATCH(IV_BN_BWD_DX)
-#undef IV_BN_BWD_DX
-  return static_cast<int>(cudaGetLastError());
+extern "C" int iv_bn_bwd(int mode, int dtype, int vec, const void* x, const void* dy,
+                         const float* mean, const float* rstd, const float* scale,
+                         const float* count, const double* sums, void* dx, float* ws,
+                         long long m, int c, int tc, int tiles, int splits, long long split_rows,
+                         long long partials_at, cudaStream_t stream) {
+  if (mode < kOneLaunch || mode > kApply) return -1;
+  cudaError_t err = cudaSuccess;
+#define IV_BN_BWD(T, V)                                                                    \
+  err = launch(&bn_bwd_kernel<T, V>, tiles, splits, stream, mode, static_cast<const T*>(x), \
+               static_cast<const T*>(dy), mean, rstd, scale, count, sums,                  \
+               static_cast<T*>(dx), ws, m, c, tc, split_rows, partials_at)
+  IV_BN_DISPATCH(IV_BN_BWD)
+#undef IV_BN_BWD
+  return finish(err);
 }

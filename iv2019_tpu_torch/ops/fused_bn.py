@@ -16,8 +16,9 @@ takes the unclamped branch, as JAX's does (fused_bn.py:25-29).
 Tensors are the port's NCHW (the statistics run over N, H and W). JAX's
 Norm casts the compute-type activation to f32 before its custom VJP, so
 this module computes that function on the activation as it is: bf16 or f32
-in, every statistic and sum in f32 (combined in f64 on the card), y and dx
-rounded to the input's type. It saves JAX's residuals ``(x, mean, rstd,
+in, every statistic and sum in f32 (on the card: compensated f32 sums a
+thread, f64 from there on, the statistics finished in f64 and rounded once
+to f32), y and dx rounded to the input's type. It saves JAX's residuals ``(x, mean, rstd,
 scale)`` (and the row count) and no f32 copy of x.
 
 - ``batch_stats(x)``: the f32 (mean, var) of JAX's function of that name.
@@ -25,19 +26,22 @@ scale)`` (and the row count) and no f32 copy of x.
   var)``, a ``torch.autograd.Function`` (``_BatchNormTrain``); only ``y``
   carries a gradient. With a ``mesh`` (parallel/mesh.py::norm_mesh) the
   statistics are those of every rank's rows: the per-channel sums and the
-  row count are all-reduced between the two kernels of N1, and the
-  gradient's two sums between the two kernels of N2 (one all-reduce each
+  row count are all-reduced between the two launches of N1, and the
+  gradient's two sums between the two launches of N2 (one all-reduce each
   way, as models/layers.py::_GlobalBatchNorm). The scale and bias gradients
   are this rank's parts, which the train step's gradient all-reduce adds.
 - ``batch_norm_train_plain`` / ``batch_norm_backward_plain``: the same
   function in plain PyTorch, in f32 whatever the input type, rounded to the
   input's type at the end; ``fused_bn_fwd`` / ``fused_bn_bwd`` run them
   for CPU tensors only. For a CUDA tensor they launch N1 / N2 of
-  ``csrc/fused_bn.cu`` (each two kernels and a combine) or raise.
+  ``csrc/fused_bn.cu`` or raise: on one rank one cooperative launch a
+  half (reduction, combine and elementwise pass in one kernel), with a
+  mesh two cooperative launches of the same kernel on the same grid, with
+  the all-reduce between them.
 
 Counters: ``fused_bn_fwd.launches`` and ``fused_bn_bwd.launches`` add one
-for each launch of N1 and N2 on the card (one each a BatchNorm layer a
-microbatch); ``batch_norm_train.layout_copies`` counts the inputs (x
+for each run of N1 and N2 on the card, of one launch or of two (one each a
+BatchNorm layer a microbatch); ``batch_norm_train.layout_copies`` counts the inputs (x
 forward, dy backward) that were not channels_last and were copied to it,
 on either device.
 """
@@ -46,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -54,12 +59,13 @@ from iv2019_tpu_torch.ops import _build
 from iv2019_tpu_torch.parallel import mesh as pmesh
 
 __all__ = ["BnPlan", "batch_norm_backward_plain", "batch_norm_train", "batch_norm_train_plain",
-           "batch_stats", "bn_plan", "fused_bn_bwd", "fused_bn_fwd"]
+           "batch_stats", "bn_plan", "bn_vec", "fused_bn_bwd", "fused_bn_fwd", "launch_plan"]
 
 _DIMS = (0, 2, 3)
 _THREADS = 256
-# blocks a launch aims at: four 256-thread blocks on each of the H100's 132 SMs
-_TARGET_BLOCKS = 132 * 4
+# channel vectors a block covers at most: 32 x 16 bytes, 512 contiguous bytes of a row
+# (the kernels' per-block arrays hold a tile of at most 256 channels: 32 x 8)
+_TC_MAX = 32
 # rows a thread sums at least before a shape is split further
 _MIN_ROWS_PER_THREAD = 16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -133,33 +139,71 @@ class BnPlan:
     """How N1 and N2 cut an (M, C) map: ``vec`` channels a thread loads at
     once, ``tc`` channel vectors and ``256 // tc`` rows a block covers at a
     time, ``tiles`` blocks across C, ``splits`` contiguous ranges of
-    ``rows`` rows each down M (the last may be shorter)."""
+    ``rows`` rows each down M (the last may be shorter). ``capacity``: the
+    blocks the card holds at once (the grid, ``tiles * splits``, does not
+    exceed it); ``path``: "one" (one cooperative launch) or "split" (a
+    reduction launch, then an elementwise launch on the same grid, with
+    the mesh's all-reduce between them); the f32 workspace holds
+    ``workspace`` floats, the partials from ``partials_at`` (``_layout``)."""
 
     vec: int
     tc: int
     tiles: int
     splits: int
     rows: int
+    capacity: int
+    path: str
+    partials_at: int
+    workspace: int
 
 
-def bn_plan(m: int, c: int, itemsize: int, align: int) -> BnPlan:
+def bn_vec(c: int, itemsize: int, align: int) -> int:
+    """The widest load of at most 16 bytes, in elements, that C and
+    pointers on ``align`` bytes allow."""
+    return next(v for v in (8, 4, 2, 1)
+                if v * itemsize <= 16 and c % v == 0 and align % (v * itemsize) == 0)
+
+
+def _layout(c: int) -> dict:
+    """Float offsets of the workspace's parts before the partials (as
+    csrc/fused_bn.cu reads them): the f64 sums [0, 4C + 2) (2C + 1 doubles:
+    the 2C sums, then N1's row count), the f32 outputs (N1: the row count,
+    mean, var, rstd; N2: dbias and dscale from ``out``); the f64 partials
+    (splits x 2C) start on 16 bytes."""
+    out = 4 * c + 2
+    return {"sums": 0, "count": out, "mean": out + 1, "var": out + 1 + c, "rstd": out + 1 + 2 * c,
+            "dbias": out, "dscale": out + c, "partials": -(-(7 * c + 3) // 4) * 4}
+
+
+@functools.lru_cache(maxsize=None)
+def bn_plan(m: int, c: int, itemsize: int, align: int, capacity: int,
+            split: bool = False) -> BnPlan:
     """The plan of an (m, c) map of ``itemsize``-byte elements whose
-    pointers all lie on ``align`` bytes: the widest load of at most 16
-    bytes that C and the alignment allow, and as many row splits as reach
-    ``_TARGET_BLOCKS`` blocks while each thread still sums
-    ``_MIN_ROWS_PER_THREAD`` rows. A function of its arguments alone, so
-    two launches on the same shape add in the same order."""
+    pointers all lie on ``align`` bytes, for a kernel of which the card
+    holds ``capacity`` blocks at once: the widest load that C and the
+    alignment allow, tiles of at most ``_TC_MAX`` vectors, and as many row
+    splits as fill ``capacity`` while each thread still sums
+    ``_MIN_ROWS_PER_THREAD`` rows. One launch unless ``split`` (a mesh);
+    both paths take the same grid. A function of its arguments alone
+    (memoised), so two launches on the same shape add in the same order.
+    Refuses a C whose tiles alone the card cannot hold at once (above
+    ~100k channels on an H100)."""
     if m < 1 or c < 1:
         raise ValueError(f"batch norm of an empty map ({m} rows, {c} channels)")
-    vec = next(v for v in (8, 4, 2, 1)
-               if v * itemsize <= 16 and c % v == 0 and align % (v * itemsize) == 0)
+    vec = bn_vec(c, itemsize, align)
     cv = c // vec
-    tc = min(1 << (cv - 1).bit_length(), _THREADS)
+    tc = min(1 << (cv - 1).bit_length(), _TC_MAX)
     tr = _THREADS // tc
     tiles = -(-cv // tc)
-    splits = max(1, min(-(-_TARGET_BLOCKS // tiles), m // (tr * _MIN_ROWS_PER_THREAD)))
+    if tiles > capacity:
+        raise ValueError(f"batch norm of {c} channels: {tiles} tiles of channels, a grid the "
+                         f"card cannot hold at once ({capacity} blocks)")
+    splits = max(1, min(capacity // tiles, m // (tr * _MIN_ROWS_PER_THREAD)))
     rows = -(-m // splits)
-    return BnPlan(vec, tc, tiles, -(-m // rows), rows)
+    splits = -(-m // rows)
+    at = _layout(c)["partials"]
+    return BnPlan(vec, tc, tiles, splits, rows, capacity, "split" if split else "one", at,
+                  at + splits * 4 * c)
 
 
 def _alignment(*tensors) -> int:
@@ -172,15 +216,61 @@ def _alignment(*tensors) -> int:
     return align
 
 
-def _fn(name, argtypes):
-    fn = getattr(_build.load("fused_bn"), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# mode, dtype, vec, then the tensors, then m, c, tc, tiles, splits, rows, partials_at, stream
+_ARGTYPES = {
+    "iv_bn_capacity": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    "iv_bn_fwd": [_I, _I, _I, _P, _P, _P, _F, _P, _P, _LL, _I, _I, _I, _I, _LL, _LL, _P],
+    "iv_bn_bwd": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _LL,
+                  _P],
+}
+_ONE_LAUNCH, _REDUCE, _APPLY = 0, 1, 2
+_entries: dict = {}
+_capacities: dict = {}
+
+
+def _entry(name):
+    """The C entry ``name`` of csrc/fused_bn.cu, its types set once a
+    process."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(_build.load("fused_bn"), name)
+        fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
+        _entries[name] = fn
     return fn
 
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_PLAN = [_LL, _I, _I, _I, _I, _LL, _P]  # m, c, tc, tiles, splits, rows, stream
+def _capacity(device: int, half: int, code: int, vec: int) -> int:
+    """The blocks of N1's (half 0) or N2's (half 1) kernel for ``code`` and
+    ``vec`` that the current card holds at once, asked once a process."""
+    key = (device, half, code, vec)
+    blocks = _capacities.get(key)
+    if blocks is None:
+        out = ctypes.c_int(0)
+        err = _entry("iv_bn_capacity")(half, code, vec, ctypes.byref(out))
+        if err or out.value < 1:
+            raise RuntimeError(f"fused_bn: occupancy of half {half} ({code}, {vec}): CUDA error "
+                               f"{err}, {out.value} blocks")
+        blocks = _capacities[key] = out.value
+    return blocks
+
+
+def launch_plan(half: int, x, *others, split: bool = False) -> BnPlan:
+    """The plan N1 (``half`` 0) or N2 (1) runs for the channels_last CUDA
+    tensor ``x`` beside ``others`` (the pointers that set the load width),
+    on one rank or, with ``split``, as two launches; x's card must be the
+    current one."""
+    align = _alignment(x, *others)
+    c, itemsize = x.shape[1], x.element_size()
+    capacity = _capacity(x.device.index, half, _DTYPE_CODE[x.dtype], bn_vec(c, itemsize, align))
+    return bn_plan(x.numel() // c, c, itemsize, align, capacity, split)
+
+
+def _stream(x) -> int:
+    """The handle of the current stream of x's card (what
+    ``torch.cuda.current_stream(x.device).cuda_stream`` gives, without
+    building a Stream object on every call)."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 def _check_cuda(name, x, scale, *others):
@@ -199,10 +289,19 @@ def _check_cuda(name, x, scale, *others):
         raise ValueError(f"{name}: scale must be float32 ({c},) on {x.device}")
 
 
-def fused_bn_fwd(x, scale, bias, epsilon: float, mesh=None):
+def _raise_on(err, name, x, plan, mode):
+    if err:
+        raise RuntimeError(f"{name} ({x.numel() // x.shape[1]}, {x.shape[1]}) {x.dtype}: "
+                           f"mode {mode} of {plan}, CUDA error {err}")
+
+
+def fused_bn_fwd(x, scale, bias, epsilon: float, mesh=None, _split: bool = False):
     """N1: (y, mean, var, rstd, count) of channels_last NCHW ``x``, the
     statistics over every rank of ``mesh`` (``count``: the global row
-    count, a (1,) f32 tensor). Runs the plain version for CPU tensors."""
+    count, a (1,) f32 tensor). One launch on one rank; two, with the
+    all-reduce between them, with a ``mesh`` (or ``_split``: a mesh's two
+    launches on one rank, for the checks). Runs the plain version for CPU
+    tensors."""
     if x.device.type == "cpu":
         sums = _stats_plain(x)
         if mesh is not None:
@@ -214,38 +313,37 @@ def fused_bn_fwd(x, scale, bias, epsilon: float, mesh=None):
     _check_cuda("fused_bn_fwd", x, scale)
     if bias.device != x.device or bias.dtype != torch.float32 or bias.shape != scale.shape:
         raise ValueError(f"fused_bn_fwd: bias must be float32 {tuple(scale.shape)} on {x.device}")
+    if x.device.index != torch._C._cuda_getDevice():
+        with torch.cuda.device(x.device):
+            return fused_bn_fwd(x, scale, bias, epsilon, mesh, _split)
     scale, bias = scale.contiguous(), bias.contiguous()
-    n, c = x.numel() // x.shape[1], x.shape[1]
+    c = x.shape[1]
     y = torch.empty_like(x, memory_format=torch.channels_last)
-    plan = bn_plan(n, c, x.element_size(), _alignment(x, y))
-    partials = torch.empty((plan.splits, 2 * c), dtype=torch.float32, device=x.device)
-    sums = torch.empty(2 * c + 1, dtype=torch.float32, device=x.device)
-    mean, var, rstd = (torch.empty(c, dtype=torch.float32, device=x.device) for _ in range(3))
-    code = _DTYPE_CODE[x.dtype]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        geometry = (n, c, plan.tc, plan.tiles, plan.splits, plan.rows, stream)
-        stats = _fn("iv_bn_stats", [_I, _I, _P, _P, _P] + _PLAN)
-        err = stats(code, plan.vec, x.data_ptr(), partials.data_ptr(), sums.data_ptr(), *geometry)
-        if err:
-            raise RuntimeError(f"fused_bn_fwd ({n}, {c}) {x.dtype}: stats, CUDA error {err}")
+    plan = launch_plan(0, x, y, split=_split or mesh is not None)
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
+    _, count, mean, var, rstd, _ = ws.split_with_sizes(
+        (4 * c + 2, 1, c, c, c, plan.workspace - 7 * c - 3))
+    run = _entry("iv_bn_fwd")
+    args = (_DTYPE_CODE[x.dtype], plan.vec, x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            epsilon, y.data_ptr(), ws.data_ptr(), x.numel() // c, c, plan.tc, plan.tiles,
+            plan.splits, plan.rows, plan.partials_at, _stream(x))
+    if plan.path == "one":
+        _raise_on(run(_ONE_LAUNCH, *args), "fused_bn_fwd", x, plan, _ONE_LAUNCH)
+    else:
+        _raise_on(run(_REDUCE, *args), "fused_bn_fwd", x, plan, _REDUCE)
         if mesh is not None:
-            pmesh.all_reduce(sums, mesh)
-        apply = _fn("iv_bn_apply", [_I, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P] + _PLAN)
-        err = apply(code, plan.vec, x.data_ptr(), sums.data_ptr(), scale.data_ptr(),
-                    bias.data_ptr(), epsilon, y.data_ptr(), mean.data_ptr(), var.data_ptr(),
-                    rstd.data_ptr(), *geometry)
-        if err:
-            raise RuntimeError(f"fused_bn_fwd ({n}, {c}) {x.dtype}: apply, CUDA error {err}")
+            pmesh.all_reduce(ws[:4 * c + 2].view(torch.float64), mesh)
+        _raise_on(run(_APPLY, *args), "fused_bn_fwd", x, plan, _APPLY)
     fused_bn_fwd.launches += 1
-    return y, mean, var, rstd, sums[2 * c:]
+    return y, mean, var, rstd, count
 
 
-def fused_bn_bwd(x, dy, mean, rstd, scale, count, mesh=None):
+def fused_bn_bwd(x, dy, mean, rstd, scale, count, mesh=None, _split: bool = False):
     """N2: (dx, dscale, dbias) of channels_last NCHW ``x`` and ``dy``;
     ``count`` is N1's. ``dx`` takes the sums of every rank of ``mesh``;
-    ``dscale`` and ``dbias`` are this rank's. Runs the plain version for
-    CPU tensors."""
+    ``dscale`` and ``dbias`` are this rank's. One launch on one rank; two,
+    with the all-reduce of a copy of the sums between them, with a ``mesh``
+    (or ``_split``, as N1's). Runs the plain version for CPU tensors."""
     c = x.shape[1]
     if x.device.type == "cpu":
         local = _bwd_sums_plain(x, dy, mean, rstd)
@@ -255,29 +353,30 @@ def fused_bn_bwd(x, dy, mean, rstd, scale, count, mesh=None):
     if x.device.type != "cuda":
         raise ValueError(f"fused_bn_bwd: unsupported device {x.device}")
     _check_cuda("fused_bn_bwd", x, scale, dy)
-    n = x.numel() // c
+    if x.device.index != torch._C._cuda_getDevice():
+        with torch.cuda.device(x.device):
+            return fused_bn_bwd(x, dy, mean, rstd, scale, count, mesh, _split)
+    scale = scale.contiguous()
     dx = torch.empty_like(x, memory_format=torch.channels_last)
-    plan = bn_plan(n, c, x.element_size(), _alignment(x, dy, dx))
-    partials = torch.empty((plan.splits, 2 * c), dtype=torch.float32, device=x.device)
-    local = torch.empty(2 * c, dtype=torch.float32, device=x.device)
-    code = _DTYPE_CODE[x.dtype]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        geometry = (n, c, plan.tc, plan.tiles, plan.splits, plan.rows, stream)
-        reduce = _fn("iv_bn_bwd_reduce", [_I, _I, _P, _P, _P, _P, _P, _P] + _PLAN)
-        err = reduce(code, plan.vec, x.data_ptr(), dy.data_ptr(), mean.data_ptr(),
-                     rstd.data_ptr(), partials.data_ptr(), local.data_ptr(), *geometry)
-        if err:
-            raise RuntimeError(f"fused_bn_bwd ({n}, {c}) {x.dtype}: reduce, CUDA error {err}")
-        sums = local if mesh is None else pmesh.all_reduce(local.clone(), mesh)
-        dx_fn = _fn("iv_bn_bwd_dx", [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P] + _PLAN)
-        err = dx_fn(code, plan.vec, x.data_ptr(), dy.data_ptr(), mean.data_ptr(),
-                    rstd.data_ptr(), scale.contiguous().data_ptr(), sums.data_ptr(),
-                    count.data_ptr(), dx.data_ptr(), *geometry)
-        if err:
-            raise RuntimeError(f"fused_bn_bwd ({n}, {c}) {x.dtype}: dx, CUDA error {err}")
+    plan = launch_plan(1, x, dy, dx, split=_split or mesh is not None)
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
+    _, dbias, dscale, _ = ws.split_with_sizes((4 * c + 2, c, c, plan.workspace - 6 * c - 2))
+    run = _entry("iv_bn_bwd")
+    head = (_DTYPE_CODE[x.dtype], plan.vec, x.data_ptr(), dy.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), scale.data_ptr(), count.data_ptr())
+    tail = (dx.data_ptr(), ws.data_ptr(), x.numel() // c, c, plan.tc, plan.tiles, plan.splits,
+            plan.rows, plan.partials_at, _stream(x))
+    if plan.path == "one":
+        _raise_on(run(_ONE_LAUNCH, *head, ws.data_ptr(), *tail), "fused_bn_bwd", x, plan,
+                  _ONE_LAUNCH)
+    else:
+        _raise_on(run(_REDUCE, *head, ws.data_ptr(), *tail), "fused_bn_bwd", x, plan, _REDUCE)
+        sums = ws[:4 * c].view(torch.float64)
+        if mesh is not None:
+            sums = pmesh.all_reduce(sums.clone(), mesh)
+        _raise_on(run(_APPLY, *head, sums.data_ptr(), *tail), "fused_bn_bwd", x, plan, _APPLY)
     fused_bn_bwd.launches += 1
-    return dx, local[c:], local[:c]
+    return dx, dscale, dbias
 
 
 fused_bn_fwd.launches = 0

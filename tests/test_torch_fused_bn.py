@@ -46,8 +46,15 @@ numpy from a seed and handed to both:
   not change.
 
 Also the plan the wrapper gives the kernels (``bn_plan``): every row and
-channel covered once, loads no wider than the alignment allows.
+channel covered once, loads no wider than the alignment allows, a grid the
+card holds at once (and a C whose tiles alone it cannot hold refused), the
+path chosen by the mesh, the same grid for both paths, the plan memoised,
+the workspace carved without overlap, and each C entry's ctypes types as
+many as its parameters.
 """
+
+import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -371,14 +378,134 @@ def test_layout_copies_counted():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("m,c,itemsize,align", [
+# (m, c, itemsize, align) of the flagship's maps, the heads, f32, a map of
+# one block, unaligned pointers, one element, and a ragged f32 C
+PLAN_SHAPES = [
     (2_097_152, 64, 2, 16), (131_072, 2048, 2, 16), (131_072, 3, 2, 16), (131_072, 14, 2, 16),
-    (131_072, 2048, 4, 16), (16, 256, 2, 16), (7, 24, 2, 4), (1, 1, 4, 16), (100, 13, 4, 8)])
-def test_plan_covers_every_row_and_channel(m, c, itemsize, align):
-    plan = tbn.bn_plan(m, c, itemsize, align)
+    (131_072, 2048, 4, 16), (16, 256, 2, 16), (7, 24, 2, 4), (1, 1, 4, 16), (100, 13, 4, 8)]
+# blocks the card holds at once: four or three 256-thread blocks on each of
+# the H100's 132 SMs, eight, and a card smaller than some maps' tiles
+CAPACITIES = [132 * 4, 132 * 3, 132 * 8, 6]
+
+
+def _tiles(c, itemsize, align):
+    tc = min(1 << (c // tbn.bn_vec(c, itemsize, align) - 1).bit_length(), tbn._TC_MAX)
+    return -(-(c // tbn.bn_vec(c, itemsize, align)) // tc)
+
+
+@pytest.mark.parametrize("capacity", CAPACITIES)
+@pytest.mark.parametrize("m,c,itemsize,align", PLAN_SHAPES)
+def test_plan_covers_every_row_and_channel(m, c, itemsize, align, capacity):
+    if _tiles(c, itemsize, align) > capacity:
+        with pytest.raises(ValueError, match="cannot hold"):
+            tbn.bn_plan(m, c, itemsize, align, capacity)
+        return
+    plan = tbn.bn_plan(m, c, itemsize, align, capacity)
     assert c % plan.vec == 0 and plan.vec * itemsize <= min(16, align)
-    assert 256 % plan.tc == 0
+    assert plan.vec == tbn.bn_vec(c, itemsize, align)
+    assert 256 % plan.tc == 0 and plan.tc <= tbn._TC_MAX
+    assert plan.tc * plan.vec <= 256  # the kernels' per-block arrays of a tile
     cv = c // plan.vec
     assert plan.tiles * plan.tc >= cv > (plan.tiles - 1) * plan.tc
     assert plan.splits * plan.rows >= m > (plan.splits - 1) * plan.rows
-    assert plan.tiles * plan.splits <= 132 * 4 + plan.tiles
+    assert plan.capacity == capacity
+    # every row once: each (split, row lane) walks first, first + tr, ...
+    tr = 256 // plan.tc
+    if m <= 4096:
+        seen = np.zeros(m, dtype=np.int64)
+        for split in range(plan.splits):
+            b0, b1 = split * plan.rows, min((split + 1) * plan.rows, m)
+            for lane in range(tr):
+                seen[b0 + lane:b1:tr] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("capacity", CAPACITIES)
+@pytest.mark.parametrize("m,c,itemsize,align", PLAN_SHAPES)
+def test_plan_grid_is_co_resident(m, c, itemsize, align, capacity):
+    """Every grid the card holds at once (both paths' launches are
+    cooperative), one launch without a mesh; as many splits as fill the card
+    while a thread keeps its 16 rows."""
+    if _tiles(c, itemsize, align) > capacity:
+        with pytest.raises(ValueError, match="cannot hold"):
+            tbn.bn_plan(m, c, itemsize, align, capacity)
+        return
+    plan = tbn.bn_plan(m, c, itemsize, align, capacity)
+    assert plan.path == "one"
+    want = max(1, min(capacity // plan.tiles, m // (256 // plan.tc * tbn._MIN_ROWS_PER_THREAD)))
+    assert plan.rows == -(-m // want) and plan.splits <= want
+    assert plan.tiles * plan.splits <= capacity
+
+
+@pytest.mark.parametrize("m,c,itemsize,align", PLAN_SHAPES)
+def test_plan_same_for_both_paths(m, c, itemsize, align):
+    """A mesh (``split``) changes the path and nothing else: on one rank the
+    two paths cut the map alike, so their sums add in the same order."""
+    one = tbn.bn_plan(m, c, itemsize, align, 132 * 4)
+    split = tbn.bn_plan(m, c, itemsize, align, 132 * 4, True)
+    assert split.path == "split"
+    assert dataclasses.replace(split, path=one.path) == one
+
+
+def test_plan_path_by_shape_and_mesh():
+    # block4's 2048 channels in f32: 16 tiles, which a card of 6 blocks
+    # cannot hold at once: refused, not launched
+    assert tbn.bn_plan(131_072, 2048, 4, 16, 132 * 4).path == "one"
+    with pytest.raises(ValueError, match="cannot hold"):
+        tbn.bn_plan(131_072, 2048, 4, 16, 6)
+    with pytest.raises(ValueError, match="cannot hold"):
+        tbn.bn_plan(131_072, 2048, 4, 16, 6, split=True)
+    assert tbn.bn_plan(131_072, 2048, 4, 16, 16).splits == 1
+    assert tbn.bn_plan(131_072, 3, 2, 16, 6).path == "one"
+    assert tbn.bn_plan(131_072, 3, 2, 16, 132 * 4, split=True).path == "split"
+    with pytest.raises(ValueError):
+        tbn.bn_plan(16, 8, 2, 16, 0)
+    with pytest.raises(ValueError):
+        tbn.bn_plan(0, 8, 2, 16, 528)
+
+
+def test_plan_is_memoised():
+    before = tbn.bn_plan.cache_info().hits
+    assert tbn.bn_plan(524_288, 256, 2, 16, 528) is tbn.bn_plan(524_288, 256, 2, 16, 528)
+    assert tbn.bn_plan.cache_info().hits == before + 1
+
+
+@pytest.mark.parametrize("m,c,itemsize,align", PLAN_SHAPES)
+def test_workspace_carved_without_overlap(m, c, itemsize, align):
+    """The workspace's parts (``_layout``, as csrc/fused_bn.cu reads them)
+    lie inside it, apart, the f64 sums on 8 bytes and the f64 partials on
+    16;
+    the wrapper's views of N1's and N2's outputs are those parts."""
+    plan = tbn.bn_plan(m, c, itemsize, align, 132 * 4)
+    at = tbn._layout(c)
+    assert at["dbias"] == at["count"] and at["dscale"] == at["dbias"] + c
+    # N1's parts; N2 writes dbias and dscale over N1's count and mean
+    parts = [("sums", at["sums"], 4 * c + 2), ("count", at["count"], 1), ("mean", at["mean"], c),
+             ("var", at["var"], c), ("rstd", at["rstd"], c),
+             ("partials", plan.partials_at, plan.splits * 4 * c)]
+    assert plan.partials_at == at["partials"] and plan.partials_at % 4 == 0
+    assert at["sums"] % 2 == 0 and at["rstd"] + c <= plan.partials_at
+    spans = sorted((start, start + size, name) for name, start, size in parts)
+    assert spans[0][0] == 0 and spans[-1][1] == plan.workspace
+    for (_, end, name), (start, _, after) in zip(spans, spans[1:]):
+        assert end <= start, (name, after)
+    assert at["dscale"] + c <= plan.partials_at
+    ws = torch.arange(plan.workspace, dtype=torch.float32)
+    _, count, mean, var, rstd, _ = ws.split_with_sizes(
+        (4 * c + 2, 1, c, c, c, plan.workspace - 7 * c - 3))
+    for view, name in ((count, "count"), (mean, "mean"), (var, "var"), (rstd, "rstd")):
+        assert int(view[0]) == at[name]
+    _, dbias, dscale, _ = ws.split_with_sizes((4 * c + 2, c, c, plan.workspace - 6 * c - 2))
+    assert int(dbias[0]) == at["dbias"] and int(dscale[0]) == at["dscale"]
+    assert ws[:4 * c + 2].view(torch.float64).numel() == 2 * c + 1
+
+
+def test_entry_argtypes_match_the_source():
+    """Each C entry's ctypes argument list has as many types as the
+    source's declaration has parameters (a missing one would shift every
+    argument after it; nothing on the CPU would notice)."""
+    source = (tbn._build.CSRC_DIR / "fused_bn.cu").read_text()
+    for name, types in tbn._ARGTYPES.items():
+        decl = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", source)
+        assert decl, name
+        assert len(decl.group(1).split(",")) == len(types), name

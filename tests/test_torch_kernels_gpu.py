@@ -21,7 +21,9 @@ operators (csrc/torch_ops.cpp), which the wrappers call, are held to the
 plain version and, bit for bit, to the ctypes route to the same kernels.
 Train-mode BatchNorm (N1/N2, ``bn_impl="fused"``) at ragged channel counts,
 unaligned pointers, block4's and the root's widths, in bf16 and f32, at
-chip_smoke.py's bounds.
+chip_smoke.py's bounds, on the one-launch path and the two-launch path of a
+mesh (bit-equal to each other); two runs on two streams at once and a run
+replayed from a CUDA graph give the bits of the runs alone.
 """
 
 import numpy as np
@@ -509,3 +511,63 @@ def test_fused_bn_matches_plain_on_card(n, c, h, w, offset, dtype):
 
     row = chip_smoke.bn_check(n, c, h, w, getattr(torch, dtype), "cuda", offset=offset)
     assert row["ok"], row
+
+
+def _bn_run(case, split):
+    """N1 then N2 on ``case`` = (x, dy, scale, bias): their eight outputs."""
+    import chip_smoke
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+
+    x, dy, scale, bias = case
+    y, mean, var, rstd, count = fbn.fused_bn_fwd(x, scale, bias, chip_smoke.BN_EPS, _split=split)
+    return (y, mean, var, rstd, count,
+            *fbn.fused_bn_bwd(x, dy, mean, rstd, scale, count, _split=split))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [False, True], ids=["one_launch", "two_launches"])
+def test_fused_bn_two_streams_at_once_on_card(split):
+    """Two runs of N1/N2 on two streams at once give the bits of the same
+    runs one after the other: each call's partials and sums live in its own
+    workspace, and a cooperative grid waits for room rather than
+    sharing the card's blocks with the other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import chip_smoke
+
+    cases = [chip_smoke.bn_inputs(16, 256, 64, 128, torch.bfloat16, "cuda", seed=1),
+             chip_smoke.bn_inputs(16, 64, 128, 256, torch.bfloat16, "cuda", seed=2)]
+    alone = [_bn_run(case, split) for case in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    main = torch.cuda.current_stream()
+    together = []
+    for stream, case in zip(streams, cases):
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            together.append(_bn_run(case, split))
+    for stream in streams:
+        main.wait_stream(stream)
+    torch.cuda.synchronize()
+    for a, b in zip(alone, together):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [False, True], ids=["one_launch", "two_launches"])
+def test_fused_bn_replays_from_a_cuda_graph_on_card(split):
+    """A run captured in a CUDA graph (the cooperative launch a kernel node)
+    and replayed gives the bits of the run outside it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import chip_smoke
+
+    case = chip_smoke.bn_inputs(16, 512, 64, 128, torch.bfloat16, "cuda", seed=3)
+    want = _bn_run(case, split)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = _bn_run(case, split)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(want, got))

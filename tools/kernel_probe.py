@@ -1,7 +1,8 @@
-"""Probe of the port's fused-loss kernels (B1, B2) and root-conv wgrad (B6) on one CUDA card.
+"""Probe of the port's fused-loss kernels (B1, B2), root-conv wgrad (B6) and
+train-mode BatchNorm (N1, N2) on one CUDA card.
 
-    python3 tools/kernel_probe.py [--root TREE] [--quick] [--only b1|b2|b6] [--jc N] [--ib N]
-                                  [--xc N] [--yb N]
+    python3 tools/kernel_probe.py [--root TREE] [--quick] [--only b1|b2|b6|n1|n2] [--step]
+                                  [--jc N] [--ib N] [--xc N] [--yb N]
 
 Imports ``iv2019_tpu_torch`` and ``chip_smoke`` from TREE (default: the
 repository this file lies in), so two trees can be measured in turns on one
@@ -20,12 +21,30 @@ ones (B1 also with label tensors that start 1-3 elements off 16 bytes).
 ``--quick`` stops after the checks (a first run of a new kernel); ``--jc``
 and ``--ib`` time B2, ``--xc`` and ``--yb`` B1, with another chunk or band
 size than its plan's.
+
+N1 and N2 (``--only n1`` / ``--only n2``; neither runs without ``--only``)
+go through the flagship train step's 12 distinct BatchNorm maps in bf16
+(``chip_smoke.bn_shapes``): one line a map with the check against the plain
+version, two runs bit for bit, ``ms``, ``device_ms``, the host's share,
+``F.batch_norm``'s forward (or its backward alone) on the same input, the
+device ms of a mesh's two launches on one rank (where the wrapper takes
+``_split``), and the bounds of one pass and of two; then the
+launch-weighted means over the step's 66 layers. Only the wrapper's call
+signature is assumed, so an older tree measures with its own
+``chip_smoke`` helpers. With ``--step`` (and
+``--only n1``) it also takes step 1 of the flagship train step under
+``bn_impl="fused"`` and prints its losses beside those of the f32 default
+step, and the share of N1's y, over the step's 66 norms, that differs from
+the y of exactly rounded statistics (f64 mean and variance of the same x,
+each rounded once to f32, then N1's f32 arithmetic): how far the kernel's
+statistics stand from exact ones.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import inspect
 import json
 import os
 import re
@@ -80,8 +99,11 @@ def main():
     ap.add_argument("--ib", type=int, help="B2: stride-8 rows per band, in place of the plan's")
     ap.add_argument("--xc", type=int, help="B1: output columns per chunk, in place of the plan's")
     ap.add_argument("--yb", type=int, help="B1: output rows per band, in place of the plan's")
-    ap.add_argument("--only", choices=["b1", "b2", "b6"], help="one kernel (a fault in one launch "
-                    "ends the process, so a first run probes each in its own)")
+    ap.add_argument("--step", action="store_true",
+                    help="n1: step 1's losses and N1's y against exactly rounded statistics")
+    ap.add_argument("--only", choices=["b1", "b2", "b6", "n1", "n2"],
+                    help="one kernel (a fault in one launch ends the process, so a first run "
+                    "probes each in its own)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -102,7 +124,7 @@ def main():
                          capture_output=True, text=True).stdout.strip()
     print(f"tree {root}: {smi}", flush=True)
     for stem, report in _build.build_all().items():
-        if stem in ("fused_loss", "root_wgrad"):
+        if stem in ("fused_loss", "root_wgrad", "fused_bn"):
             for line in report.splitlines():
                 if any(k in line for k in ("registers", "spill", "entry function")) \
                         or "warning" in line.lower():
@@ -124,6 +146,10 @@ def main():
         probe_b2(args, cs, fl, _build, get_taxonomy)
     if args.only in (None, "b6"):
         probe_b6(args, cs, rw, _build)
+    if args.only in ("n1", "n2"):
+        probe_bn(args, cs, _build)
+    if args.only == "n1" and args.step:
+        probe_bn_step(cs)
     return 0
 
 
@@ -225,6 +251,122 @@ def probe_b6(args, cs, rw, _build):
                    cudnn_ms=cs.time_ms(lambda: torch.nn.grad.conv2d_weight(x, w_shape, dy, 2, 3)))
     row["sass"] = sass_counts(_build._library_path(_build.CSRC_DIR / "root_wgrad.cu"))
     print(json.dumps(row), flush=True)
+
+
+def probe_bn(args, cs, _build):
+    """N1 (``--only n1``) or N2 at the flagship step's 12 maps, bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+
+    backward = args.only == "n2"
+    # a mesh's two launches on one rank, where the wrapper takes the switch
+    # (the first version had only that path)
+    two = "_split" in inspect.signature(fbn.fused_bn_fwd).parameters
+    rows = []
+    for seed, ((n, c, h, w), layers) in enumerate(cs.bn_shapes(torch.device("cuda"))):
+        x, dy, scale, bias = cs.bn_inputs(n, c, h, w, torch.bfloat16, "cuda", seed)
+        y, mean, var, rstd, count = fbn.fused_bn_fwd(x, scale, bias, cs.BN_EPS)
+        if backward:
+            def call(**split):
+                return fbn.fused_bn_bwd(x, dy, mean, rstd, scale, count, **split)
+
+            xl = x.detach().requires_grad_(True)
+            sl, bl = scale.detach().requires_grad_(True), bias.detach().requires_grad_(True)
+            yl = F.batch_norm(xl, None, None, sl, bl, True, 0.0, cs.BN_EPS)
+
+            def library():
+                return torch.autograd.grad(yl, (xl, sl, bl), dy, retain_graph=True)
+
+            want = fbn.batch_norm_backward_plain(x, dy, mean, rstd, scale, count)[0]
+            isz_reads = 2
+        else:
+            def call(**split):
+                return fbn.fused_bn_fwd(x, scale, bias, cs.BN_EPS, **split)
+
+            def library():
+                return F.batch_norm(x, None, None, scale, bias, True, 0.0, cs.BN_EPS)
+
+            want = fbn.batch_norm_train_plain(x, scale, bias, cs.BN_EPS)[0]
+            isz_reads = 1
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        ratio, err = cs._bn_out_err(first[0], want, torch.bfloat16)
+        m = n * h * w
+        elems = m * c * x.element_size()
+        row = dict(kernel="N2" if backward else "N1", n=n, C=c, h=h, w=w, layers=layers,
+                   ok=ratio <= 1, err_over_allowed=ratio, max_abs_err=err,
+                   bit_equal=all(bool(torch.equal(a, b)) for a, b in zip(first, second)),
+                   bound_ms=(isz_reads + 1) * elems / cs.PEAK_BYTES_PER_S * 1e3,
+                   two_pass_bound_ms=(2 * isz_reads + 1) * elems / cs.PEAK_BYTES_PER_S * 1e3)
+        del first, second, want
+        if not args.quick:
+            runs = 10 if m * c > 2 ** 26 else 20
+            row.update(ms=cs.time_ms(call, runs=runs), device_ms=cs.device_ms(call, runs=runs),
+                       library_ms=cs.time_ms(library, runs=runs))
+            row["host_ms"] = row["ms"] - row["device_ms"]
+            if two:
+                row["split_device_ms"] = cs.device_ms(lambda: call(_split=True), runs=runs)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del x, dy, y, mean, var, rstd, count
+        torch.cuda.empty_cache()
+    weight = sum(r["layers"] for r in rows)
+    summary = dict(kernel=rows[0]["kernel"], layers=weight, ok=all(r["ok"] for r in rows),
+                   bit_equal=all(r["bit_equal"] for r in rows))
+    for key in ("ms", "device_ms", "split_device_ms", "library_ms", "host_ms", "bound_ms",
+                "two_pass_bound_ms"):
+        if key in rows[0]:
+            summary[key] = sum(r[key] * r["layers"] for r in rows) / weight
+    if "ms" in summary:
+        summary["under_library"] = [r["ms"] <= r["library_ms"] for r in rows]
+    summary["sass"] = sass_counts(_build._library_path(_build.CSRC_DIR / "fused_bn.cu"))
+    print(json.dumps(summary), flush=True)
+
+
+def probe_bn_step(cs):
+    """Step 1 of the flagship train step with ``bn_impl="fused"`` (N1 in
+    every norm) and of the f32 default step, from the same seeded weights
+    and batch: their losses, and the share of N1's outputs that differ from
+    the bf16 y of exactly rounded statistics."""
+    import numpy as np
+    import torch
+
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+
+    device = torch.device("cuda")
+    settings = cs._train_settings(device, per_pixel_dataset_name="cityscapes", bn_impl="fused")
+    batch = cs.train_batch(np.random.RandomState(0), device)
+    kernel, shares = fbn.fused_bn_fwd, []
+
+    def fused_bn_fwd(x, scale, bias, epsilon, mesh=None, **kw):
+        out = kernel(x, scale, bias, epsilon, mesh, **kw)
+        xd = x.double()
+        mean = xd.mean((0, 2, 3))
+        var = ((xd * xd).mean((0, 2, 3)) - mean * mean).clamp_min(0)
+        rstd = torch.rsqrt(var + epsilon).float()
+        exact = ((x.float() - mean.float()[:, None, None]) * (rstd * scale)[:, None, None]
+                 + bias[:, None, None]).to(x.dtype)
+        shares.append(float((out[0] != exact).float().mean()))
+        return out
+
+    fused_bn_fwd.launches = 0
+    rows = {}
+    for name, s in (("fused", settings),
+                    ("f32", settings.replace(bn_impl="flax", compute_dtype="float32"))):
+        fbn.fused_bn_fwd = fused_bn_fwd if name == "fused" else kernel
+        try:
+            _, step, holder = cs._fused_train(s)
+            _, metrics = step(holder["state"], batch)
+        finally:
+            fbn.fused_bn_fwd = kernel
+        rows[name] = cs._metrics(metrics)
+        del step, holder
+        torch.cuda.empty_cache()
+    print(json.dumps(dict(kernel="N1 step 1", losses=rows, norms=len(shares),
+                          y_off_exact_statistics=sum(shares) / len(shares),
+                          y_off_exact_statistics_max=max(shares))), flush=True)
 
 
 if __name__ == "__main__":
