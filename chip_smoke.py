@@ -110,10 +110,19 @@ Phases, each of which fails the run on its own:
    of the default path from the same weights, and an f32 step 1: N1/N2
    ``FLAGSHIP_BATCH_NORMS`` times a step under fused, never under the
    default or any other variant; fused's losses finite and falling, its
-   step-1 losses within ``BAR_FACTOR`` times the default's distance to the
-   f32 step; per path step ms, device busy, the BatchNorm and copies-and-
-   casts groups, peak memory. The kernel line's ``launches`` of N1/N2 are
-   this run's.
+   step-1 losses within ``BAR_FACTOR`` times the largest distance that
+   reordering the same sums shows (``step1_rows``: each path's step 1 also
+   on ``BN_PERMUTATIONS`` of the batch's rows, from the same weights; the
+   default's distance to the f32 step on the same rows, the fused step's to
+   its own on the constant batch), and a permutation may move the fused
+   step no farther than ``BAR_FACTOR`` times what it moves the default
+   step or its distance to f32; and the fused path's step 1 in f32 against
+   the f32 default step, on the same row orders, within ``BAR_FACTOR``
+   times what the permutations move either (``f32_step1_rows``: f32's
+   reordering, far below bf16's rounding), N1/N2 once a layer in it; per
+   path step ms, device busy, the
+   BatchNorm and copies-and-casts groups, peak memory. The kernel line's
+   ``launches`` of N1/N2 are this run's.
 10. optax path and remat: ``SemanticSegmentation.train`` with
    ``fused_optimizer=False`` and B6 to step 4, resumed to 6 (B1, B2, B6
    once a step, B3 never; an optax-kind checkpoint), ``predict_cli`` from
@@ -181,7 +190,10 @@ Phases, each of which fails the run on its own:
 
 13. export and serve (``tools/export_model.py``, ``serving/``): the
    export CLI on phase 4's log dir and .npz (the predict phase's weights),
-   ``--fused_block --wire_u8`` at 1x512x1024 on the card: the graph holds 8
+   ``--fused_block --wire_u8`` at 1x512x1024 on the card, a process started
+   after phase 9 whose export and AOTInductor compile run beside phases
+   10-12 (``start_export``, as does the unfused program's below), collected
+   here: the graph holds 8
    ``iv2019::fused_bottleneck`` and 2 ``_ct`` nodes (the registered
    operators of ``csrc/torch_ops.cpp``, built with ``g++`` in phase 1) and
    no arithmetic on the weights alone; the AOTInductor package served by the
@@ -191,26 +203,30 @@ Phases, each of which fails the run on its own:
    second; the operator library's own counter in the loader 8 B4 and 2 B5
    launches a request; the served decisions against the eager
    ``--fused_block`` forward on the same frames (>= 99.9% equal) and against
-   the f32 truth (the predict phase's bar). Then the unfused program with the
-   f32 signature, exported and served alike, for its p50 beside. Printed:
-   export and compile seconds, package sizes, the phase's wall time. The
-   kernel line's ``serve_launches``: B4/B5 in those runs.
+   the f32 truth (the predict phase's bar). Beside it the export CLI's
+   default program, unfused with the f32 signature, a second process
+   started with the first: no fused-unit node, no arithmetic on the weights
+   alone, its package served by the C++ loader with f32 inputs (20 timed
+   executes) and no B4/B5 launch. Printed: export and compile seconds, the
+   packages' sizes, the phase's wall time. The kernel line's
+   ``serve_launches``: B4/B5 in the fused package's runs.
    Phase 2 times the registered operator (``ms``) beside the ctypes route
    to the same kernels (``ctypes_ms``).
 
 14. bench (``python -m iv2019_tpu_torch.bench``, each run its own process,
-   at full width and reduced step counts, ``BENCH_RUNS``): train with B6
-   off and on and with ``IV_BN_IMPL=fused`` (N1/N2 66 times a step),
-   predict and eval with ``IV_FUSED_BLOCK`` 0 and 1, input,
-   the input worker-scaling curve, e2e. Each run's JSON line is printed and
-   must carry its mode's metric and a finite, positive value; the kernels'
-   launches in its timed part, which the bench reads from their counters,
-   must be exact (B1, B2, B3 once a train or e2e step, B6 only with its
-   flag; B4/B5 8 + 2 a predict request and by the dispatch rule an eval
-   step; none elsewhere). The kernel line's ``bench_launches``: each
+   at full width and reduced step counts, ``BENCH_RUNS``): train, and train
+   with ``IV_ROOT_WGRAD_PALLAS=1`` and ``IV_BN_IMPL=fused`` together (B6
+   once and N1/N2 66 times a step), predict and eval with
+   ``IV_FUSED_BLOCK=1``, input, the input worker-scaling curve, e2e. Each
+   run's JSON line is printed and must carry its mode's metric and a
+   finite, positive value; the kernels' launches in its timed part, which
+   the bench reads from their counters, must be exact (B1, B2, B3 once a
+   train or e2e step, B6 only with its flag; B4/B5 8 + 2 a predict request
+   and by the dispatch rule an eval step; none elsewhere). The kernel line's ``bench_launches``: each
    kernel's launches in those runs, by run.
 15. quality tools (the port's TF checkpoint converter, overfit probe,
-   weak-supervision and quality A/Bs, ``quality_phase``): (a) whether
+   weak-supervision and quality A/Bs, ``quality_phase``; (c) and (d) start
+   first, as processes, and run beside (a), (b) and phase 16): (a) whether
    ``import tensorflow`` fails here (it may: nothing of this phase needs
    it); the TF-written fixtures of ``tests/data/tf_ckpt`` (a V1 file, a V1
    file with a kernel in two slices, a V2 bundle in two shards) converted
@@ -236,7 +252,8 @@ Phases, each of which fails the run on its own:
    traced steps' counts of (c).
 16. spatial memory table (``python -m
    iv2019_tpu_torch.tools.spatial_memory_table``, each row's ranks gloo
-   processes sharing the card, ``memory_phase``): (a) the CLI with
+   processes sharing the card, ``memory_phase``; (a), (b) and (c) at once,
+   beside phase 15's tools): (a) the CLI with
    ``--quick`` in a child process: 512x1024 at factor 1 (one process, one
    image of each type) and at factor 4 (four ranks of 128 rows); both rows
    without error, finite, ``temp`` at f 4 under ``MEMORY_TEMP_RATIO`` of f
@@ -2803,10 +2820,105 @@ def variants_phase(device):
 
 
 # the bn_fused variant's step-1 losses against the f32 step's: within
-# BAR_FACTOR times the default bf16 step's distance to it (floored at 1e-6
-# relative; 1e-3 for the mIoU)
+# BAR_FACTOR times the largest distance that reordering the same sums shows
+# on the card (floored at 1e-6 relative; 1e-3 for the mIoU), as phase 11
+# holds its ranks: over the constant batch and BN_PERMUTATIONS row orders of
+# it, the default bf16 step's distance to the f32 step on the same rows, and
+# the fused step's distance to its own step on the constant batch
+# (step1_rows), and the fused step moved by a permutation no farther than
+# BAR_FACTOR times what the default step shows. One reading of the default's
+# distance alone (the bar before) is a poor sample: the gated human loss's
+# was 0.00039, while N1's own distance to f32 has been 0.00004, 0.0039 and
+# 0.00062 for three versions of its summation, none of them wrong. Beside
+# it, the fused step in f32 against the default in f32 on the same row
+# orders (f32_step1_rows), whose noise is f32's reordering alone. Basis (the
+# H100, seed 0): the bf16 noise reaches 0.00188 on the total and 0.00414 on
+# the gated human loss (bars 0.0075, 0.0166; the fused step 0.000784,
+# 0.000619 from f32); the f32 bars 3.26e-5 and 7.3e-5 (the fused step
+# 1.91e-6, 3.7e-6 from the default). N1 summing half its rows over the
+# whole count fails the bf16 bar 37x on the total; N1 taking the first half
+# of the batch's statistics passes the bf16 bar (0.35) and fails the f32
+# order check 46x on the total, 172x on the L1 loss.
 BN_TRUTH_KEYS = ("total", "l1_segmentation", "l2_vehicle_segmentation", "l2_human_segmentation",
                  "miou")
+# the row orders of each sub-batch besides the constant batch's: reversed,
+# and rolled by one and by two rows (BatchNorm's statistics and the losses do
+# not depend on the order of the images, their sums do)
+BN_PERMUTATIONS = ("flip", 1, 2)
+
+
+def permuted(batch, how):
+    """``batch`` with the rows of each sub-batch reversed (``how`` "flip") or
+    rolled by ``how`` rows."""
+    if how == "flip":
+        return {k: torch.flip(v, dims=(0,)) for k, v in batch.items()}
+    return {k: torch.roll(v, how, dims=0) for k, v in batch.items()}
+
+
+def step1_rows(f32, default, fused, keys=BN_TRUTH_KEYS):
+    """Phase 9's step-1 checks on plain numbers. Each argument is a list of
+    step-1 metrics (dicts): [0] on the constant batch, [i] on its i-th row
+    permutation. A key's noise is the largest of the default step's
+    distances to the f32 step on the same rows and the fused step's
+    distances to its [0]; the fused [0] must stand within ``spread_bar`` of
+    it from the f32 [0]. A correct BatchNorm moves with the order of the
+    images only as far as its sums do, so the fused step's distances to its
+    [0] must also stand within ``spread_bar`` of what the default step shows
+    (its distances to f32 and to its own [0]): a fault whose statistics
+    depend on the order of the rows would otherwise widen its own bar.
+    Returns ({key: row}, [problems])."""
+    rows, problems = {}, []
+    for k in keys:
+        floor = 1e-3 if k == "miou" else 1e-6 * abs(f32[0][k])
+        to_f32 = [abs(d[k] - t[k]) for d, t in zip(default, f32)]
+        moved = [abs(x[k] - fused[0][k]) for x in fused[1:]]
+        bar = spread_bar(to_f32 + moved, floor)
+        order_bar = spread_bar(to_f32 + [abs(d[k] - default[0][k]) for d in default[1:]], floor)
+        dist = abs(fused[0][k] - f32[0][k])
+        rows[k] = dict(f32=f32[0][k], default=default[0][k], fused=fused[0][k],
+                       noise=max(to_f32 + moved), bar=bar, ratio=dist / bar,
+                       moved=max(moved, default=0.0), order_bar=order_bar,
+                       order_ratio=max(moved, default=0.0) / order_bar)
+        if dist > bar:
+            problems.append(f"step-1 {k}: the fused step {dist} from f32, over the bar: "
+                            f"{rows[k]}")
+        if rows[k]["order_ratio"] > 1:
+            problems.append(f"step-1 {k}: a row permutation moved the fused step "
+                            f"{rows[k]['moved']}, over what it moves the default step: "
+                            f"{rows[k]}")
+    return rows, problems
+
+
+def f32_step1_rows(flax, fused, keys=BN_TRUTH_KEYS):
+    """Phase 9's f32 check on plain numbers: step 1 of ``bn_impl="fused"``
+    in f32 against the default step in f32, each a list as in
+    ``step1_rows``. In f32 the steps differ only in the order of their sums,
+    so a key's noise is the largest distance a row permutation moves either
+    step from its [0]; the fused [0] must stand within ``spread_bar`` of it
+    from the default [0], and no permutation may move the fused step
+    farther than ``spread_bar`` of what it moves the default step
+    (statistics that follow the row order would otherwise widen their own
+    bar). Far below bf16's rounding, this bar sees faults that bf16's
+    distance to f32 hides. Returns ({key: row}, [problems])."""
+    rows, problems = {}, []
+    for k in keys:
+        floor = 1e-3 if k == "miou" else 1e-6 * abs(flax[0][k])
+        ref_moved = [abs(x[k] - flax[0][k]) for x in flax[1:]]
+        moved = [abs(x[k] - fused[0][k]) for x in fused[1:]]
+        bar = spread_bar(ref_moved + moved, floor)
+        order_bar = spread_bar(ref_moved, floor)
+        dist = abs(fused[0][k] - flax[0][k])
+        rows[k] = dict(flax=flax[0][k], fused=fused[0][k], noise=max(ref_moved + moved),
+                       bar=bar, ratio=dist / bar, moved=max(moved), order_bar=order_bar,
+                       order_ratio=max(moved) / order_bar)
+        if dist > bar:
+            problems.append(f"f32 step-1 {k}: the fused step {dist} from the default, over "
+                            f"the bar: {rows[k]}")
+        if rows[k]["order_ratio"] > 1:
+            problems.append(f"f32 step-1 {k}: a row permutation moved the fused step "
+                            f"{rows[k]['moved']}, over what it moves the default step: "
+                            f"{rows[k]}")
+    return rows, problems
 
 
 def bn_fused_variant(settings, batch):
@@ -2816,29 +2928,45 @@ def bn_fused_variant(settings, batch):
     step 1 as the truth. N1 and N2 exactly FLAGSHIP_BATCH_NORMS times a step
     under fused and never under flax; B1-B3 once a step in both; finite
     losses, falling under fused; fused's step-1 losses within the bar of
-    the default's distance to the f32 step. Per run the step ms, device
-    busy, the BatchNorm and copies-and-casts groups, and the peak. Returns
-    (the runs, the fused run's launches)."""
+    ``step1_rows``, for which each path first takes step 1 on each of
+    ``BN_PERMUTATIONS``, from the same weights; and ``bn_impl="fused"``'s
+    f32 step 1 against the f32 default's on the same row orders, within the
+    bar of ``f32_step1_rows`` (N1/N2 once a layer). Per run the step ms,
+    device busy, the BatchNorm and copies-and-casts groups, and the peak.
+    Returns (the runs, the fused run's launches)."""
     from iv2019_tpu_torch.bench import train_norm_launches
     from iv2019_tpu_torch.ops import fused_bn as fbn
+    from iv2019_tpu_torch.train.state import create_fused_train_state
 
-    runs = {}
+    runs, orders = {}, {}
     for key, s in (("default", settings.replace(bn_impl="flax")), ("fused", settings),
-                   ("f32", settings.replace(bn_impl="flax", compute_dtype="float32"))):
-        model, step, holder = _fused_train(s)
+                   ("f32", settings.replace(bn_impl="flax", compute_dtype="float32")),
+                   ("fused_f32", settings.replace(compute_dtype="float32"))):
+        opt, state, step = _fused_run(s)
+        model, holder = opt.model, {"state": state}
+        # step 1 on each row order, each from the seeded weights (the
+        # update writes them in place; the running statistics it also moves
+        # do not enter a train-mode step's losses)
+        params = opt.params.clone()
+        orders[key] = []
+        for how in BN_PERMUTATIONS:
+            _, m = step(create_fused_train_state(opt), permuted(batch, how))
+            orders[key].append(_metrics(m))
+            opt.params.copy_(params)
+        del params
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         _reset_bn()
         copies = fbn.batch_norm_train.layout_copies
-        steps = _steps(step, holder, batch, 1 if key == "f32" else VARIANT_STEPS)
+        steps = _steps(step, holder, batch, VARIANT_STEPS if key in ("default", "fused") else 1)
         row = dict(launches={**_counts(), **_bn_counts()}, step_ms=[t for t, _ in steps],
                    layout_copies=fbn.batch_norm_train.layout_copies - copies,
                    totals=[m["total"] for _, m in steps], step1=steps[0][1],
                    peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
                    batch_norms=train_norm_launches(model),
                    finite=all(np.isfinite(v) for _, m in steps for v in m.values()))
-        if key != "f32":
+        if key in ("default", "fused"):
             profile = profile_call(lambda: step(holder["state"], batch),
                                    f"variant bn_fused ({key} step)", steps[-1][0], top=6,
                                    groups=STEP_GROUPS)
@@ -2847,21 +2975,24 @@ def bn_fused_variant(settings, batch):
                        copies_and_casts_ms=groups["copies and casts"],
                        idle_share=profile["idle_share"])
         runs[key] = row
-        del model, step, holder
+        del opt, state, model, step, holder
         torch.cuda.empty_cache()
-    truth, problems = {}, []
-    for k in BN_TRUTH_KEYS:
-        f32, default, fused = (runs[r]["step1"][k] for r in ("f32", "default", "fused"))
-        floor = 1e-3 if k == "miou" else 1e-6 * abs(f32)
-        bar = BAR_FACTOR * max(abs(default - f32), floor)
-        truth[k] = dict(f32=f32, default=default, fused=fused, bar=bar)
-        if abs(fused - f32) > bar:
-            problems.append(f"step-1 {k}: {truth[k]}")
+    truth, problems = step1_rows(*([runs[k]["step1"]] + orders[k] for k in ("f32", "default",
+                                                                            "fused")))
+    truth_f32, f32_problems = f32_step1_rows(*([runs[k]["step1"]] + orders[k]
+                                               for k in ("f32", "fused_f32")))
+    problems += f32_problems
     per_step = VARIANT_STEPS * FLAGSHIP_BATCH_NORMS
     want = {"fused_loss_fwd": VARIANT_STEPS, "fused_loss_bwd": VARIANT_STEPS,
             "fused_update": VARIANT_STEPS, "root_conv_wgrad": 0}
     if runs["fused"]["launches"] != {**want, "fused_bn_fwd": per_step, "fused_bn_bwd": per_step}:
         problems.append(f"fused launches {runs['fused']['launches']}, expected N1/N2 {per_step}")
+    if runs["fused_f32"]["launches"] != {"fused_loss_fwd": 1, "fused_loss_bwd": 1,
+                                         "fused_update": 1, "root_conv_wgrad": 0,
+                                         "fused_bn_fwd": FLAGSHIP_BATCH_NORMS,
+                                         "fused_bn_bwd": FLAGSHIP_BATCH_NORMS}:
+        problems.append(f"fused f32 launches {runs['fused_f32']['launches']}, expected N1/N2 "
+                        f"{FLAGSHIP_BATCH_NORMS}")
     if runs["default"]["launches"] != {**want, "fused_bn_fwd": 0, "fused_bn_bwd": 0}:
         problems.append(f"default launches {runs['default']['launches']}")
     if runs["fused"]["batch_norms"] != FLAGSHIP_BATCH_NORMS:
@@ -2873,10 +3004,19 @@ def bn_fused_variant(settings, batch):
     # the last step of each run: wall (its p50 here), device busy, idle share
     steps = {k: dict(wall_ms=runs[k]["step_ms"][-1], busy_ms=runs[k]["device_busy_ms"],
                      idle_share=runs[k]["idle_share"]) for k in ("default", "fused")}
-    out = dict(runs, step1_against_f32=truth, step_ms=runs["fused"]["step_ms"],
+    out = dict(runs, step1_against_f32=truth, f32_step1=truth_f32,
+               step_ms=runs["fused"]["step_ms"],
                device_busy_ms=runs["fused"]["device_busy_ms"],
                peak_memory_gib=runs["fused"]["peak_memory_gib"], step_vs_default=steps)
     log("variant bn_fused: " + json.dumps(out))
+    log("variant bn_fused step 1, fused against f32 (distance / bar, noise; moved by a "
+        "permutation / bar): " + ", ".join(
+            f"{k} {abs(r['fused'] - r['f32']):.3g} / {r['bar']:.3g}, {r['noise']:.3g}; "
+            f"{r['moved']:.3g} / {r['order_bar']:.3g}" for k, r in truth.items()))
+    log("variant bn_fused step 1 in f32, fused against default (distance / bar, noise; moved "
+        "by a permutation / bar): " + ", ".join(
+            f"{k} {abs(r['fused'] - r['flax']):.3g} / {r['bar']:.3g}, {r['noise']:.3g}; "
+            f"{r['moved']:.3g} / {r['order_bar']:.3g}" for k, r in truth_f32.items()))
     log("variant bn_fused step (wall, busy ms, idle share): fused "
         + " / ".join(f"{steps['fused'][k]:.4f}" for k in steps["fused"]) + " against default "
         + " / ".join(f"{steps['default'][k]:.4f}" for k in steps["default"]))
@@ -3107,6 +3247,13 @@ RANK_TIMEOUT_S = 300
 # moves only the gradient) comes to 1.39 over the whole vector, under the
 # bar, and to 24.6 on the L1 logits' conv weight, 6 times over it.
 BAR_FACTOR = 4.0
+
+
+def spread_bar(noise, floor):
+    """BAR_FACTOR times the largest of ``noise``, the distances that
+    reordering the same sums showed on the card, floored at ``floor``."""
+    return BAR_FACTOR * max(max(noise), floor)
+
 # below this relative distance a parameter's gradient is held to the floor
 # (the heads' 3 to 14 element norm parameters move by 1e-6 to 7e-6 under
 # the permutation)
@@ -3424,19 +3571,19 @@ def gloo_train(device, tmp):
         rows = {}
         for k in keys:
             floor = 1e-3 if k == "miou" else 1e-6 * abs(want[k])
-            noise = abs(perm[k] - want[k])
+            noise = [abs(perm[k] - want[k])]
             if dtype == "bfloat16":
                 # a bf16 step is as far from the f32 one as bf16 rounds
-                noise = max(noise, abs(want[k] - ref["float32", "global"][0][k]))
+                noise.append(abs(want[k] - ref["float32", "global"][0][k]))
             rows[k] = dict(single=want[k], ranks=[h[k] for h in history], permuted=perm[k],
-                           bar=BAR_FACTOR * max(noise, floor))
+                           bar=spread_bar(noise, floor))
             if any(abs(h[k] - want[k]) > rows[k]["bar"] for h in history):
                 problems.append(f"{dtype} step-1 {k}: {rows[k]}")
         grad = dict(ranks=_rel_norm(got_g, want_g), permuted=_rel_norm(perm_g, want_g))
         if dtype == "bfloat16":
             grad["single_vs_f32"] = _rel_norm(want_g, ref["float32", "global"][1])
         else:
-            grad["bar"] = BAR_FACTOR * max(grad["permuted"], 1e-7)
+            grad["bar"] = spread_bar([grad["permuted"]], 1e-7)
             grad["worst_param"] = _worst_param(got_g, want_g, perm_g, layout)
             if grad["ranks"] > grad["bar"] or grad["worst_param"]["ratio"] > BAR_FACTOR:
                 problems.append(f"f32 step-1 gradient {grad}")
@@ -3498,10 +3645,10 @@ def bn_fused_ranks(ref, ranks, layout, problems):
     for k in want:
         floor = 1e-3 if k == "miou" else 1e-6 * abs(want[k])
         got = [r["out"]["bn_fused"]["history"][0][k] for r in ranks]
-        noise = max(abs(perm[k] - want[k]), abs(flax_perm[k] - flax[k]),
-                    abs(flax_ranks[k] - flax[k]))
+        noise = [abs(perm[k] - want[k]), abs(flax_perm[k] - flax[k]),
+                 abs(flax_ranks[k] - flax[k])]
         rows[k] = dict(single=want[k], ranks=got, permuted=perm[k],
-                       bar=BAR_FACTOR * max(noise, floor))
+                       bar=spread_bar(noise, floor))
         if any(abs(g - want[k]) > rows[k]["bar"] for g in got):
             problems.append(f"bn_fused step-1 {k}: {rows[k]}")
 
@@ -3512,7 +3659,7 @@ def bn_fused_ranks(ref, ranks, layout, problems):
 
     whole = slice(0, len(want_g))
     grad = dict(ranks=_rel_norm(got_g, want_g), noise=noise_of(whole))
-    grad["bar"] = BAR_FACTOR * max(grad["noise"], 1e-7)
+    grad["bar"] = spread_bar([grad["noise"]], 1e-7)
     worst = None
     for name, shape, _, offset in layout:
         part = slice(offset, offset + int(np.prod(shape)))
@@ -3712,14 +3859,14 @@ def spatial_train(device, tmp):
     for k in ("total", "l1_segmentation", "l2_vehicle_segmentation", "l2_human_segmentation",
               "regularization", "miou"):
         floor = 1e-3 if k == "miou" else 1e-6 * abs(want[k])
-        bar = BAR_FACTOR * max(abs(perm[k] - want[k]), floor)
+        bar = spread_bar([abs(perm[k] - want[k])], floor)
         got = [o["f32"]["history"][0][k] for o in outs]
         losses[k] = dict(single=want[k], ranks=got, permuted=perm[k], bar=bar)
         if any(abs(g - want[k]) > bar for g in got):
             problems.append(f"f32 step-1 {k}: {losses[k]}")
     got_g = ranks[0]["f32_grads"]
     grad = dict(ranks=_rel_norm(got_g, want_g), permuted=_rel_norm(perm_g, want_g))
-    grad["bar"] = BAR_FACTOR * max(grad["permuted"], 1e-7)
+    grad["bar"] = spread_bar([grad["permuted"]], 1e-7)
     grad["worst_param"] = _worst_param(got_g, want_g, perm_g, ref["layout"])
     if grad["ranks"] > grad["bar"] or grad["worst_param"]["ratio"] > BAR_FACTOR:
         problems.append(f"f32 step-1 gradient {grad}")
@@ -3915,6 +4062,7 @@ SERVE_ITERS = 20  # timed executes of serve(), after its warm-up
 # frames (the same operations; the package rounds to bf16 where it does)
 SERVE_DECISIONS_MIN = 0.999
 SERVE_UNITS = {"fused_bottleneck": 8, "fused_bottleneck_ct": 2}  # per request at 1x512x1024
+EXPORT_TIMEOUT_S = 900  # the export CLIs' runs, counted from phase 13's start
 
 
 def build_serving():
@@ -3946,9 +4094,9 @@ def _stream_log(path):
             json.loads(done.split("op_launches ", 1)[1]))
 
 
-def _eager_decisions(cli, frames, device, fused, dtype):
-    """The eager port's u8 decisions on ``frames`` (the served signature)
-    with the weights of ``cli``'s .npz."""
+def _served_model(cli, device, fused, dtype):
+    """The eager port's served forward (u8 wire) with the weights of
+    ``cli``'s .npz."""
     from iv2019_tpu_torch.config import Settings
     from iv2019_tpu_torch.models.model import build_model
     from iv2019_tpu_torch.system import restore_variables
@@ -3960,74 +4108,117 @@ def _eager_decisions(cli, frames, device, fused, dtype):
                         fused_block=fused, compute_dtype=dtype, ckpt_path=npz).finalize()
     model = build_model(settings, device)
     restore_variables(model, settings)
-    forward = ServedForward(model, None, True)
+    return ServedForward(model.eval(), None, True)
+
+
+def _eager_decisions(forward, frames, device):
+    """``forward``'s u8 decisions on ``frames`` (the served signature)."""
     with torch.inference_mode():
         out = [forward(torch.from_numpy(f).to(device))[0].cpu().numpy() for f in frames]
-    del model
-    torch.cuda.empty_cache()
     return np.stack(out)
 
 
-def export_serve_phase(cli, device):
-    """Phase 13 (see the module docstring); returns B4/B5's launches in the
-    served runs."""
-    from iv2019_tpu_torch import serving
+def start_export(cli):
+    """Phase 13's export CLI as a user runs it on phase 4's log dir and
+    .npz, once ``--fused_block --wire_u8`` and once with its defaults
+    (unfused, f32 signature), each with its AOTInductor compile: started as
+    processes right after phase 9, so that their ~2 min of host work runs
+    beside phases 10-12 (whose times no record holds as a measurement), and
+    collected by ``export_serve_phase``. Returns {key: (process, its log
+    file)}."""
+    log_dir, npz, problem = cli
+    procs = {}
+    for key, flags in (("fused", ["--fused_block", "--wire_u8"]), ("unfused", [])):
+        out_dir = os.path.join(log_dir, f"export_{key}")
+        os.makedirs(out_dir)
+        out = open(os.path.join(out_dir, "export_model.log"), "w")
+        procs[key] = (subprocess.Popen(
+            [sys.executable, "-m", "iv2019_tpu_torch.tools.export_model", log_dir, problem,
+             out_dir, *flags, "--height", str(SERVE_HW[0]), "--width", str(SERVE_HW[1]),
+             "--ckpt_path", npz],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out,
+            stderr=subprocess.STDOUT, text=True), out)
+    return procs
+
+
+def stop_export(export):
+    """Kill ``start_export``'s processes that still run."""
+    for proc, out in export.values():
+        stop(proc)
+        out.close()
+
+
+def collect_export(export, key, t_phase):
+    """Waits for ``start_export``'s ``key`` process; returns its paths."""
+    proc, out = export[key]
+    proc.wait(timeout=max(1, EXPORT_TIMEOUT_S - (time.time() - t_phase)))
+    out.close()
+    text = open(out.name).read()
+    if proc.returncode != 0:
+        raise AssertionError(f"export_model {key} failed rc={proc.returncode}:\n{text[-3000:]}")
+    log(f"export/serve {key}: the export CLI collected {time.time() - t_phase:.1f} s into "
+        f"the phase")
+    return json.loads(next(line for line in reversed(text.splitlines())
+                           if line.startswith('{"program"')))
+
+
+def stop(proc):
+    """Kill ``proc`` if it still runs."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def _program_check(key, paths, want):
+    """The exported program's fused-unit operator nodes (``want``), no
+    arithmetic on the weights alone, no ``rsqrt`` in its graph."""
     from iv2019_tpu_torch.tools import export_model as em
 
+    program = torch.export.load(paths["program"])
+    nodes, left = em.op_nodes(program), em.weight_only_nodes(program)
+    del program
+    text = open(paths["graph"]).read()
+    if nodes != want or left or "rsqrt" in text:
+        raise AssertionError(f"{key} program: operator nodes {nodes} (expected {want}), "
+                             f"weight arithmetic per request {left[:3]}")
+    return text
+
+
+def export_serve_phase(cli, device, export):
+    """Phase 13 (see the module docstring); ``export`` is ``start_export``'s.
+    Returns B4/B5's launches in the served runs."""
+    from iv2019_tpu_torch import serving
+
     t_phase = time.time()
-    log_dir, npz, problem = cli
     shape = (1, *SERVE_HW, 3)
-    size = ["--height", str(SERVE_HW[0]), "--width", str(SERVE_HW[1]), "--ckpt_path", npz]
-    # the export CLI as a user runs it, both programs at once: each compile
-    # is a process of its own anyway, and the two overlap on the host's cores
-    programs = {"fused": ["--fused_block", "--wire_u8"], "unfused": []}
-    procs = {key: subprocess.Popen(
-        [sys.executable, "-m", "iv2019_tpu_torch.tools.export_model", log_dir, problem,
-         os.path.join(log_dir, f"export_{key}"), *flags, *size],
-        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for key, flags in programs.items()}
-    exported = {}
-    try:
-        for key, proc in procs.items():
-            stdout, stderr = proc.communicate(timeout=900)
-            if proc.returncode != 0:
-                raise AssertionError(f"export_model {key} failed rc={proc.returncode}:\n"
-                                     f"{stderr[-3000:]}")
-            exported[key] = json.loads(stdout.strip().splitlines()[-1])
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    log(f"export/serve: both programs exported in {time.time() - t_phase:.1f} s")
+    # the predict phase's request count, as seeded u8 frames
+    frames = np.random.RandomState(13).randint(0, 256, (REQUESTS, *shape)).astype(np.uint8)
+    # while the programs may still compile: the eager unfused decisions
+    unfused = _eager_decisions(_served_model(cli, device, False, "bfloat16"), frames, device)
+    torch.cuda.empty_cache()
+    # both compiles done before anything is timed
+    exported = {key: collect_export(export, key, t_phase) for key in ("fused", "unfused")}
     out = {}
-    for key, paths in exported.items():
-        program = torch.export.load(paths["program"])
-        nodes, left = em.op_nodes(program), em.weight_only_nodes(program)
-        del program
-        text = open(paths["graph"]).read()
-        want = SERVE_UNITS if key == "fused" else dict.fromkeys(SERVE_UNITS, 0)
-        if nodes != want or left or "rsqrt" in text:
-            raise AssertionError(f"{key} program: operator nodes {nodes} (expected {want}), "
-                                 f"weight arithmetic per request {left[:3]}")
-        dtype = "uint8" if key == "fused" else "float32"
+    for key, dtype, want in (("fused", "uint8", SERVE_UNITS),
+                             ("unfused", "float32", dict.fromkeys(SERVE_UNITS, 0))):
+        paths = exported[key]
+        graph = _program_check(key, paths, want)
         report = serving.serve(paths["package"], shape, iters=SERVE_ITERS, input_dtype=dtype)
         runs = SERVE_ITERS + 1  # the warm-up too
         launched = report["detail"]["op_launches"]
         if launched != {k: v * runs for k, v in want.items()}:
             raise AssertionError(f"{key}: the loader launched {launched} in {runs} executes, "
                                  f"expected {want} each")
-        out[key] = dict(export_s=paths["seconds"]["export"], compile_s=paths["seconds"]["compile"],
+        out[key] = dict(export_s=paths["seconds"]["export"],
+                        compile_s=paths["seconds"]["compile"],
                         package_mb=os.path.getsize(paths["package"]) / 1e6,
-                        graph_ops=text.count(" = torch.ops."),
-                        serve_p50_ms=report["value"], serve_p90_ms=report["detail"]["p90_ms"],
-                        serve_launches=launched, output0_bytes=report["detail"]["output0_bytes"],
+                        graph_ops=graph.count(" = torch.ops."), serve_p50_ms=report["value"],
+                        serve_p90_ms=report["detail"]["p90_ms"], serve_launches=launched,
+                        output0_bytes=report["detail"]["output0_bytes"],
                         package=paths["package"])
         log(f"export/serve {key}: " + json.dumps(out[key]))
 
-    # the predict phase's request count, as seeded u8 frames, one at a time
-    # and then pipelined, through one serving process
-    frames = np.random.RandomState(13).randint(0, 256, (REQUESTS, *shape)).astype(np.uint8)
+    # the frames one at a time and then pipelined, through one serving process
     server = serving.StreamServer(out["fused"]["package"], shape, input_dtype="uint8")
     try:
         server.infer(frames[0])  # waits for the load and the loader's warm-up
@@ -4052,9 +4243,9 @@ def export_serve_phase(cli, device):
         return np.stack([np.frombuffer(b, np.uint8).reshape(shape[:3]) for b in outputs])
 
     one, piped = decisions(one), decisions(piped)
-    fused = _eager_decisions(cli, frames, device, True, "bfloat16")
-    unfused = _eager_decisions(cli, frames, device, False, "bfloat16")
-    truth = _eager_decisions(cli, frames, device, False, "float32")
+    fused = _eager_decisions(_served_model(cli, device, True, "bfloat16"), frames, device)
+    truth = _eager_decisions(_served_model(cli, device, False, "float32"), frames, device)
+    torch.cuda.empty_cache()
     stats = dict(
         one_vs_eager_fused=float((one == fused).mean()),
         piped_vs_eager_fused=float((piped == fused).mean()),
@@ -4078,17 +4269,17 @@ def export_serve_phase(cli, device):
                     stream_requests=served) for k, v in per_request.items()}
 
 
-# phase 14: the bench's runs, (label, arguments, knobs); step counts cut from
-# the bench's defaults (20 train steps, 30 requests, 12 eval steps and input
-# batches, 20 e2e steps) to the fewest that exercise each mode's timed part,
-# so that the whole run stays near 700 s of its 1200
+# phase 14: the bench's runs, (label, arguments, knobs): each of its six
+# modes once and each knob that turns on a kernel once (B6 and N1/N2 in one
+# train run; predict and eval only fused: unfused they launch no port
+# kernel); step counts cut from the bench's defaults (20 train steps, 30
+# requests, 12 eval steps and input batches, 20 e2e steps) to the fewest that
+# exercise each mode's timed part. Each run is a process (~8 s to reach the
+# card, then its model and cuDNN's choices), which sets the phase's time.
 BENCH_RUNS = [
     ("train", ["train", "3"], {}),
-    ("train_b6", ["train", "3"], {"IV_ROOT_WGRAD_PALLAS": "1"}),
-    ("train_bn_fused", ["train", "3"], {"IV_BN_IMPL": "fused"}),
-    ("predict", ["predict", "5"], {}),
+    ("train_b6_bn_fused", ["train", "3"], {"IV_ROOT_WGRAD_PALLAS": "1", "IV_BN_IMPL": "fused"}),
     ("predict_fused", ["predict", "5"], {"IV_FUSED_BLOCK": "1"}),
-    ("eval", ["eval", "2"], {}),
     ("eval_fused", ["eval", "2"], {"IV_FUSED_BLOCK": "1"}),
     ("input", ["input", "2"], {}),
     ("input_workers", ["input", "--workers", "1,4,16", "--stage_ms", "20"], {}),
@@ -4293,23 +4484,38 @@ def _trace_counts(trace):
     return {k: sum(v in n for n in names) for k, v in TRACE_KERNELS.items()}
 
 
-def tools_check(tmp):
-    """Phase 15(c) and (d), each tool its own process, both at once; returns
-    the weak and per-pixel arms' traced counts."""
+def start_tools(tmp):
+    """Phase 15 (c) and (d): each tool its own process, both started at
+    once; returns {name: (process, log file, workdir)} and their start time
+    under "t0"."""
     root = os.path.dirname(os.path.abspath(__file__))
-    runs = {"weak_ab": WEAK_AB_CUT, "quality_ab": QUALITY_AB_CUT}
-    procs, t0 = {}, time.time()
-    for name, cut in runs.items():
+    tools = {"t0": time.time()}
+    for name, cut in (("weak_ab", WEAK_AB_CUT), ("quality_ab", QUALITY_AB_CUT)):
         workdir = os.path.join(tmp, name)
         out = open(os.path.join(tmp, f"{name}.log"), "w")
-        procs[name] = (subprocess.Popen(
+        proc = subprocess.Popen(
             [sys.executable, "-m", f"iv2019_tpu_torch.tools.{name}", workdir, *cut],
-            cwd=root, stdout=out, stderr=subprocess.STDOUT, text=True), out, workdir)
-    walls, outputs = {}, {}
+            cwd=root, stdout=out, stderr=subprocess.STDOUT, text=True)
+        tools[name] = (proc, out, workdir)
+    return tools
+
+
+def stop_tools(tools):
+    for name in ("weak_ab", "quality_ab"):
+        stop(tools[name][0])
+        tools[name][1].close()
+
+
+def tools_check(tools):
+    """Phase 15 (c) and (d), ``start_tools``' processes: waits for both and
+    checks what they wrote; returns the weak and per-pixel arms' traced
+    counts."""
+    runs = ("weak_ab", "quality_ab")
+    outputs = {}
     try:
-        for name, (proc, out, _) in procs.items():
-            proc.wait(timeout=max(1, TOOL_TIMEOUT_S - (time.time() - t0)))
-            walls[name] = time.time() - t0
+        for name in runs:
+            proc, out, _ = tools[name]
+            proc.wait(timeout=max(1, TOOL_TIMEOUT_S - (time.time() - tools["t0"])))
             out.close()
             with open(out.name) as f:
                 outputs[name] = f.read()
@@ -4317,24 +4523,22 @@ def tools_check(tmp):
                 raise AssertionError(f"{name} failed rc={proc.returncode}:\n"
                                      f"{outputs[name][-3000:]}")
     finally:
-        for proc, out, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            out.close()
+        stop_tools(tools)
+    # a tool's last line goes to its log as it ends
+    walls = {name: os.path.getmtime(tools[name][1].name) - tools["t0"] for name in runs}
     for name in runs:
         log(f"quality: {name} done after {walls[name]:.1f} s (both started together)")
         for line in outputs[name].strip().splitlines()[-14:]:
             log(f"  {line[:200]}")
 
-    with open(os.path.join(procs["weak_ab"][2], "weak_ab.json")) as f:
+    with open(os.path.join(tools["weak_ab"][2], "weak_ab.json")) as f:
         weak = json.load(f)
     mious = weak["mean_iou_pp"] + weak["mean_iou_weak"]
     if len(mious) != 2 or not np.all(np.isfinite(mious)) or "| **mean IoU** |" not in \
             outputs["weak_ab"]:
         raise AssertionError(f"weak_ab: expected a finite mIoU in both arms and the table, "
                              f"got {weak}")
-    with open(os.path.join(procs["quality_ab"][2], "quality_ab.json")) as f:
+    with open(os.path.join(tools["quality_ab"][2], "quality_ab.json")) as f:
         quality = json.load(f)
     keys = {f"{a}_s0_{m}" for a, m in (("base", "raw"), ("base", "ema"), ("flip", "raw"),
                                           ("flip", "ema"), ("base", "sw_uniform"),
@@ -4346,8 +4550,8 @@ def tools_check(tmp):
     traced = {}
     for arm, want in (("weak", dict.fromkeys(TRACE_KERNELS, 1)),
                       ("pp", dict(fused_loss_fwd=0, fused_loss_bwd=0, fused_update=1))):
-        log_dir = next(os.path.join(procs["weak_ab"][2], d)
-                       for d in sorted(os.listdir(procs["weak_ab"][2]))
+        log_dir = next(os.path.join(tools["weak_ab"][2], d)
+                       for d in sorted(os.listdir(tools["weak_ab"][2]))
                        if d.startswith(f"{arm}_s0_"))
         traces = sorted(glob.glob(os.path.join(log_dir, "profile", "step_*", "trace.json")))
         if not traces:
@@ -4364,21 +4568,31 @@ def tools_check(tmp):
 
 
 def quality_phase(tmp):
-    """Phase 15 (see the module docstring); returns each kernel's launches."""
+    """Phases 15 and 16 (see the module docstring) at once: 15's tools (c)
+    and (d) start first, as processes, and run beside 15 (a) and (b) in this
+    process and then beside 16's three checks, which run at once too, each
+    row's ranks processes of their own. What 16 holds is bytes and launch
+    counts, and what the tools hold mIoUs and traced launches: none of it
+    moves with the host's load. Returns (15's launches, 16's launches)."""
     t_phase = time.time()
     tmp = tempfile.mkdtemp(prefix="quality_", dir=tmp)
-    warm = converter_check(tmp)
-    torch.cuda.empty_cache()
-    probe = probe_check()
-    torch.cuda.empty_cache()
-    traced = tools_check(tmp)
-    log(f"quality: phase took {time.time() - t_phase:.1f} s")
+    tools = start_tools(tmp)
+    try:
+        warm = _part("quality: (a) converter and warm start", converter_check, tmp)
+        torch.cuda.empty_cache()
+        probe = _part("quality: (b) overfit probe", probe_check)
+        torch.cuda.empty_cache()
+        memory = memory_phase()
+        traced = _part("quality: (c)-(d) weak_ab and quality_ab collected", tools_check, tools)
+    finally:
+        stop_tools(tools)
+    log(f"quality and memory: phases took {time.time() - t_phase:.1f} s")
     out = {}
     for name in REPLACES:
         out[name] = {"warm_started_step": warm.get(name, 0), "overfit_probe": probe.get(name, 0)}
         for arm, t in traced.items():
             out[name][f"weak_ab_{arm}_traced_step"] = t["per_step"].get(name, 0)
-    return out
+    return out, memory
 
 
 # ---------------------------------------------------------------- phase 16
@@ -4491,12 +4705,18 @@ def memory_counter_check():
 
 
 def memory_phase():
-    """Phase 16 (see the module docstring); returns each kernel's launches
-    by row and rank."""
+    """Phase 16 (see the module docstring): (a), (b) and (c) at once;
+    returns each kernel's launches by row and rank."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t_phase = time.time()
-    launches = memory_quick_check()
-    launches.update(memory_group_check())
-    launches.update(memory_counter_check())
+    parts = (("memory: (a) --quick", memory_quick_check),
+             ("memory: (b) group against mesh", memory_group_check),
+             ("memory: (c) live bytes", memory_counter_check))
+    launches = {}
+    with ThreadPoolExecutor(len(parts)) as pool:
+        for future in [pool.submit(_part, label, fn) for label, fn in parts]:
+            launches.update(future.result())
     log(f"memory: phase took {time.time() - t_phase:.1f} s")
     names = launches["quick_f1"]
     return {name: {label: counts[name] for label, counts in launches.items()} for name in names}
@@ -4518,6 +4738,14 @@ def main():
         return _phases(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def _part(label, fn, *args):
+    """``fn(*args)``, its wall time logged under ``label``."""
+    t0 = time.time()
+    out = fn(*args)
+    log(f"{label}: {time.time() - t0:.1f} s")
+    return out
 
 
 def _timed(times, name, fn, *args):
@@ -4563,23 +4791,31 @@ def _phases(work):
     variant_launches, vistas, bn_launches = _timed(times, "9 variants", variants_phase, device)
     # N1/N2's main path: the bn_fused variant's steps
     launches.update(bn_launches)
-    optax_launches, _ = _timed(times, "10 optax and remat", optax_phase, device)
-    # data parallelism (NCCL at one rank, two gloo ranks on the card for
-    # training and for the evaluation sweep)
-    multirank_launches = _timed(times, "11 multi-rank", multirank_phase, device, work, sweep)
-    # spatial partitioning (one spatial group of two gloo ranks on the card,
-    # training and evaluate_cli)
-    spatial_launches = _timed(times, "12 spatial", spatial_phase, device, work, sweep)
-    # the flagship exported with the fused units as operators, served by the
-    # C++ loader with no Python in its process
-    serve_launches = _timed(times, "13 export and serve", export_serve_phase, cli, device)
+    # phase 13's two export CLIs and their compiles, processes beside phases 10-12
+    # (whose times no record holds as a measurement; the GPU work of the
+    # quality tools beside them moved phase 11's f32 step off its bar)
+    export = start_export(cli)
+    try:
+        optax_launches, _ = _timed(times, "10 optax and remat", optax_phase, device)
+        # data parallelism (NCCL at one rank, two gloo ranks on the card for
+        # training and for the evaluation sweep)
+        multirank_launches = _timed(times, "11 multi-rank", multirank_phase, device, work, sweep)
+        # spatial partitioning (one spatial group of two gloo ranks on the
+        # card, training and evaluate_cli)
+        spatial_launches = _timed(times, "12 spatial", spatial_phase, device, work, sweep)
+        # the flagship exported with the fused units as operators, served by
+        # the C++ loader with no Python in its process
+        serve_launches = _timed(times, "13 export and serve", export_serve_phase, cli, device,
+                                export)
+    finally:
+        stop_export(export)
     # the bench entry point, each mode its own process
     bench_launches = _timed(times, "14 bench", bench_phase)
-    # the TF checkpoint converter and the quality tools
-    quality_launches = _timed(times, "15 quality", quality_phase, work)
-    # this slice's path: the spatial memory table, each row's ranks gloo
-    # processes on the card
-    memory_launches = _timed(times, "16 memory table", memory_phase)
+    # the TF checkpoint converter and the quality tools, and beside the
+    # tools the spatial memory table (each row's ranks gloo processes on
+    # the card)
+    quality_launches, memory_launches = _timed(times, "15-16 quality and memory table",
+                                               quality_phase, work)
     for r in results:
         if r["name"] in memory_launches:
             r["memory_launches"] = memory_launches[r["name"]]

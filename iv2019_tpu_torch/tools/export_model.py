@@ -218,9 +218,18 @@ def compile_package(program_path: str, package_path: str, metadata: dict) -> flo
 def _compile_apart(program_path: str, package_path: str, metadata: dict) -> float:
     """``compile_package`` in a Python process of its own. Compiled in the
     process that had built and run the model, the flagship's CUDA package
-    computed other values than its program (torch 2.11 on the H100: 8% of
-    the decisions equal, the same on every run and with blocking launches;
-    the cause is not known); compiled apart, it gives the program's values."""
+    once computed other values than its program (torch 2.11 on the H100: 8%
+    of the decisions equal, the same on every run and with blocking
+    launches); compiled apart, it gives the program's values. The cause is
+    not known, and it did not come back when looked for: compiled in a
+    process that had built and run the flagship, with TF32 off and every
+    kernel library loaded through ``ctypes``, the package gave every eager
+    decision, and so it did with PyTorch's TF32 defaults restored before the
+    compile, after ``torch._dynamo.reset()`` with a fresh Inductor cache,
+    compiled before the eager run and the ``ctypes`` loads, after a profiled
+    full-width train step, and after a CUDA graph's capture. Only a compile
+    without ``emulate_precision_casts`` departed from eager. Until the fault
+    is found the compile stays apart."""
     code = ("import json, sys\n"
             "from iv2019_tpu_torch.tools.export_model import compile_package\n"
             "print(json.dumps(compile_package(*json.loads(sys.argv[1]))))")
