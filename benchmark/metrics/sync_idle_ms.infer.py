@@ -1,0 +1,12 @@
+"""sync_idle_ms.infer: device idle milliseconds an evaluation step in the
+gaps that begin inside an ``iv.sync.*`` span, where the host was copying to
+the card or waiting on it (``benchmark/spans.py``). Moves
+``infer_img_per_s``.
+"""
+
+from benchmark import spans
+
+
+def read(run):
+    idle = spans.idle_ms(run, "infer")
+    return None if idle is None else idle["sync"]

@@ -51,6 +51,7 @@ from iv2019_tpu_torch.ops.resize import resize_band, resize_bilinear, resize_bil
 from iv2019_tpu_torch.ops.segment_ops import gather_cids, segment_sum_channels
 from iv2019_tpu_torch.parallel import mesh as pmesh
 from iv2019_tpu_torch.problem.taxonomy import Taxonomy, get_taxonomy
+from iv2019_tpu_torch.utils.spans import span
 
 __all__ = ["ConvTranspose", "HierarchicalSegmentationModel", "PSPModule", "build_model",
            "hierarchical_common_probabilities", "init_model", "resolve_device"]
@@ -81,8 +82,9 @@ def hierarchical_common_probabilities(preds: dict, tax: Taxonomy) -> torch.Tenso
     keep[tax.cid_l1_vehicle] = 0.0
     keep[tax.cid_l1_human] = 0.0
     n = tax.num_common_classes
-    base = segment_sum_channels(l1 * torch.as_tensor(keep, device=l1.device),
-                                tax.l1_cids2common_cids, n)
+    with span("iv.sync.common_keep"):
+        keep = torch.as_tensor(keep, device=l1.device)
+    base = segment_sum_channels(l1 * keep, tax.l1_cids2common_cids, n)
     p_veh = segment_sum_channels(veh, tax.l2_vehicle_cids2common_cids, n)
     p_hum = segment_sum_channels(hum, tax.l2_human_cids2common_cids, n)
     return (base + l1[..., tax.cid_l1_vehicle:tax.cid_l1_vehicle + 1] * p_veh

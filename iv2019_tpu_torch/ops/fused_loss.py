@@ -61,6 +61,7 @@ from iv2019_tpu_torch.ops.resize import _bilinear_matrix, _bilinear_tables
 from iv2019_tpu_torch.ops.segment_ops import gather_cids, segment_sum_channels
 from iv2019_tpu_torch.parallel import mesh as pmesh
 from iv2019_tpu_torch.problem.taxonomy import Taxonomy
+from iv2019_tpu_torch.utils.spans import span
 
 __all__ = [
     "define_losses_fused",
@@ -191,7 +192,11 @@ def _device_tables(h: int, w: int, out_h: int, out_w: int, device: torch.device)
     clo, chi, cw0, cw1, cfirst, cend = _taps(w, out_w)
     itab = np.concatenate([rlo, rhi, clo, chi, rfirst, rend, cfirst, cend]).astype(np.int32)
     ftab = np.concatenate([rw0, rw1, cw0, cw1]).astype(np.float32)
-    return torch.as_tensor(itab, device=device), torch.as_tensor(ftab, device=device)
+    with span("iv.sync.fused_loss_tables"):
+        itab = torch.as_tensor(itab, device=device)
+    with span("iv.sync.fused_loss_tables"):
+        ftab = torch.as_tensor(ftab, device=device)
+    return itab, ftab
 
 
 def _pad4(v: int) -> int:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from iv2019_tpu_torch.parallel import mesh as pmesh
+from iv2019_tpu_torch.utils.spans import span
 
 __all__ = [
     "resize_band",
@@ -81,13 +82,16 @@ def _bilinear_matrix(in_size: int, out_size: int, align_corners: bool) -> np.nda
 def _take(x, idx: np.ndarray, axis: int):
     if isinstance(x, np.ndarray):
         return np.take(x, idx, axis=axis)
-    return torch.index_select(x, axis, torch.as_tensor(idx, device=x.device))
+    with span("iv.sync.resize_index"):
+        idx = torch.as_tensor(idx, device=x.device)
+    return torch.index_select(x, axis, idx)
 
 
 def _weights(frac: np.ndarray, like):
     if isinstance(like, np.ndarray):
         return frac
-    return torch.as_tensor(frac, device=like.device)
+    with span("iv.sync.resize_weights"):
+        return torch.as_tensor(frac, device=like.device)
 
 
 def _float32(x):
@@ -139,8 +143,10 @@ def resize_bilinear_mxu(images: torch.Tensor, size: Sequence[int], align_corners
     if wh[a:b, :first].any() or wh[a:b, first + in_h:].any():
         raise ValueError(f"output rows [{a}, {b}) read input rows outside [{first}, "
                          f"{first + in_h})")
-    wh = torch.as_tensor(np.ascontiguousarray(wh[a:b, first:first + in_h]), device=x.device)
-    ww = torch.as_tensor(_bilinear_matrix(in_w, out_w, align_corners), device=x.device)
+    with span("iv.sync.resize_matrix"):
+        wh = torch.as_tensor(np.ascontiguousarray(wh[a:b, first:first + in_h]), device=x.device)
+    with span("iv.sync.resize_matrix"):
+        ww = torch.as_tensor(_bilinear_matrix(in_w, out_w, align_corners), device=x.device)
     # (n, h, w, c) -> (n, c, h, w) @ ww.T -> wh @ . -> (n, out_h, out_w, c)
     x = x.permute(0, 3, 1, 2) @ ww.t()
     return (wh @ x).permute(0, 2, 3, 1)

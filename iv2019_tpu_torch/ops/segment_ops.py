@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from iv2019_tpu_torch.utils.spans import span
+
 __all__ = [
     "gather_cids",
     "projection_matrix",
@@ -27,7 +29,8 @@ def projection_matrix(segment_ids, num_segments: int, dtype=np.float32) -> np.nd
 
 def segment_sum_channels(labels: torch.Tensor, segment_ids, num_segments: int) -> torch.Tensor:
     """Sum the last-axis channels of ``labels`` into ``num_segments`` (f32)."""
-    proj = torch.as_tensor(projection_matrix(segment_ids, num_segments), device=labels.device)
+    with span("iv.sync.segment_sum_channels"):
+        proj = torch.as_tensor(projection_matrix(segment_ids, num_segments), device=labels.device)
     return labels.float() @ proj
 
 
@@ -39,5 +42,6 @@ def remap_probabilities(probs: torch.Tensor, old_cids2new_cids) -> torch.Tensor:
 
 def gather_cids(table, cids: torch.Tensor) -> torch.Tensor:
     """out[...] = table[cids[...]] as int32; out-of-range indices clamp."""
-    t = torch.as_tensor(np.asarray(table, dtype=np.int32), device=cids.device)
+    with span("iv.sync.gather_cids"):
+        t = torch.as_tensor(np.asarray(table, dtype=np.int32), device=cids.device)
     return t[cids.long().clamp(0, len(t) - 1)]

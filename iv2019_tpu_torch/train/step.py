@@ -63,6 +63,7 @@ from iv2019_tpu_torch.problem.taxonomy import get_taxonomy
 from iv2019_tpu_torch.train.fused_update import FusedSGDM
 from iv2019_tpu_torch.train.optimizer import make_learning_rate_fn
 from iv2019_tpu_torch.train.state import TrainState
+from iv2019_tpu_torch.utils.spans import copy_span, span
 
 __all__ = ["PROB_KEYS", "make_eval_step", "make_predict_step", "make_train_step",
            "settings_eval_map", "uses_fused_loss", "window_origins", "window_weight"]
@@ -207,7 +208,8 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
     host_step = {"state": None, "step": 0}
 
     def tensor(value, dtype):
-        return torch.as_tensor(value, dtype=dtype, device=device)
+        with copy_span("iv.sync.batch", value, device):
+            return torch.as_tensor(value, dtype=dtype, device=device)
 
     def _band(x):
         return pmesh.shard_height(x, mesh) if spatial else x
@@ -258,30 +260,30 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
     def _loss_and_grad(images, labels):
         """Forward, losses (with the regularization on the optax path), and
         backward adding into the gradients; returns (losses, decisions, reg)."""
-        if use_fused_loss:
-            preds = model(images, upsampling_method="no")
-            losses = define_losses_fused(preds, labels, tax, images.shape[1:3],
-                                         weak_loss_coefficient=settings.weak_loss_coefficient,
-                                         mesh=mesh)
-            decisions = losses["decisions"]
-        else:
-            preds = model(images)
-            losses = define_losses(preds, labels, tax,
-                                   weak_loss_coefficient=settings.weak_loss_coefficient,
-                                   bootstrapping_percentage=settings.bootstrapping_percentage,
-                                   mesh=mesh)
-            decisions = preds["decisions"]
-        if fused:
-            losses["total"].backward()
-            return losses, decisions, None
-        reg = l2_regularization(model.named_parameters(), settings.regularization_weight)
-        if mesh is None or mesh.rank == 0:
-            # the parameters are replicated: the gradient all-reduce would
-            # count the regularization's gradient once per rank
-            (losses["total"] + reg).backward()
-        else:
-            losses["total"].backward()
-        return losses, decisions, reg.detach()
+        with span("iv.train.forward"):
+            if use_fused_loss:
+                preds = model(images, upsampling_method="no")
+                losses = define_losses_fused(preds, labels, tax, images.shape[1:3],
+                                             weak_loss_coefficient=settings.weak_loss_coefficient,
+                                             mesh=mesh)
+                decisions = losses["decisions"]
+            else:
+                preds = model(images)
+                losses = define_losses(preds, labels, tax,
+                                       weak_loss_coefficient=settings.weak_loss_coefficient,
+                                       bootstrapping_percentage=settings.bootstrapping_percentage,
+                                       mesh=mesh)
+                decisions = preds["decisions"]
+            reg = None if fused else l2_regularization(model.named_parameters(),
+                                                       settings.regularization_weight)
+        with span("iv.train.backward"):
+            if reg is not None and (mesh is None or mesh.rank == 0):
+                # the parameters are replicated: the gradient all-reduce would
+                # count the regularization's gradient once per rank
+                (losses["total"] + reg).backward()
+            else:
+                losses["total"].backward()
+        return losses, decisions, None if reg is None else reg.detach()
 
     def _weight_masks(labels, losses, n_pp, n_total):
         # one per-pixel example for L1, one weak example for the gated L2
@@ -297,7 +299,8 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
         """state.step without a wait on the device after the first call of a
         chain of states this function returned."""
         if host_step["state"] is not state:
-            host_step["step"] = int(state.step)
+            with span("iv.sync.step_read"):
+                host_step["step"] = int(state.step)
         return host_step["step"]
 
     def _microbatch(batch: Mapping[str, Any], i: int) -> dict:
@@ -310,6 +313,10 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
         return out
 
     def train_step(state: TrainState, batch: Mapping[str, Any]):
+        with span("iv.train_step"):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: Mapping[str, Any]):
         if state.model is not model:
             raise ValueError("state.model is not the model this step was built for")
         step = _step_on_host(state) if augmentations or not fused else 0
@@ -322,10 +329,11 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
         sums, cm, weight_masks = None, None, None
         for i in range(accum):
             mb = batch if accum == 1 else _microbatch(batch, i)
-            images, labels = _assemble(mb, step * accum + i)
+            with span("iv.train.assemble"):
+                images, labels = _assemble(mb, step * accum + i)
             n_pp = labels["prolabels_per_pixel"].shape[0]
             losses, decisions, reg = _loss_and_grad(images, labels)
-            with torch.no_grad():
+            with torch.no_grad(), span("iv.train.metrics"):
                 part = confusion_matrix(labels["prolabels_per_pixel"], decisions[:n_pp],
                                         num_classes)
                 cm = part if cm is None else cm + part
@@ -334,7 +342,7 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
                 if i == 0:
                     weight_masks = _weight_masks(labels, losses, n_pp, images.shape[0])
             del losses, decisions, images, labels
-        with torch.no_grad():
+        with torch.no_grad(), span("iv.train.update"):
             if mesh is not None:
                 # the gradient of the global loss: each rank's part, summed
                 if fused:
@@ -362,16 +370,17 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
         if augmentations or not fused:
             host_step.update(state=new_state, step=step + 1)
         total, l1, veh, hum = sums
-        metrics = {
-            "total": total + reg,
-            "l1_segmentation": l1,
-            "l2_vehicle_segmentation": veh,
-            "l2_human_segmentation": hum,
-            "regularization": reg,
-            # online batch mIoU on the per-pixel slice (reference define_metrics)
-            "miou": mean_iou_from_cm(cm),
-            "weight_masks": weight_masks,
-        }
+        with span("iv.train.metrics"):
+            metrics = {
+                "total": total + reg,
+                "l1_segmentation": l1,
+                "l2_vehicle_segmentation": veh,
+                "l2_human_segmentation": hum,
+                "regularization": reg,
+                # online batch mIoU on the per-pixel slice (reference define_metrics)
+                "miou": mean_iou_from_cm(cm),
+                "weight_masks": weight_masks,
+            }
         return new_state, metrics
 
     return train_step
@@ -412,7 +421,9 @@ def _pad_channels(probs: torch.Tensor, num: int) -> torch.Tensor:
 
 
 def _as_images(model: torch.nn.Module, images) -> torch.Tensor:
-    return torch.as_tensor(images, dtype=torch.float32, device=_device_of(model))
+    device = _device_of(model)
+    with copy_span("iv.sync.images", images, device):
+        return torch.as_tensor(images, dtype=torch.float32, device=device)
 
 
 def _members(settings: Settings) -> list[tuple[float, bool]]:
@@ -595,31 +606,42 @@ def make_eval_step(settings: Settings, model=None, tcids2ecids=None, mesh=None) 
     spatial = mesh if mesh is not None and mesh.spatial > 1 else None
 
     def eval_step(images, prolabels) -> torch.Tensor:
+        with span("iv.eval_step"):
+            return _eval_step(images, prolabels)
+
+    def _eval_step(images, prolabels) -> torch.Tensor:
         images = _as_images(model, images)
-        prolabels = torch.as_tensor(prolabels, device=images.device)
+        with copy_span("iv.sync.labels", prolabels, images.device):
+            prolabels = torch.as_tensor(prolabels, device=images.device)
         label_hw = prolabels.shape[1:3]
         if spatial is not None:
             images = pmesh.shard_height(images, spatial)
             prolabels = pmesh.shard_height(prolabels, spatial)
         with torch.inference_mode():
-            if ensemble is None:
-                preds = model(images)
-                decs = gather_cids(tcids2ecids, preds["decisions"])
-                probs_e = (_pad_channels(remap_probabilities(preds["l1_probabilities"],
-                                                             l1_cids2ecids), num_eval_classes)
-                           if settings.replace_voids else None)
-            else:
-                (common,) = ensemble(images)
-                probs_e = _pad_channels(remap_probabilities(common, tcids2ecids),
-                                        num_eval_classes)
-                decs = torch.argmax(probs_e, dim=-1).int()
-            if settings.replace_voids:
-                decs = _replace_void_decisions(probs_e, decs)
-            if spatial is not None:
-                decs = resize_band(decs, label_hw, spatial, nearest=True)
-            else:
-                decs = resize_nearest(decs, label_hw, align_corners=True)
-            return confusion_matrix(prolabels, decs, num_eval_classes)
+            with span("iv.eval.forward"):
+                if ensemble is None:
+                    preds = model(images)
+                else:
+                    (common,) = ensemble(images)
+            with span("iv.eval.decide"):
+                if ensemble is None:
+                    decs = gather_cids(tcids2ecids, preds["decisions"])
+                    probs_e = (_pad_channels(remap_probabilities(preds["l1_probabilities"],
+                                                                 l1_cids2ecids), num_eval_classes)
+                               if settings.replace_voids else None)
+                else:
+                    probs_e = _pad_channels(remap_probabilities(common, tcids2ecids),
+                                            num_eval_classes)
+                    decs = torch.argmax(probs_e, dim=-1).int()
+                if settings.replace_voids:
+                    decs = _replace_void_decisions(probs_e, decs)
+            with span("iv.eval.resize"):
+                if spatial is not None:
+                    decs = resize_band(decs, label_hw, spatial, nearest=True)
+                else:
+                    decs = resize_nearest(decs, label_hw, align_corners=True)
+            with span("iv.eval.confusion"):
+                return confusion_matrix(prolabels, decs, num_eval_classes)
 
     return eval_step
 
