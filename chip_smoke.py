@@ -45,10 +45,11 @@ Phases, each of which fails the run on its own:
    weights under the reference's variable names.
 5. train: the port's train step at full ResNet-50 width on a constant
    synthetic 512x1024 batch of 4 per-pixel + 8 bbox + 4 image-label
-   images (bf16, train-mode BatchNorm, fused loss B1/B2, fused update B3),
-   with the root conv's weight gradient from cuDNN and from B6
+   images (bf16, train-mode BatchNorm as N1/N2, fused loss B1/B2, fused
+   update B3), with the root conv's weight gradient from cuDNN and from B6
    (``root_wgrad_pallas``) in turns, both from the same initial weights:
-   one launch of each kernel per step (B6 only with the flag), B6's dW
+   one launch of each kernel per step (B6 only with the flag; N1 and N2
+   once each a batch-norm layer of the model, no layout copy), B6's dW
    against cuDNN's on the same step, finite and falling losses, the EMA
    decay product; step time, images/s, device busy and idle share, the
    root wgrad's device time, peak memory.
@@ -105,11 +106,13 @@ Phases, each of which fails the run on its own:
    B3 once a step; B1/B2 not under hybrid), with step ms, device busy, peak
    memory and finite losses; then B1/B2 at the Vistas heads (53/12/5,
    4 + 12 images at 64x128 -> 512x1024) against their plain versions, bit
-   for bit over two launches, timed. ``bn_fused`` (``bn_impl="fused"``, no
-   predict requests: eval mode ignores it): VARIANT_STEPS steps of it and
-   of the default path from the same weights, and an f32 step 1: N1/N2
-   ``FLAGSHIP_BATCH_NORMS`` times a step under fused, never under the
-   default or any other variant; fused's losses finite and falling, its
+   for bit over two launches, timed; N1/N2 once each a batch-norm layer a
+   step in every variant but group norm (the default ``bn_impl="fused"``).
+   ``bn_fused`` (no predict requests: eval mode ignores ``bn_impl``):
+   VARIANT_STEPS steps of ``bn_impl="fused"`` and of ``bn_impl="flax"``
+   (the keys ``fused`` and ``default``, the JAX package's default) from the
+   same weights, and an f32 step 1: N1/N2 ``FLAGSHIP_BATCH_NORMS`` times a
+   step under fused, never under flax; fused's losses finite and falling, its
    step-1 losses within ``BAR_FACTOR`` times the largest distance that
    reordering the same sums shows (``step1_rows``: each path's step 1 also
    on ``BN_PERMUTATIONS`` of the batch's rows, from the same weights; the
@@ -138,7 +141,8 @@ Phases, each of which fails the run on its own:
    on an NCCL group of one rank, bit-equal to the non-distributed step from
    the same weights, 3 all-reduces a step; (b) two gloo ranks sharing the
    card (NCCL refuses two ranks on one device), each with its 2 + 4 + 2 rows
-   of the global 4 + 8 + 4 at full width: step 1 in f32 and in bf16, its
+   of the global 4 + 8 + 4 at full width: step 1 in f32 (``bn_impl="flax"``,
+   the f32 BatchNorm's all-reduce) and in bf16 (the default, N1/N2), its
    losses and (in f32) its all-reduced gradient, as a whole and parameter
    by parameter, against the single-process step on the global batch,
    under ``BAR_FACTOR`` times what a permutation of the rows does to that
@@ -214,16 +218,17 @@ Phases, each of which fails the run on its own:
    to the same kernels (``ctypes_ms``).
 
 14. bench (``python -m iv2019_tpu_torch.bench``, each run its own process,
-   at full width and reduced step counts, ``BENCH_RUNS``): train, and train
-   with ``IV_ROOT_WGRAD_PALLAS=1`` and ``IV_BN_IMPL=fused`` together (B6
-   once and N1/N2 66 times a step), predict and eval with
-   ``IV_FUSED_BLOCK=1``, input, the input worker-scaling curve, e2e. Each
-   run's JSON line is printed and must carry its mode's metric and a
-   finite, positive value; the kernels' launches in its timed part, which
-   the bench reads from their counters, must be exact (B1, B2, B3 once a
-   train or e2e step, B6 only with its flag; B4/B5 8 + 2 a predict request
-   and by the dispatch rule an eval step; none elsewhere). The kernel line's ``bench_launches``: each
-   kernel's launches in those runs, by run.
+   at full width and reduced step counts, ``BENCH_RUNS``): train (N1/N2 66
+   times a step), and train with ``IV_ROOT_WGRAD_PALLAS=1`` and
+   ``IV_BN_IMPL=flax`` together (B6 once a step, no N1/N2), predict and
+   eval with ``IV_FUSED_BLOCK=1``, input, the input worker-scaling curve,
+   e2e. Each run's JSON line is printed and must carry its mode's metric
+   and a finite, positive value; the kernels' launches in its timed part,
+   which the bench reads from their counters, must be exact (B1, B2, B3
+   once a train or e2e step, N1/N2 66 times unless ``IV_BN_IMPL=flax``, B6
+   only with its flag; B4/B5 8 + 2 a predict request and by the dispatch
+   rule an eval step; none elsewhere). The kernel line's
+   ``bench_launches``: each kernel's launches in those runs, by run.
 15. quality tools (the port's TF checkpoint converter, overfit probe,
    weak-supervision and quality A/Bs, ``quality_phase``; (c) and (d) start
    first, as processes, and run beside (a), (b) and phase 16): (a) whether
@@ -348,8 +353,8 @@ BN_FWD_OPS, BN_BWD_OPS = 6, 11
 # one channel, a ragged odd map, pointers 2 bytes off 16 at C = 24
 BN_EDGE_SHAPES = [(2, 1, 5, 7, 0), (3, 24, 7, 9, 1), (1, 2048, 3, 5, 0), (2, 14, 33, 17, 0)]
 # train-mode BatchNorm layers of the flagship model (trunk 53, extension 1,
-# three adaptation units 9, three logit heads 3): under bn_impl="fused" N1
-# and N2 launch once each a layer a step
+# three adaptation units 9, three logit heads 3): under bn_impl="fused" (the
+# default) N1 and N2 launch once each a layer a step
 FLAGSHIP_BATCH_NORMS = 66
 
 REQUESTS = 8  # predict requests of the predict phase
@@ -1667,6 +1672,16 @@ def _reset_bn():
     from iv2019_tpu_torch.ops import fused_bn as fbn
 
     fbn.fused_bn_fwd.launches = fbn.fused_bn_bwd.launches = 0
+    fbn.batch_norm_train.layout_copies = 0
+
+
+def batch_norm_layers(model) -> int:
+    """The model's train-mode batch-norm layers: under the default
+    ``bn_impl="fused"`` N1 and N2 launch once each per layer a microbatch."""
+    from iv2019_tpu_torch.models.layers import Norm
+
+    return sum(1 for m in model.modules()
+               if isinstance(m, Norm) and m.norm_type == "batch" and m.training)
 
 
 def _reset_counts():
@@ -1729,6 +1744,7 @@ def train_phase(device, steps=TRAIN_STEPS):
     from iv2019_tpu_torch.config import Settings
     from iv2019_tpu_torch.models.model import build_model, init_model
     from iv2019_tpu_torch.ops import root_wgrad as rw
+    from iv2019_tpu_torch.ops.fused_bn import batch_norm_train
     from iv2019_tpu_torch.train.fused_update import FusedSGDM
     from iv2019_tpu_torch.train.state import create_fused_train_state
     from iv2019_tpu_torch.train.step import make_train_step
@@ -1774,8 +1790,11 @@ def train_phase(device, steps=TRAIN_STEPS):
     want = {"fused_loss_fwd": 2 * (steps + 1), "fused_loss_bwd": 2 * (steps + 1),
             "fused_update": 2 * (steps + 1), "root_conv_wgrad": steps + 1}
     log(f"train: launches {launches}")
-    if any(_bn_counts().values()):
-        raise AssertionError(f"N1/N2 launched on the default (bn_impl=flax) path: {_bn_counts()}")
+    norms = batch_norm_layers(runs[True]["opt"].model)
+    bn_want = dict.fromkeys(_bn_counts(), 2 * (steps + 1) * norms)
+    if _bn_counts() != bn_want or batch_norm_train.layout_copies:
+        raise AssertionError(f"N1/N2 on the default train step: {_bn_counts()}, expected "
+                             f"{bn_want}; {batch_norm_train.layout_copies} layout copies")
     if launches != want or runs[True]["b6"] != [1] * (steps + 1) or any(runs[False]["b6"]):
         raise AssertionError(f"launches {launches}, expected {want}; B6 per step with the flag "
                              f"{runs[True]['b6']}, without {runs[False]['b6']}")
@@ -2770,7 +2789,7 @@ def variants_phase(device):
     stats = {}
     for name, dataset, fields in VARIANTS:
         settings = _train_settings(device, per_pixel_dataset_name=dataset, **fields)
-        if settings.bn_impl == "fused":
+        if name == "bn_fused":
             stats[name], launches = bn_fused_variant(settings, batch)
             for k, v in launches.items():
                 totals[k] += v
@@ -2789,9 +2808,10 @@ def variants_phase(device):
         launches = {**_counts(), **_bn_counts()}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         bilinear = settings.upsampling_method == "bilinear"
+        norms = VARIANT_STEPS * batch_norm_layers(model)
         want = {"fused_loss_fwd": VARIANT_STEPS * bilinear, "fused_loss_bwd": VARIANT_STEPS * bilinear,
-                "fused_update": VARIANT_STEPS, "root_conv_wgrad": 0, "fused_bn_fwd": 0,
-                "fused_bn_bwd": 0}
+                "fused_update": VARIANT_STEPS, "root_conv_wgrad": 0, "fused_bn_fwd": norms,
+                "fused_bn_bwd": norms}
         losses = [m for _, m in runs]
         profile = profile_call(lambda: step(holder["state"], batch), f"variant {name} step",
                                runs[-1][0], top=6, groups=STEP_GROUPS)
@@ -2922,10 +2942,10 @@ def f32_step1_rows(flax, fused, keys=BN_TRUTH_KEYS):
 
 
 def bn_fused_variant(settings, batch):
-    """The bn_fused variant: VARIANT_STEPS steps of the default path
-    (``bn_impl="flax"``) and of ``bn_impl="fused"`` from the same seeded
-    weights on the constant batch, one after the other, and an f32 default
-    step 1 as the truth. N1 and N2 exactly FLAGSHIP_BATCH_NORMS times a step
+    """The bn_fused variant: VARIANT_STEPS steps of ``bn_impl="flax"``
+    (the JAX package's default, key ``default``) and of ``bn_impl="fused"``
+    from the same seeded weights on the constant batch, one after the
+    other, and an f32 flax step 1 as the truth. N1 and N2 exactly FLAGSHIP_BATCH_NORMS times a step
     under fused and never under flax; B1-B3 once a step in both; finite
     losses, falling under fused; fused's step-1 losses within the bar of
     ``step1_rows``, for which each path first takes step 1 on each of
@@ -3398,8 +3418,9 @@ def _gloo_train_rank(rank, port, tmp):
         batch = multihost.put_sharded(train_batch(np.random.RandomState(0), torch.device("cpu")),
                                       mesh)
         # step 1 in f32 (no B6 there), whose gradient is not drowned in bf16
-        # rounding
-        opt, state, step = _fused_run(settings.replace(compute_dtype="float32"), mesh)
+        # rounding, with the f32 BatchNorm's all-reduce (bn_impl="flax")
+        opt, state, step = _fused_run(settings.replace(compute_dtype="float32", bn_impl="flax"),
+                                      mesh)
         _, m = step(state, batch)
         f32 = dict(history=[_metrics(m)], grads_digest=_digest([opt.grads]))
         f32_grads = opt.grads.detach().cpu().clone()
@@ -3536,8 +3557,11 @@ def gloo_train(device, tmp):
     permuted = {k: torch.flip(v, dims=(0,)) for k, v in batch.items()}
     ref = {}
     for dtype in ("float32", "bfloat16"):
+        # f32 names flax, as the ranks' f32 step does; bf16 the default (N1/N2)
+        s = settings.replace(compute_dtype=dtype, **({"bn_impl": "flax"} if dtype == "float32"
+                                                      else {}))
         for name, b in (("global", batch), ("permuted", permuted)):
-            opt, state, step = _fused_run(settings.replace(compute_dtype=dtype))
+            opt, state, step = _fused_run(s)
             _, m = step(state, b)
             ref[dtype, name] = (_metrics(m), opt.grads.detach().cpu().clone())
             layout = opt.layout
@@ -4270,15 +4294,15 @@ def export_serve_phase(cli, device, export):
 
 
 # phase 14: the bench's runs, (label, arguments, knobs): each of its six
-# modes once and each knob that turns on a kernel once (B6 and N1/N2 in one
-# train run; predict and eval only fused: unfused they launch no port
+# modes once and each kernel knob once (B6 on and N1/N2 off, as
+# IV_BN_IMPL=flax, in one train run; predict and eval only fused: unfused they launch no port
 # kernel); step counts cut from the bench's defaults (20 train steps, 30
 # requests, 12 eval steps and input batches, 20 e2e steps) to the fewest that
 # exercise each mode's timed part. Each run is a process (~8 s to reach the
 # card, then its model and cuDNN's choices), which sets the phase's time.
 BENCH_RUNS = [
     ("train", ["train", "3"], {}),
-    ("train_b6_bn_fused", ["train", "3"], {"IV_ROOT_WGRAD_PALLAS": "1", "IV_BN_IMPL": "fused"}),
+    ("train_b6_bn_flax", ["train", "3"], {"IV_ROOT_WGRAD_PALLAS": "1", "IV_BN_IMPL": "flax"}),
     ("predict_fused", ["predict", "5"], {"IV_FUSED_BLOCK": "1"}),
     ("eval_fused", ["eval", "2"], {"IV_FUSED_BLOCK": "1"}),
     ("input", ["input", "2"], {}),
@@ -4300,7 +4324,7 @@ def _bench_want(argv, knobs):
         want.update(fused_loss_fwd=steps, fused_loss_bwd=steps, fused_update=steps)
         if knobs.get("IV_ROOT_WGRAD_PALLAS") == "1":
             want["root_conv_wgrad"] = steps
-        if knobs.get("IV_BN_IMPL") == "fused":
+        if knobs.get("IV_BN_IMPL") != "flax":
             want.update(fused_bn_fwd=steps * FLAGSHIP_BATCH_NORMS,
                         fused_bn_bwd=steps * FLAGSHIP_BATCH_NORMS)
     elif argv[0] == "predict" and knobs.get("IV_FUSED_BLOCK") == "1":

@@ -47,8 +47,9 @@ Knobs: ``IV_SHAPE`` ("512,1024" or "512x1024"; the two formats of
 ``bench.py``'s train and eval modes, accepted by every mode), ``IV_NB``
 ("4,8,4" for train, input and e2e; one count, default 8, for eval),
 ``IV_FUSED_BLOCK``, ``IV_DENSE_LABELS``, ``IV_ROOT_WGRAD_PALLAS``,
-``IV_BN_IMPL`` (``fused``: train-mode BatchNorm as kernels N1/N2, one
-launch each a batch-norm layer a step), and the TPU layout switches
+``IV_BN_IMPL`` (``Settings``' default ``fused``: train-mode BatchNorm as
+kernels N1/N2, one launch each a batch-norm layer a step; ``flax``: f32
+``F.batch_norm``), and the TPU layout switches
 ``IV_CONV_IMPL``, ``IV_DILATION_MODE``, ``IV_ROOT_S2D``, which the port
 accepts and runs its one path for (config.py).
 ``bench.py`` reads ``IV_SHAPE`` and ``IV_NB`` in train and eval only; here
@@ -199,7 +200,7 @@ def train_settings(h: int, w: int, npp: int, npb: int, npi: int, device: str = "
         learning_rate_values=(0.01, 0.005, 0.0025),
         compute_dtype="bfloat16",
         conv_impl=os.environ.get("IV_CONV_IMPL", "conv"),
-        bn_impl=os.environ.get("IV_BN_IMPL", "flax"),
+        bn_impl=os.environ.get("IV_BN_IMPL", Settings.bn_impl),
         dilation_mode=os.environ.get("IV_DILATION_MODE", "dilated"),
         root_conv_s2d=_flag("IV_ROOT_S2D"),
         root_wgrad_pallas=_flag("IV_ROOT_WGRAD_PALLAS"),

@@ -1,29 +1,31 @@
 """Settings and the predict, evaluate and train command lines of the PyTorch port.
 
-A copy of the fields of ``iv2019_tpu/config.py`` that the predict, evaluate,
-train-step and training-run paths read, with the same names and defaults
-(but for ``mode``, which defaults to ``predict`` here), ``finalize()`` with
-its epoch-to-step math, ``validate()`` with the same messages, ``dump()``
-in the same format, and the predict, evaluate and train flags (with the
-test-time-augmentation, sliding-window and plotting flags of both inference
-command lines), plus one field and flag of the port's own: ``--device``
-(``cuda`` unless the caller asks for ``cpu``). Gradient accumulation
-(``--grad_accum_steps``), on-device augmentations (``--augmentations``),
-on-device bbox rasterizing, compact image labels, the model variants (PSP,
-FOV conv, hybrid upsampling, group norm, fused adaptation heads), remat and
-the optax path are ported; ``rasterize_on_device``,
-``compact_image_labels``, ``root_wgrad_pallas``, ``fuse_adaptation`` and
-``fused_optimizer`` have no flag, as in the JAX package. ``bn_impl="fused"``
-runs train-mode BatchNorm as ops/fused_bn.py (the JAX package's
-FusedBatchNorm; kernels N1/N2 on the card). The TPU layout switches
-``conv_impl``, ``dilation_mode`` and ``root_conv_s2d`` compute the same
-function as their defaults in the JAX package, and the port runs its one
-path for every value; ``enable_xla`` and ``distribute``
-are kept for parity and do nothing. Multi-device and multi-process runs
-(``num_devices``, ``num_processes``, ``num_slices``, ``spatial_partitions``;
-the train and evaluate command lines) run one rank per device
-(parallel/multihost.py); ``validate()`` keeps the JAX package's checks of
-them, and refuses a height that does not divide by 8 x
+A copy of the fields of ``iv2019_tpu/config.py`` that the predict,
+evaluate, train-step and training-run paths read, with the same names and
+defaults (but for ``mode``, which defaults to ``predict`` here, and
+``bn_impl``), ``finalize()`` with its epoch-to-step math, ``validate()``
+with the same messages, ``dump()`` in the same format, and the predict,
+evaluate and train flags (with the test-time-augmentation, sliding-window
+and plotting flags of both inference command lines), plus one field and
+flag of the port's own: ``--device`` (``cuda`` unless the caller asks for
+``cpu``). Gradient accumulation (``--grad_accum_steps``), on-device
+augmentations (``--augmentations``), on-device bbox rasterizing, compact
+image labels, the model variants (PSP, FOV conv, hybrid upsampling, group
+norm, fused adaptation heads), remat and the optax path are ported;
+``rasterize_on_device``, ``compact_image_labels``, ``root_wgrad_pallas``,
+``fuse_adaptation`` and ``fused_optimizer`` have no flag, as in the JAX
+package. ``bn_impl`` defaults to ``"fused"`` here (``"flax"`` in the JAX
+package): train-mode BatchNorm runs as ops/fused_bn.py (the JAX package's
+FusedBatchNorm; kernels N1/N2 on the card), the same function as flax's on
+the compute-type activation; ``"flax"`` is f32 ``F.batch_norm`` and its
+casts. The TPU layout switches ``conv_impl``, ``dilation_mode`` and
+``root_conv_s2d`` compute the same function as their defaults in the JAX
+package, and the port runs its one path for every value; ``enable_xla`` and
+``distribute`` are kept for parity and do nothing. Multi-device and
+multi-process runs (``num_devices``, ``num_processes``, ``num_slices``,
+``spatial_partitions``; the train and evaluate command lines) run one rank
+per device (parallel/multihost.py); ``validate()`` keeps the JAX package's
+checks of them, and refuses a height that does not divide by 8 x
 ``spatial_partitions`` (JAX's comment states the rule, and its
 ``shard_batch`` replicates such images silently instead).
 """
@@ -122,7 +124,9 @@ class Settings:
     dilation_mode: str = "dilated"  # | "space_to_batch"
     root_conv_s2d: bool = False
     conv_impl: str = "conv"  # | "dot" | "dot_bwd"
-    bn_impl: str = "flax"  # | "fused"
+    # train-mode BatchNorm as kernels N1/N2 (ops/fused_bn.py); "flax" in
+    # the JAX package
+    bn_impl: str = "fused"  # | "flax"
     # the fused update runs as the CUDA kernel B3 (ops/fused_update.py)
     pallas_update: bool = True
     weak_loss_coefficient: float = 0.1

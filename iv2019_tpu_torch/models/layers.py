@@ -18,11 +18,13 @@ as ``conv.weight`` (OIHW) and ``norm/BatchNorm/<leaf>`` as ``norm.<leaf>``
   With more than one rank (parallel/mesh.py) the train-mode statistics
   are those of the global batch: one all-reduce of the per-channel sums
   forward, one of the gradient's sums backward. ``bn_impl="fused"`` (the
-  JAX package's FusedBatchNorm, layers.py:207-240) runs train-mode batch
-  norm as ops/fused_bn.py: flax's single-pass statistics and the classic
-  two-reduction backward, on the compute-type activation (kernels N1/N2
-  on the card), over every rank's rows when there are several; eval mode,
-  group norm and ``"none"`` ignore it, as in JAX.
+  JAX package's FusedBatchNorm, layers.py:207-240; the default of the
+  port's ``Settings``, while the layers default to ``"flax"`` as the flax
+  modules do) runs train-mode batch norm as ops/fused_bn.py: flax's
+  single-pass statistics and the classic two-reduction backward, on the
+  compute-type activation (kernels N1/N2 on the card), over every rank's
+  rows when there are several; eval mode, group norm and ``"none"`` ignore
+  it, as in JAX.
   ``norm_type="group"`` is flax GroupNorm (``min(groups, C)`` groups,
   f32, the same in both modes, no running statistics), its parameters
   named ``scale`` and ``bias`` as flax's (weight decay applies to

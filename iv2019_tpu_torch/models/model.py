@@ -295,11 +295,11 @@ def build_model(settings: Settings, device=None) -> HierarchicalSegmentationMode
     with channels_last conv weights, in train mode when ``settings.mode`` is
     train and ``batch_norm_accumulate_statistics`` is set, else in eval
     mode. Weights are uninitialized: load them (utils/convert.py) or draw
-    them (``init_model``). ``bn_impl="fused"`` runs train-mode batch norm
-    as ops/fused_bn.py (kernels N1/N2 on the card), as the JAX package's
-    FusedBatchNorm; ``conv_impl``, ``dilation_mode`` and ``root_conv_s2d``
-    select layouts of the same function on the TPU, and the port has one
-    path for all of them."""
+    them (``init_model``). ``bn_impl="fused"`` (the default) runs
+    train-mode batch norm as ops/fused_bn.py (kernels N1/N2 on the card),
+    as the JAX package's FusedBatchNorm; ``conv_impl``, ``dilation_mode``
+    and ``root_conv_s2d`` select layouts of the same function on the TPU,
+    and the port has one path for all of them."""
     device = resolve_device(device or settings.device)
     model = HierarchicalSegmentationModel(
         taxonomy=get_taxonomy(settings.per_pixel_dataset_name),

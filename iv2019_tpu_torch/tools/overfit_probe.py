@@ -7,10 +7,11 @@ synthetic batch and shows that optimization works: the total loss falls
 and the train mIoU climbs toward 1. A broken gradient path, loss term or
 optimizer wiring shows up as a flat curve.
 
-The Settings, the batch (the same draws from ``np.random.RandomState(0)``)
-and the JSON line's keys are the JAX tool's. The initial weights are the
-port's own draw (``models/model.py::init_model`` from seed 0), not flax's,
-so the trajectory is not JAX's number for number.
+The Settings (but for ``bn_impl``: the port's default, or
+``IV_BN_IMPL``), the batch (the same draws from
+``np.random.RandomState(0)``) and the JSON line's keys are the JAX tool's.
+The initial weights are the port's own draw (``models/model.py::init_model``
+from seed 0), not flax's, so the trajectory is not JAX's number for number.
 
 Usage:
   python -m iv2019_tpu_torch.tools.overfit_probe [steps] [--size HxW]
@@ -49,7 +50,7 @@ def probe_settings(h: int = 128, w: int = 256, device: str = "cuda") -> Settings
         learning_rate_values=(0.01, 0.005, 0.0025),
         compute_dtype="bfloat16",
         regularization_weight=0.0,  # pure fit: no pull away from the data
-        bn_impl=os.environ.get("IV_BN_IMPL", "flax"),
+        bn_impl=os.environ.get("IV_BN_IMPL", Settings.bn_impl),
     ).finalize()
 
 

@@ -161,7 +161,7 @@ def test_train_step_loss_matches_jax(tiny, fused_optimizer):
     _, want = jstep(jstate, batch)
 
     settings = bench.train_settings(h, w, *nb, device="cpu").replace(
-        compute_dtype="float32", fused_optimizer=fused_optimizer)
+        compute_dtype="float32", fused_optimizer=fused_optimizer, bn_impl="flax")
     assert settings.fused_loss and settings.pallas_update
     model = torch_tiny_model(settings, variables)
     state, step = bench.make_train(settings, model)

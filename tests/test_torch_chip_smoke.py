@@ -19,9 +19,11 @@ BENCH_MODES = ("train", "predict", "eval", "input", "input_workers", "e2e")
 KNOB_KERNELS = {
     ("IV_FUSED_BLOCK", "1"): ("fused_bottleneck", "fused_bottleneck_ct"),
     ("IV_ROOT_WGRAD_PALLAS", "1"): ("root_conv_wgrad",),
-    ("IV_BN_IMPL", "fused"): ("fused_bn_fwd", "fused_bn_bwd"),
 }
-TRAIN_KERNELS = ("fused_loss_fwd", "fused_loss_bwd", "fused_update")
+# each knob that turns off kernels of the default train step, and those kernels
+KNOB_OFF = {("IV_BN_IMPL", "flax"): ("fused_bn_fwd", "fused_bn_bwd")}
+TRAIN_KERNELS = ("fused_loss_fwd", "fused_loss_bwd", "fused_update", "fused_bn_fwd",
+                 "fused_bn_bwd")
 
 
 def _mode(argv):
@@ -34,7 +36,7 @@ def test_bench_runs_drive_every_mode(mode):
     assert mode in cs.BENCH_METRICS
 
 
-@pytest.mark.parametrize("knob", sorted(KNOB_KERNELS), ids=lambda k: "=".join(k))
+@pytest.mark.parametrize("knob", sorted({**KNOB_KERNELS, **KNOB_OFF}), ids=lambda k: "=".join(k))
 def test_bench_runs_turn_on_every_kernel_knob(knob):
     name, value = knob
     assert any(knobs.get(name) == value for _, _, knobs in cs.BENCH_RUNS)
@@ -43,7 +45,8 @@ def test_bench_runs_turn_on_every_kernel_knob(knob):
 @pytest.mark.parametrize("run", cs.BENCH_RUNS, ids=[label for label, _, _ in cs.BENCH_RUNS])
 def test_bench_want_asks_for_every_kernel_a_run_turns_on(run):
     """A run's timed part must launch each kernel its mode and knobs turn
-    on, a known number of times, and no other."""
+    on (N1/N2 on the default train path, unless ``IV_BN_IMPL=flax``), a
+    known number of times, and no other."""
     _, argv, knobs = run
     want = cs._bench_want(argv, knobs)
     assert set(want) == set(cs.REPLACES)
@@ -53,6 +56,9 @@ def test_bench_want_asks_for_every_kernel_a_run_turns_on(run):
     for (name, value), kernels in KNOB_KERNELS.items():
         if knobs.get(name) == value:
             on.update(kernels)
+    for (name, value), kernels in KNOB_OFF.items():
+        if knobs.get(name) == value:
+            on.difference_update(kernels)
     steps = int(argv[1]) if len(argv) > 1 and argv[1].isdigit() else 0
     for kernel, count in want.items():
         assert (count > 0) == (kernel in on), (kernel, count)

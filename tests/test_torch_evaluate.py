@@ -394,7 +394,10 @@ def test_parsers_take_every_jax_inference_flag(mode):
     common = {f for f in tconfig.Settings.__dataclass_fields__} & set(
         jconfig.Settings.__dataclass_fields__)
     assert {a.dest for a in flags} - {"per_pixel_dataset_name", "enable_xla"} <= common
-    for k in common:
+    # no flag sets bn_impl: each package's default (the port's N1/N2, JAX's
+    # flax), which eval mode ignores
+    assert (got.bn_impl, want.bn_impl) == ("fused", "flax")
+    for k in common - {"bn_impl"}:
         assert getattr(got, k) == getattr(want, k), k
     assert isinstance(got.eval_scales, tuple) and got.eval_size == (96, 128)
 

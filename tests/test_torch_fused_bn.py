@@ -31,7 +31,7 @@ numpy from a seed and handed to both:
   L1 logits): the loss, every parameter gradient and the moved running
   statistics at test_fused_bn.py's bounds (1e-6 relative; 2e-4 absolute /
   2e-3 relative; 1e-5 / 1e-4), or within twice the distance at which the
-  port's default path (``bn_impl="flax"``) stands from JAX's on the same
+  port's flax path (``bn_impl="flax"``) stands from JAX's on the same
   inputs, where that already exceeds them (the test's docstring);
 - (f) under ``remat`` the recomputed forward leaves the running statistics
   alone: they move once, to the values of the run without remat;
@@ -287,7 +287,7 @@ def test_model_train_step_matches_jax(name):
 
     Each quantity is held to test_fused_bn.py's bound (loss 1e-6 relative,
     gradients 2e-4 / 2e-3, statistics 1e-5 / 1e-4) or, where the two
-    packages' f32 convolutions already part by more on the default path,
+    packages' f32 convolutions already part by more on the flax path,
     to twice the distance of the port's ``bn_impl="flax"`` from JAX's on
     the same inputs. The loss parts by 2-4e-6 relative on both paths (the
     convolutions round in other orders), and on the small model 10 of 102

@@ -571,3 +571,59 @@ def test_fused_bn_replays_from_a_cuda_graph_on_card(split):
     graph.replay()
     torch.cuda.synchronize()
     assert all(torch.equal(u, v) for u, v in zip(want, got))
+
+
+# (name, Settings fields): the default train step at 256x512, 1 + 2 + 1
+# images, in one microbatch and in two, and with PSP, whose 1x1-6x6 bins
+# hand N1/N2 maps of 4-144 rows a channel
+DEFAULT_STEP_CASES = [("default", {}), ("accum2", {"grad_accum_steps": 2}),
+                      ("psp", {"psp_module": True})]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,fields", DEFAULT_STEP_CASES, ids=[c[0] for c in DEFAULT_STEP_CASES])
+def test_default_train_step_runs_n1_n2_once_a_norm_on_card(name, fields):
+    """One default ``make_train_step`` call launches N1 and N2 once each per
+    train-mode batch-norm layer of the model a microbatch (the layers
+    counted from its ``Norm`` modules), copies no activation to
+    channels_last, and runs no library batch-norm kernel in a profiled
+    step; its losses are finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from iv2019_tpu_torch import bench
+    from iv2019_tpu_torch.config import Settings
+    from iv2019_tpu_torch.models.model import build_model, init_model
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+    from iv2019_tpu_torch.train.fused_update import FusedSGDM
+    from iv2019_tpu_torch.train.state import create_fused_train_state
+    from iv2019_tpu_torch.train.step import make_train_step
+
+    nb, (h, w) = (2, 2, 2) if name == "accum2" else (1, 2, 1), (256, 512)
+    settings = Settings(device="cuda", mode="train", height_feature_extractor=h,
+                        width_feature_extractor=w, Nb_per_pixel=nb[0], Nb_per_bbox=nb[1],
+                        Nb_per_image=nb[2], Nb=nb[0], **fields).finalize()
+    model = init_model(build_model(settings), torch.Generator().manual_seed(0))
+    norms = chip_smoke.batch_norm_layers(model)
+    assert norms > 0
+    opt = FusedSGDM(settings, model)
+    state, step = create_fused_train_state(opt), make_train_step(settings, fused_opt=opt)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in bench.train_batch(h, w, *nb).items()}
+    state, _ = step(state, batch)  # warm-up: cuDNN's choices, the kernels' build
+    torch.cuda.synchronize()
+    fbn.fused_bn_fwd.launches = fbn.fused_bn_bwd.launches = fbn.batch_norm_train.layout_copies = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    want = norms * settings.grad_accum_steps
+    assert (fbn.fused_bn_fwd.launches, fbn.fused_bn_bwd.launches) == (want, want)
+    assert fbn.batch_norm_train.layout_copies == 0
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("bn_fwd_kernel" in k for k in kernels) and any("bn_bwd_kernel" in k
+                                                                 for k in kernels), kernels
+    library = [k for k in kernels if "batchnorm" in k.lower() or "batch_norm" in k.lower()]
+    assert not library, library
+    assert all(np.isfinite(float(v)) for k, v in metrics.items() if k != "weight_masks")

@@ -467,7 +467,7 @@ def _probe_runs(steps):
         return JaxModel(taxonomy=jax_taxonomy("cityscapes"), resnet_blocks=SMALL_BLOCKS,
                         feature_dims_decreased=SMALL_FDIMS, dtype=jnp.float32,
                         batch_norm_decay=settings.batch_norm_decay,
-                        accumulate_norm_statistics=True)
+                        accumulate_norm_statistics=True, bn_impl="flax")
 
     make_step, create_state = jax_step.make_train_step, jax_state.create_fused_train_state
 
@@ -498,7 +498,7 @@ def _probe_runs(steps):
     variables = seen["variables"]
     model = TorchModel(taxonomy=get_taxonomy("cityscapes"), resnet_blocks=SMALL_BLOCKS,
                        feature_dims_decreased=SMALL_FDIMS, dtype=torch.float32,
-                       batch_norm_decay=settings.batch_norm_decay,
+                       batch_norm_decay=settings.batch_norm_decay, bn_impl="flax",
                        ).to(memory_format=torch.channels_last).train(True)
     load_flax_variables(model, variables["params"], variables["batch_stats"])
     got = overfit_probe.run(settings, model, steps)

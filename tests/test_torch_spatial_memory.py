@@ -98,7 +98,8 @@ def test_row_plan_is_the_jax_tools(jax_plans, name):
 @pytest.mark.parametrize("h,w,spatial,nb,remat,accum,ndev", [
     (512, 1024, 1, 8, False, 1, 8), (1024, 1140, 4, 2, True, 2, 8), (512, 1024, 1, 4, False, 4, 1)])
 def test_row_settings_are_analyzes(h, w, spatial, nb, remat, accum, ndev):
-    """Every field the two Settings share is the JAX tool's (:55-67); the
+    """Every field the two Settings share is the JAX tool's (:55-67) but
+    ``bn_impl``, each package's default (the port's N1/N2, JAX's flax); the
     port's alone is ``device``."""
     import dataclasses
 
@@ -112,7 +113,9 @@ def test_row_settings_are_analyzes(h, w, spatial, nb, remat, accum, ndev):
     names = {f.name for f in dataclasses.fields(got)}
     shared = names & {f.name for f in dataclasses.fields(want)}
     assert names - shared == {"device"}
+    shared.discard("bn_impl")
     assert {n: getattr(got, n) for n in shared} == {n: getattr(want, n) for n in shared}
+    assert (got.bn_impl, want.bn_impl) == ("fused", "flax")
     assert not got.root_wgrad_pallas and got.fused_loss and got.fused_optimizer
 
 

@@ -97,8 +97,10 @@ def test_cli_settings_match_jax(tmp_path):
     common = {f.name for f in dataclasses.fields(got)} & {f.name for f in dataclasses.fields(want)}
     assert len(common) > 80
     differ = {k for k in common if getattr(got, k) != getattr(want, k)}
-    # the problem definitions are each package's own copy of the same file
-    assert differ == {"training_problem_def_path"}
+    # the problem definitions are each package's own copy of the same file;
+    # train-mode BatchNorm defaults to N1/N2 in the port, to flax in JAX
+    assert differ == {"training_problem_def_path", "bn_impl"}
+    assert (got.bn_impl, want.bn_impl) == ("fused", "flax")
     assert got.device == "cuda"  # the card unless --device cpu
 
 

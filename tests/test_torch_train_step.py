@@ -158,6 +158,50 @@ def test_ema_params_match_jax(runs):
                         update_rtol=STEP3_UPDATE_RTOL)
 
 
+def test_default_settings_step_matches_jax_fused_bn():
+    """The port's default Settings (train-mode BatchNorm as ops/fused_bn.py)
+    against the JAX step with ``bn_impl="fused"``, three steps at this
+    file's tolerances: the port's default path held to its JAX counterpart
+    (the other tests name ``"flax"`` on both sides)."""
+    from iv2019_tpu_torch.config import Settings
+    from iv2019_tpu_torch.models.layers import Norm
+
+    threads()
+    jax_settings, settings = torch_tiny_settings(bn_impl="fused")
+    # the port's default bn_impl; the tiny sizes and f32 as the other tests
+    assert settings.bn_impl == Settings.bn_impl == "fused"
+    jmodel = tiny_model(jax_settings, train=True).clone(bn_impl="fused")
+    variables = jax.tree_util.tree_map(np.asarray, jmodel.init(
+        jax.random.PRNGKey(42), np.zeros((2, 32, 64, 3), np.float32)))
+    batch = synthetic_batch(jax_settings, seed=42)
+    jopt = JaxFusedSGDM(jax_settings, variables["params"], use_pallas=False)
+    jstate = jax_create_state(variables, jopt)
+    jstep = jax_make_train_step(jax_settings, model=jmodel, fused_opt=jopt)
+    jhistory, jparams = [], []
+    for _ in range(STEPS):
+        jstate, m = jstep(jstate, batch)
+        jhistory.append({k: np.asarray(v) for k, v in m.items() if k != "weight_masks"})
+        jparams.append(numpy_tree(jstate.params))
+    opt, state, history, params = _port_run(settings, variables, batch)
+    norms = [m for m in state.model.modules() if isinstance(m, Norm) and m.norm_type == "batch"]
+    assert norms and all(m.bn_impl == "fused" for m in norms)
+    for want, got in zip(jhistory, history):
+        for k in METRIC_KEYS:
+            np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=LOSS_RTOL, err_msg=k)
+        assert abs(float(got["miou"]) - float(want["miou"])) <= MIOU_ATOL
+    initial = numpy_tree(variables["params"])
+    _assert_trees_close(params[0], jparams[0], "params", rtol=0.0, initial=initial,
+                        update_rtol=STEP1_UPDATE_RTOL, ulps=4)
+    _assert_trees_close(params[-1], jparams[-1], "params", initial=initial,
+                        update_rtol=STEP3_UPDATE_RTOL)
+    _, batch_stats = flax_from_state_dict(state.model.state_dict())
+    _assert_trees_close(batch_stats, numpy_tree(jstate.batch_stats), "batch_stats")
+    got = opt_state_to_jax(state.opt_state, opt.layout)
+    for key, rtol in (("momentum", STEP3_UPDATE_RTOL), ("ema_biased", STATE_RTOL)):
+        want = np.asarray(getattr(jstate.opt_state, key))
+        assert float(np.abs(got[key] - want).max()) <= rtol * float(np.abs(want).max()), key
+
+
 def test_three_step_descent_and_state_evolution():
     """tests/test_golden.py for the port: on a constant batch the loss falls,
     and momentum, EMA and the decay product evolve."""

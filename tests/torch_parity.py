@@ -156,24 +156,29 @@ def write_trained_npz(path, variables, seed=7, with_ema=True, own_values=False):
 
 def torch_tiny_model(settings, variables, train=True):
     """The port's counterpart of helpers.tiny_model, f32, with the flax
-    variables loaded (``settings``: the port's Settings)."""
+    variables loaded (``settings``: the port's Settings, whose ``bn_impl``
+    the model takes)."""
     from helpers import TINY_BLOCKS
 
     model = TorchModel(
         taxonomy=torch_taxonomy(settings.per_pixel_dataset_name), resnet_blocks=TINY_BLOCKS,
         feature_dims_decreased=settings.feature_dims_decreased, dtype=torch.float32,
         upsampling_method=settings.upsampling_method, batch_norm_decay=settings.batch_norm_decay,
+        bn_impl=settings.bn_impl,
     ).to(memory_format=torch.channels_last).train(train)
     return load_flax_variables(
         model, numpy_tree(variables["params"]), numpy_tree(variables["batch_stats"]))
 
 
 def torch_tiny_settings(**kw):
-    """The port's Settings with helpers.tiny_settings' values, on the CPU."""
+    """(JAX Settings, the port's Settings) with helpers.tiny_settings'
+    values, the port's on the CPU. ``bn_impl`` is ``"flax"`` on both sides
+    unless ``kw`` names it (the port's default is ``"fused"``, the JAX
+    package's ``"flax"``)."""
     from helpers import tiny_settings
     from iv2019_tpu_torch.config import Settings as TorchSettings
 
-    jax_settings = tiny_settings(**kw)
+    jax_settings = tiny_settings(**{"bn_impl": "flax", **kw})
     derived = ("height_network", "width_network", "num_", "learning_rate_boundaries_",
                "learning_rate_values_")
     fields = {f for f in TorchSettings.__dataclass_fields__ if not f.startswith(derived)}

@@ -33,7 +33,7 @@ launch-weighted means over the step's 66 layers. Only the wrapper's call
 signature is assumed, so an older tree measures with its own
 ``chip_smoke`` helpers. With ``--step`` (and
 ``--only n1``) it also takes step 1 of the flagship train step under
-``bn_impl="fused"`` and prints its losses beside those of the f32 default
+``bn_impl="fused"`` and prints its losses beside those of the f32 flax
 step, and the share of N1's y, over the step's 66 norms, that differs from
 the y of exactly rounded statistics (f64 mean and variance of the same x,
 each rounded once to f32, then N1's f32 arithmetic): how far the kernel's
@@ -327,7 +327,7 @@ def probe_bn(args, cs, _build):
 
 def probe_bn_step(cs):
     """Step 1 of the flagship train step with ``bn_impl="fused"`` (N1 in
-    every norm) and of the f32 default step, from the same seeded weights
+    every norm) and of the f32 flax step, from the same seeded weights
     and batch: their losses, and the share of N1's outputs that differ from
     the bf16 y of exactly rounded statistics."""
     import numpy as np
