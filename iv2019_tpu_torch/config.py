@@ -27,7 +27,11 @@ multi-process runs (``num_devices``, ``num_processes``, ``num_slices``,
 per device (parallel/multihost.py); ``validate()`` keeps the JAX package's
 checks of them, and refuses a height that does not divide by 8 x
 ``spatial_partitions`` (JAX's comment states the rule, and its
-``shard_batch`` replicates such images silently instead).
+``shard_batch`` replicates such images silently instead). The feature
+extractors ``mit_b0`` and ``mit_b5`` (MiT with SegFormer's decoder,
+models/mit.py) are the port's own: ``check_feature_extractor`` refuses
+them with an output stride other than 4, with ``spatial_partitions`` > 1
+and with ``fused_block``.
 """
 
 from __future__ import annotations
@@ -245,8 +249,36 @@ class Settings:
     def replace(self, **kw: Any) -> "Settings":
         return dataclasses.replace(self, **kw)
 
+    def check_feature_extractor(self) -> None:
+        """Refuse what a feature extractor cannot run. ``mit_*`` (the port's
+        own, models/mit.py): output stride 4 only; no spatial partitioning,
+        since its attention reads every token of the image and a band of rows
+        has no halo that holds them; no ``fused_block``, which fuses the
+        ResNet's bottleneck units and MiT has none."""
+        from iv2019_tpu_torch.models.mit import MIT_WIDTHS
+        from iv2019_tpu_torch.models.resnet import FEATURE_EXTRACTOR_BLOCKS
+
+        name = self.name_feature_extractor
+        if name not in MIT_WIDTHS:
+            if name not in FEATURE_EXTRACTOR_BLOCKS:
+                raise ValueError(f"unknown name_feature_extractor {name!r}")
+            return
+        if self.stride_feature_extractor != 4:
+            raise ValueError(f"{name} has output stride 4 (SegFormer's decoder at stage 1's "
+                             f"size): pass --stride_feature_extractor 4, not "
+                             f"{self.stride_feature_extractor}.")
+        if self.spatial_partitions > 1:
+            raise ValueError(f"{name} does not compose with spatial_partitions > 1: its "
+                             "attention reads every token of the image, and a band of rows has "
+                             "no halo that holds them.")
+        if self.fused_block:
+            raise ValueError(f"{name} does not compose with fused_block: the fused kernels run "
+                             "the ResNet's bottleneck units, and MiT has none.")
+
     def validate(self) -> None:
-        """The checks of iv2019_tpu/config.py:302-397 on the fields here."""
+        """The checks of iv2019_tpu/config.py:302-397 on the fields here,
+        and ``check_feature_extractor``."""
+        self.check_feature_extractor()
         if (self.height_network, self.width_network) != (
                 self.height_feature_extractor, self.width_feature_extractor):
             raise ValueError("For now height/width_network must equal "
@@ -427,7 +459,10 @@ def _add_parallel_arguments(p: argparse.ArgumentParser) -> None:
 def _add_model_arguments(p: argparse.ArgumentParser) -> None:
     p.add_argument("--stride_feature_extractor", type=int, default=8)
     p.add_argument("--name_feature_extractor", type=str, default="resnet_v1_50",
-                   choices=["resnet_v1_50", "resnet_v1_101", "resnet_v1_152"])
+                   choices=["resnet_v1_50", "resnet_v1_101", "resnet_v1_152", "mit_b0",
+                            "mit_b5"],
+                   help="mit_* (the port's own: MiT with SegFormer's decoder) needs "
+                        "--stride_feature_extractor 4")
     p.add_argument("--feature_dims_decreased", type=int, default=256)
     p.add_argument("--fov_expansion_kernel_size", type=int, default=0)
     p.add_argument("--fov_expansion_kernel_rate", type=int, default=0)

@@ -2,14 +2,17 @@
 
 Port of iv2019_tpu/models/model.py::
 
-    images -> ResNet-v1 trunk (output stride 8; optional remat)
-           -> extension 1x1 conv 2048 -> 256
+    images -> ResNet-v1 trunk (output stride 8; optional remat), or the
+              port's own ``mit_*`` feature extractor (models/mit.py: MiT
+              and SegFormer's decoder, 768 channels at output stride 4)
+           -> extension 1x1 conv 2048 (768) -> 256
            -> optional dilated FOV conv (``fov_expansion_kernel_*``)
            -> optional PSP pyramid module (``psp_module``)
            -> three bottleneck adaptation branches, or the same as grouped
               convs (``fuse_adaptation``)
            -> 1x1 logit heads with their norm (L1 / L2-vehicle / L2-human)
-           -> x8 bilinear upsample, align_corners=True, f32, after a 3x3
+           -> x8 (x4 under ``mit_*``) bilinear upsample, align_corners=True,
+              f32, after a 3x3
               conv with bias under ``upsampling_method="hybrid"``
               (``"no"``: the stride-8 logits, f32)
            -> softmax / first-max argmax per head, f32
@@ -46,6 +49,7 @@ from torch import nn
 
 from iv2019_tpu_torch.config import Settings
 from iv2019_tpu_torch.models.layers import BottleneckV1, ConvNormRelu, Norm
+from iv2019_tpu_torch.models.mit import MIT_WIDTHS, MitSegFormer, init_mit
 from iv2019_tpu_torch.models.resnet import FEATURE_EXTRACTOR_BLOCKS, RESNET50_BLOCKS, ResNetV1
 from iv2019_tpu_torch.ops.resize import resize_band, resize_bilinear, resize_bilinear_mxu
 from iv2019_tpu_torch.ops.segment_ops import gather_cids, segment_sum_channels
@@ -175,7 +179,8 @@ class HierarchicalSegmentationModel(nn.Module):
                  batch_norm_decay: float = 0.9, root_wgrad_pallas: bool = False,
                  fov_expansion_kernel_size: int = 0, fov_expansion_kernel_rate: int = 0,
                  psp_module: bool = False, fuse_adaptation: bool = False,
-                 norm_type: str = "batch", remat: bool = False, bn_impl: str = "flax"):
+                 norm_type: str = "batch", remat: bool = False, bn_impl: str = "flax",
+                 mit_widths=None):
         super().__init__()
         if upsampling_method not in ("no", "bilinear", "hybrid"):
             raise ValueError(f"unknown upsampling_method {upsampling_method}")
@@ -183,9 +188,14 @@ class HierarchicalSegmentationModel(nn.Module):
         self.upsampling_method = upsampling_method
         self.fuse_adaptation = fuse_adaptation
         kw = dict(dtype=dtype, norm_type=norm_type, bn_impl=bn_impl)
-        base = ResNetV1(resnet_blocks or RESNET50_BLOCKS, stride_feature_extractor,
-                        fused_block=fused_block, dtype=dtype, root_wgrad_pallas=root_wgrad_pallas,
-                        norm_type=norm_type, remat=remat, bn_impl=bn_impl)
+        if mit_widths is not None:
+            base = MitSegFormer(mit_widths, dtype=dtype, norm_type=norm_type, bn_impl=bn_impl,
+                                remat=remat)
+        else:
+            base = ResNetV1(resnet_blocks or RESNET50_BLOCKS, stride_feature_extractor,
+                            fused_block=fused_block, dtype=dtype,
+                            root_wgrad_pallas=root_wgrad_pallas, norm_type=norm_type,
+                            remat=remat, bn_impl=bn_impl)
         self.add_module("feature_extractor/base", base)
         c = base.depth_out
         self.extension = []
@@ -227,6 +237,17 @@ class HierarchicalSegmentationModel(nn.Module):
         for module in self.modules():
             if isinstance(module, Norm):
                 module.decay = batch_norm_decay
+
+    @property
+    def stochastic(self) -> bool:
+        """Whether a training forward draws masks (stochastic depth and
+        dropout of ``mit_*``), which ``seed_stochastic`` seeds."""
+        return isinstance(self.get_submodule("feature_extractor/base"), MitSegFormer)
+
+    def seed_stochastic(self, seed: int) -> None:
+        base = self.get_submodule("feature_extractor/base")
+        if isinstance(base, MitSegFormer):
+            base.seed_stochastic(seed)
 
     def _add_extension(self, name: str, module: nn.Module) -> None:
         self.add_module(f"feature_extractor/extension/{name}", module)
@@ -292,6 +313,8 @@ class HierarchicalSegmentationModel(nn.Module):
 
 def build_model(settings: Settings, device=None) -> HierarchicalSegmentationModel:
     """The model of ``settings`` on ``device`` (default ``settings.device``),
+    the ResNet of ``FEATURE_EXTRACTOR_BLOCKS`` or the MiT of ``MIT_WIDTHS``
+    (``Settings.check_feature_extractor`` says what ``mit_*`` refuses),
     with channels_last conv weights, in train mode when ``settings.mode`` is
     train and ``batch_norm_accumulate_statistics`` is set, else in eval
     mode. Weights are uninitialized: load them (utils/convert.py) or draw
@@ -301,9 +324,12 @@ def build_model(settings: Settings, device=None) -> HierarchicalSegmentationMode
     and ``root_conv_s2d`` select layouts of the same function on the TPU,
     and the port has one path for all of them."""
     device = resolve_device(device or settings.device)
+    settings.check_feature_extractor()
+    name = settings.name_feature_extractor
     model = HierarchicalSegmentationModel(
         taxonomy=get_taxonomy(settings.per_pixel_dataset_name),
-        resnet_blocks=FEATURE_EXTRACTOR_BLOCKS[settings.name_feature_extractor],
+        resnet_blocks=FEATURE_EXTRACTOR_BLOCKS.get(name),
+        mit_widths=MIT_WIDTHS.get(name),
         stride_feature_extractor=settings.stride_feature_extractor,
         feature_dims_decreased=settings.feature_dims_decreased,
         fused_block=settings.fused_block and settings.mode != "train",
@@ -339,7 +365,8 @@ def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """flax's initial values: conv kernels from the slim variance-scaling
     initializer (factor 2, fan-in, truncated normal), the hybrid
     upsampler's from flax's ``lecun_normal`` (factor 1) with a zero bias,
-    norm scale 1, bias 0, mean 0, var 1. Draws on the CPU from
+    norm scale 1, bias 0, mean 0, var 1; a ``mit_*`` feature extractor's
+    own layers then SegFormer's (``mit.init_mit``). Draws on the CPU from
     ``generator``."""
     for module in model.modules():
         if isinstance(module, ConvTranspose):
@@ -353,4 +380,7 @@ def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if module.norm_type == "batch":
                 module.mean.fill_(0.0)
                 module.var.fill_(1.0)
+    for module in model.modules():
+        if isinstance(module, MitSegFormer):
+            init_mit(module, generator)
     return model

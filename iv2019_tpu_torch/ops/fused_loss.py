@@ -11,6 +11,11 @@ logits without materializing the full-resolution logits:
   == metaclass AND max label >= 0.01;
 - the fused hierarchical decisions and the L1 decisions, full resolution.
 
+(Every "stride-8" below holds for any upsampling factor: the tap tables
+and the launch plans are worked out from the two sizes, and ``mit_*``
+models hand in stride-4 logits, 256x256 to 1024x1024 labels at SegFormer's
+crop.)
+
 ``fused_loss_fwd`` (B1) and ``fused_loss_bwd`` (B2) launch
 ``csrc/fused_loss.cu`` for CUDA tensors and run their plain PyTorch versions
 (``fused_loss_fwd_plain``, ``fused_loss_bwd_plain``) for CPU tensors. The

@@ -2,9 +2,17 @@
 
 Port of iv2019_tpu/ops/segment_ops.py (the reference's
 ``tf.unsorted_segment_sum`` / ``tf.gather`` uses).
+
+The tables (a class-id table, a 0/1 projection matrix) go to the device
+once per table and device and are kept there (``_device_table``), so that
+a step does not wait on the card for a copy of a few bytes: a copy from
+pageable host memory waits for all the work queued before it. Under
+``torch.export`` they are made afresh, as constants of the traced program.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -27,10 +35,28 @@ def projection_matrix(segment_ids, num_segments: int, dtype=np.float32) -> np.nd
     return m
 
 
+@functools.lru_cache(maxsize=None)
+def _cached_table(data: bytes, dtype: str, shape: tuple, device: str, site: str):
+    """A table's copy on the device, made in the ``iv.sync.<site>`` span on
+    its first use only: a plain tensor, usable in and out of inference
+    mode."""
+    values = np.frombuffer(data, dtype=dtype).reshape(shape)
+    with span(f"iv.sync.{site}"), torch.inference_mode(False):
+        return torch.tensor(values, device=device)
+
+
+def _device_table(values: np.ndarray, device: torch.device, site: str) -> torch.Tensor:
+    """``values`` on ``device``, from the cache; afresh under ``torch.export``."""
+    if torch.compiler.is_exporting():
+        with span(f"iv.sync.{site}"):
+            return torch.as_tensor(values, device=device)
+    return _cached_table(values.tobytes(), values.dtype.str, values.shape, str(device), site)
+
+
 def segment_sum_channels(labels: torch.Tensor, segment_ids, num_segments: int) -> torch.Tensor:
     """Sum the last-axis channels of ``labels`` into ``num_segments`` (f32)."""
-    with span("iv.sync.segment_sum_channels"):
-        proj = torch.as_tensor(projection_matrix(segment_ids, num_segments), device=labels.device)
+    proj = _device_table(projection_matrix(segment_ids, num_segments), labels.device,
+                         "segment_sum_channels")
     return labels.float() @ proj
 
 
@@ -42,6 +68,5 @@ def remap_probabilities(probs: torch.Tensor, old_cids2new_cids) -> torch.Tensor:
 
 def gather_cids(table, cids: torch.Tensor) -> torch.Tensor:
     """out[...] = table[cids[...]] as int32; out-of-range indices clamp."""
-    with span("iv.sync.gather_cids"):
-        t = torch.as_tensor(np.asarray(table, dtype=np.int32), device=cids.device)
+    t = _device_table(np.asarray(table, dtype=np.int32), cids.device, "gather_cids")
     return t[cids.long().clamp(0, len(t) - 1)]

@@ -5,8 +5,9 @@ Port of iv2019_tpu/train/step.py:
 - ``make_train_step``: one training step of the mixed [pp | pb | pi] batch
   (step.py:104-433): on-device augmentations of the per-pixel part and
   rasterizing of padded box tensors (``_assemble``), train-mode forward,
-  the hierarchical losses (fused from stride-8 logits through kernels B1/B2
-  when the gate admits it, else ``define_losses`` on the upsampled logits),
+  the hierarchical losses (fused from the model's logits at its output
+  stride, 8 or 4, through kernels B1/B2 when the gate admits it, else
+  ``define_losses`` on the upsampled logits),
   backward into the fused optimizer's flat gradient vector, the fused SGDM
   + weight-decay + EMA update (kernel B3), the batch mIoU and the
   summaries' weight masks; with ``grad_accum_steps`` > 1 the forward and
@@ -49,6 +50,7 @@ import torch.nn.functional as F
 
 from iv2019_tpu_torch.config import Settings
 from iv2019_tpu_torch.losses.hierarchical import define_losses, l2_regularization
+from iv2019_tpu_torch.models.mit import mask_seed
 from iv2019_tpu_torch.models.model import build_model, hierarchical_common_probabilities
 from iv2019_tpu_torch.ops.augment import apply_augmentations, draw_augmentations
 from iv2019_tpu_torch.ops.confusion import confusion_matrix, mean_iou_from_cm
@@ -103,7 +105,8 @@ def _summary_weight_masks(labels, l1_decisions, tax, weak_ix):
 
 def uses_fused_loss(settings: Settings, model, spatial: bool = False) -> bool:
     """Whether the train step of ``settings`` computes its loss with kernels
-    B1/B2. The fused loss runs the model to stride-8 logits only; degenerate
+    B1/B2. The fused loss runs the model to its logits at the output stride
+    (8, or 4 under ``mit_*``) and upsamples them inside B1/B2; degenerate
     supervision mixes and bootstrapped CE (a batch-global sort of the raw L1
     losses) take the reference loss on the upsampled logits, and so does a
     mesh that splits image height. Decided on the microbatch, the batch each
@@ -147,6 +150,10 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
     ``augmentations`` draw from ``(random_seed, step)``, or ``(random_seed,
     step * accum + i)`` for microbatch i, as the JAX package folds its key;
     the step is read from ``state.step`` once and then counted on the host.
+    A model whose training forward draws masks (``model.stochastic``: the
+    stochastic depth and dropout of ``mit_*``) has its mask generator seeded
+    with ``mit.mask_seed(random_seed, step * accum + i, data_index)`` before
+    microbatch i, the step counted the same way.
     With ``grad_accum_steps`` = accum > 1 the batch splits into accum equal
     slices of each sub-batch (step.py:276-402): each runs forward (BatchNorm
     statistics per microbatch, so the running statistics take accum
@@ -199,10 +206,13 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
                     f"{accum} must divide by the {mesh.batch_shards} batch shards of "
                     "the mesh.")
     use_fused_loss = uses_fused_loss(settings, model, spatial)
+    stochastic = getattr(model, "stochastic", False)
     num_classes = tax.num_common_classes
     device = _device_of(model)
     params = list(model.parameters())
     augmentations = tuple(settings.augmentations)
+    # the step's number is counted on the host where something draws from it
+    host_counted = bool(augmentations) or not fused or stochastic
     # labels revealed by downscaling: the per-pixel space's void cid
     unlabeled_cid = len(tax.per_pixel_cids2l1_cids) - 1
     host_step = {"state": None, "step": 0}
@@ -319,7 +329,7 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
     def _train_step(state: TrainState, batch: Mapping[str, Any]):
         if state.model is not model:
             raise ValueError("state.model is not the model this step was built for")
-        step = _step_on_host(state) if augmentations or not fused else 0
+        step = _step_on_host(state) if host_counted else 0
         if fused:
             fused_opt.zero_grad()
         else:
@@ -329,6 +339,9 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
         sums, cm, weight_masks = None, None, None
         for i in range(accum):
             mb = batch if accum == 1 else _microbatch(batch, i)
+            if stochastic:
+                model.seed_stochastic(mask_seed(settings.random_seed, step * accum + i,
+                                                mesh.data_index if mesh is not None else 0))
             with span("iv.train.assemble"):
                 images, labels = _assemble(mb, step * accum + i)
             n_pp = labels["prolabels_per_pixel"].shape[0]
@@ -367,7 +380,7 @@ def make_train_step(settings: Settings, model=None, fused_opt: Optional[FusedSGD
                 if state.ema is not None:
                     state.ema.update(model, step, settings.ema_decay)
         new_state = state.replace(step=state.step + 1, opt_state=opt_state)
-        if augmentations or not fused:
+        if host_counted:
             host_step.update(state=new_state, step=step + 1)
         total, l1, veh, hum = sums
         with span("iv.train.metrics"):

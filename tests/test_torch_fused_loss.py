@@ -110,6 +110,37 @@ def test_define_losses_fused_matches_jax(case):
         assert float(np.abs(preds[k].grad.numpy() - w_).max()) <= 1e-5 * float(np.abs(w_).max())
 
 
+def test_plain_fused_loss_at_x4_matches_the_unfused_loss():
+    """B1/B2's plain path at x4 (64x64 logits to 256x256 labels, the
+    stride-4 logits of ``mit_*`` models) against the unfused hierarchical
+    loss (losses/hierarchical.py) on the logits upsampled x4 by the model's
+    upsampler: the losses 1e-5 relative, the decisions on >= 99.9% of
+    pixels, the logits' gradients 1e-5 of the largest (f32, the same
+    upsample as matrices in another order)."""
+    from iv2019_tpu_torch.losses.hierarchical import define_losses
+    from iv2019_tpu_torch.ops.resize import resize_bilinear_mxu
+
+    threads()
+    tax = get_taxonomy("cityscapes")
+    lr, labels, out_hw = loss_inputs_np(tax, 4, 2, 2, 1, h=64, w=64, scale=4)
+    assert out_hw == (256, 256)
+    labels = {k: torch.from_numpy(v) for k, v in labels.items()}
+    fused = {k: torch.from_numpy(lr[k]).requires_grad_(True) for k in LOGIT_KEYS}
+    got = tfl.define_losses_fused(fused, labels, tax, out_hw)
+    got["total"].backward()
+    plain = {k: torch.from_numpy(lr[k]).requires_grad_(True) for k in LOGIT_KEYS}
+    preds = {k: resize_bilinear_mxu(plain[k], out_hw, align_corners=True) for k in LOGIT_KEYS}
+    preds["l1_decisions"] = torch.argmax(preds["l1_logits"], -1).int()
+    want = define_losses(preds, labels, tax)
+    want["total"].backward()
+    for k in LOSS_KEYS:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5, err_msg=k)
+    assert (got["l1_decisions"] == preds["l1_decisions"]).float().mean() >= 0.999
+    for k in LOGIT_KEYS:
+        w_ = plain[k].grad
+        assert float((fused[k].grad - w_).abs().max()) <= 1e-5 * float(w_.abs().max()), k
+
+
 def test_fused_loss_availability_and_shape_checks():
     tax = get_taxonomy("cityscapes")
     assert tfl.fused_loss_available((64, 128), (512, 1024), tax)
@@ -154,6 +185,10 @@ PLAN_SHAPES = [
     (78, 107, 621, 855, VISTAS, 16, 8),
     (3, 1, 20, 5, CITY, 16, 8),
     (1, 1, 8, 700, CITY, 16, 8),
+    # x4: SegFormer-B5's stride-4 logits at its 1024x1024 crop, and the CPU
+    # tests' 64x64 -> 256x256
+    (256, 256, 1024, 1024, CITY, 16, 8),
+    (64, 64, 256, 256, CITY, 16, 8),
 ]
 
 

@@ -47,6 +47,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "iv2019_tpu_torch.utils.tf_checkpoint", "iv2019_tpu_torch.tools.overfit_probe",
                  "iv2019_tpu_torch.tools.weak_ab", "iv2019_tpu_torch.tools.quality_ab",
                  "iv2019_tpu_torch.tools.spatial_memory_table", "iv2019_tpu_torch.ops.fused_bn",
+                 "iv2019_tpu_torch.models.mit", "iv2019_tpu_torch.ops.attention",
                  "iv2019_tpu_torch.utils.spans"):
         assert name in result["imported"], name
     loaded = result["loaded"]

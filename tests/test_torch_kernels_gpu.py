@@ -627,3 +627,161 @@ def test_default_train_step_runs_n1_n2_once_a_norm_on_card(name, fields):
     library = [k for k in kernels if "batchnorm" in k.lower() or "batch_norm" in k.lower()]
     assert not library, library
     assert all(np.isfinite(float(v)) for k, v in metrics.items() if k != "weight_masks")
+
+
+@pytest.mark.gpu
+def test_mit_b5_step_runs_fused_attention_and_b1_b2_at_x4_on_card():
+    """``mit_b5`` in bf16 at 1024x1024: a forward of one image makes its 52
+    attention calls on FlashAttention (``.launches`` 52, 52
+    ``_scaled_dot_product_flash_attention`` ops, no math-backend op); a
+    train step of 1 + 1 + 1 images, its stages replayed from their CUDA
+    graphs from the third step on, launches 52 FlashAttention forward and
+    52 backward kernels, counts 52 calls, and launches B1 and B2 once each
+    on the stride-4 logits; the losses are finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+
+    from iv2019_tpu_torch import bench
+    from iv2019_tpu_torch.config import Settings
+    from iv2019_tpu_torch.models.model import build_model, init_model
+    from iv2019_tpu_torch.ops.attention import attention
+    from iv2019_tpu_torch.train.fused_update import FusedSGDM
+    from iv2019_tpu_torch.train.state import create_fused_train_state
+    from iv2019_tpu_torch.train.step import make_train_step, uses_fused_loss
+
+    settings = Settings(device="cuda", mode="train", name_feature_extractor="mit_b5",
+                        stride_feature_extractor=4, height_feature_extractor=1024,
+                        width_feature_extractor=1024, Nb_per_pixel=1, Nb_per_bbox=1,
+                        Nb_per_image=1, Nb=1).finalize()
+    model = init_model(build_model(settings), torch.Generator().manual_seed(0))
+    images = torch.rand(1, 1024, 1024, 3, device="cuda") * 2 - 1
+    attention.launches = 0
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        logits = model(images, upsampling_method="no")["l1_logits"]
+    assert attention.launches == 52 and attention.backend == "flash"
+    assert tuple(logits.shape) == (1, 256, 256, 14)
+    ops = {e.key: e.count for e in prof.key_averages()}
+    assert ops.get("aten::_scaled_dot_product_flash_attention", 0) == 52, ops
+    assert not [k for k in ops if "attention_math" in k], ops
+    opt = FusedSGDM(settings, model)
+    state, step = create_fused_train_state(opt), make_train_step(settings, fused_opt=opt)
+    assert uses_fused_loss(settings, model)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in bench.train_batch(1024, 1024, 1, 1, 1).items()}
+    for _ in range(2):  # eager, then the stages' capture; the kernels' build
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    fl.fused_loss_fwd.launches = fl.fused_loss_bwd.launches = attention.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    assert (fl.fused_loss_fwd.launches, fl.fused_loss_bwd.launches) == (1, 1)
+    assert attention.launches == 52
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    fwd = sum(e.count for e in kernels if "flash_fwd_kernel" in e.key)
+    bwd = sum(e.count for e in kernels if "flash_bwd_dq_dk_dv" in e.key)
+    assert (fwd, bwd) == (52, 52), [e.key[:80] for e in kernels]
+    assert all(np.isfinite(float(v)) for k, v in metrics.items() if k != "weight_masks")
+
+
+@pytest.mark.gpu
+def test_mit_graphed_stages_give_the_eager_results_on_card():
+    """A ``mit_b0`` training forward and backward in bf16 on the card, its
+    parameters holding gradient buffers as the fused optimizer's do: model
+    A eagerly (the first call of a shape), then captured and replayed (the
+    second), then replayed (the third); model B, the same weights, eagerly
+    once; every call with the same masks. The replays' logits agree bit for
+    bit, and with the eager ones within bf16 rounding (2% of the largest).
+    FlashAttention's backward adds its query gradients with atomics, so no
+    two backward passes agree bit for bit: each replay's gradients lie as
+    close to A's eager ones as B's eager ones do, by the worst leaf (its
+    gap over the larger of its norm and the median leaf's), within twice
+    that and half a percent."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import plain_segformer as plain
+
+    from iv2019_tpu_torch.config import Settings
+    from iv2019_tpu_torch.models.model import build_model
+
+    params = plain.draw_params(plain.param_spec(plain.WIDTHS["mit_b0"], (14, 7, 3)), 3)
+    images = torch.rand(3, 128, 256, 3, device="cuda") * 2 - 1
+
+    def model_runs(calls):
+        model = build_model(Settings(device="cuda", mode="train",
+                                     name_feature_extractor="mit_b0",
+                                     stride_feature_extractor=4, height_feature_extractor=128,
+                                     width_feature_extractor=256))
+        with torch.no_grad():
+            model.load_state_dict(params, strict=True)
+        runs = []
+        for _ in range(calls):
+            for p in model.parameters():  # gradient buffers, as the fused optimizer keeps
+                p.grad = torch.zeros_like(p)
+            model.seed_stochastic(11)
+            out = model(images, upsampling_method="no")
+            logits = torch.cat([out[k].float().flatten() for k in (
+                "l1_logits", "l2_vehicle_logits", "l2_human_logits")])
+            (logits.square().mean()).backward()
+            runs.append((logits.detach(), {k: p.grad.detach().clone()
+                                            for k, p in model.named_parameters()}))
+            # the last forward's graph freed, as the train step frees it: its
+            # parameters' gradient accumulators, made on the default stream,
+            # would otherwise be the capture's, which no capture may wait on
+            del out, logits
+        return model, runs
+
+    model, ((eager, eager_g), (first, first_g), (again, again_g)) = model_runs(3)
+    base = model.get_submodule("feature_extractor/base")
+    assert len(base._graphs) == 1 and isinstance(next(iter(base._graphs.values())), tuple)
+    _, ((other, other_g),) = model_runs(1)
+    assert torch.equal(first, again)
+    assert float((first - eager).abs().max()) <= 0.02 * float(eager.abs().max())
+    norms = {k: float(g.norm()) for k, g in eager_g.items()}
+    med = float(np.median(list(norms.values())))
+
+    def worst(grads):
+        return max(float((grads[k] - g).norm()) / max(norms[k], med) for k, g in eager_g.items())
+
+    bar = 2 * worst(other_g) + 0.005
+    assert worst(first_g) <= bar and worst(again_g) <= bar, (worst(first_g), worst(again_g), bar)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mit_b0_on_card_matches_the_plain_reference(dtype):
+    """``mit_b0`` on the card (FlashAttention in bf16, the memory-efficient
+    kernel in f32; the masks drawn on the card by both sides) against the
+    plain float32 reference with math attention: every head's logits within
+    tests/test_torch_mit.py's bounds (f32 1e-3 here: the card's convolutions
+    and attention sum in other orders than the CPU's)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import plain_segformer as plain
+
+    from iv2019_tpu_torch.config import Settings
+    from iv2019_tpu_torch.models.model import build_model
+    from iv2019_tpu_torch.ops.attention import attention
+
+    widths = plain.WIDTHS["mit_b0"]
+    params = plain.draw_params(plain.param_spec(widths, (14, 7, 3)), 3)
+    s = Settings(device="cuda", mode="train", name_feature_extractor="mit_b0",
+                 stride_feature_extractor=4, compute_dtype=dtype, height_feature_extractor=128,
+                 width_feature_extractor=256)
+    model = build_model(s)
+    with torch.no_grad():
+        model.load_state_dict(params, strict=True)
+    images = torch.rand(3, 128, 256, 3, device="cuda") * 2 - 1
+    model.seed_stochastic(9)
+    with torch.no_grad(), plain.strict_float32():
+        out = model(images, upsampling_method="no")
+        masks = plain.draw_masks(9, 3, widths, "cuda")
+        ref = plain.forward({k: v.cuda() for k, v in params.items()}, images, widths, True,
+                            masks=masks)
+    assert attention.backend == ("flash" if dtype == "bfloat16" else "efficient")
+    tol = 1e-3 if dtype == "float32" else 6e-2
+    for key, want in zip(("l1_logits", "l2_vehicle_logits", "l2_human_logits"), ref):
+        got = out[key].permute(0, 3, 1, 2).float()
+        gap = float((got - want).abs().max() / want.abs().max())
+        assert gap < tol, (key, gap)

@@ -9,11 +9,12 @@ spans a step are pinned by site, train, eval and predict, so that a
 crossing added without its span, or one taken away, changes the count. The
 predict step's ``torch.export`` graph holds no profiler node.
 
-The pinned counts are the CPU's: here the fused loss runs its plain version,
-which gathers and sums labels itself, once in its forward and once more in
-its backward (``ops/fused_loss.py::_plain_terms``: 6 of the train step's
-``gather_cids`` and 4 of its ``segment_sum_channels``); on the card B1/B2
-read the cached ``_device_tables`` instead, uploaded on the first call only.
+The label tables of ``gather_cids`` and ``segment_sum_channels`` (the
+decision fusion, the loss's head labels, the summary masks, the eval remap)
+cross to the device once per table and device (ops/segment_ops.py), so after
+each step's warm-up call the train step makes no crossing of its own, on
+the CPU as on the card; the eval and predict steps still upload their resize
+tables every call.
 """
 
 import collections
@@ -44,20 +45,18 @@ TRAIN_PHASES = ("iv.train.assemble", "iv.train.forward", "iv.train.backward",
 EVAL_PHASES = ("iv.eval.forward", "iv.eval.decide", "iv.eval.resize", "iv.eval.confusion")
 # iv.sync.<site> spans of one step at this size, the inputs on the step's device
 SYNCS = {
-    # the model's decision fusion 3, the fused loss's head labels 3, the
-    # summary masks' 1 and 2; the plain B1/B2's 3 + 3 and 2 + 2
-    "train": {"iv.sync.gather_cids": 13, "iv.sync.segment_sum_channels": 6},
-    # the fusion 3 and the eval remap 1; the x8 upsampler's two matrices for
-    # each of the three heads; the nearest resize's row and column indices
-    "eval": {"iv.sync.gather_cids": 4, "iv.sync.resize_matrix": 6,
-             "iv.sync.resize_index": 2},
+    # the label tables crossed in the warm-up call
+    "train": {},
+    # the x8 upsampler's two matrices for each of the three heads; the
+    # nearest resize's row and column indices
+    "eval": {"iv.sync.resize_matrix": 6, "iv.sync.resize_index": 2},
     # with PSP (Vistas' eval) at 48x96, labels at the image size: the
     # pyramid's four bins resized back each by two index pairs and two weight
     # rows, one index table for the nearest resize at the same size
-    "eval_psp": {"iv.sync.gather_cids": 4, "iv.sync.resize_matrix": 6,
-                 "iv.sync.resize_index": 1 + 16, "iv.sync.resize_weights": 8},
-    # the fusion 3, the upsampler 6
-    "predict": {"iv.sync.gather_cids": 3, "iv.sync.resize_matrix": 6},
+    "eval_psp": {"iv.sync.resize_matrix": 6, "iv.sync.resize_index": 1 + 16,
+                 "iv.sync.resize_weights": 8},
+    # the upsampler 6
+    "predict": {"iv.sync.resize_matrix": 6},
 }
 # host arrays in place of the tensors add one upload each: the train batch's
 # six parts, the eval images and labels, the predict images
@@ -152,6 +151,25 @@ def _annotations(run, tmp_path) -> list:
     return [e for e in events if e.get("cat") == "user_annotation"]
 
 
+@pytest.mark.parametrize("site", ["gather_cids", "segment_sum_channels"])
+def test_a_label_table_crosses_once(tmp_path, site):
+    """A table new to the device crosses in its span on the first call
+    only; the same values again come from the cache."""
+    from iv2019_tpu_torch.ops import segment_ops
+
+    table = list(np.random.RandomState(len(site)).permutation(97))
+    labels = torch.zeros((2, 3, 97)) if site == "segment_sum_channels" else \
+        torch.zeros((2, 3), dtype=torch.int32)
+
+    def call():
+        if site == "gather_cids":
+            return segment_ops.gather_cids(table, labels)
+        return segment_ops.segment_sum_channels(labels, table, 97)
+
+    names = [[e["name"] for e in _annotations(call, tmp_path)] for _ in range(2)]
+    assert names == [[f"iv.sync.{site}"], []]
+
+
 def test_span_off_is_one_shared_noop_without_record_function(monkeypatch):
     made = []
     monkeypatch.setattr(torch.profiler, "record_function", made.append)
@@ -225,3 +243,52 @@ class _Forward(torch.nn.Module):
 
     def forward(self, images):
         return self.fn(images)["decisions"]
+
+
+MIT_SPANS = ("iv.mit.stage1", "iv.mit.stage2", "iv.mit.stage3", "iv.mit.stage4",
+             "iv.mit.decoder")
+
+
+@pytest.fixture(scope="module")
+def mit_steps():
+    """A train and an eval step of ``mit_b0`` at 32x64, each warmed up once
+    (the train step reads ``state.step`` for its masks' seed on its first
+    call only)."""
+    torch.set_num_threads(1)
+    rng = np.random.RandomState(1)
+    kw = dict(name_feature_extractor="mit_b0", stride_feature_extractor=4)
+    s = _settings("train", **kw)
+    opt = FusedSGDM(s, _model(s))
+    holder = {"state": create_fused_train_state(opt)}
+    train = make_train_step(s, fused_opt=opt)
+    batch = _train_batch(rng)
+
+    def train_once():
+        holder["state"], metrics = train(holder["state"], batch)
+        return metrics["total"]
+
+    s = _settings("eval", **kw)
+    evaluate = make_eval_step(s, model=_model(s))
+    images = torch.as_tensor(rng.uniform(-1, 1, (NB, H, W, 3)).astype(np.float32))
+    labels = torch.as_tensor(rng.randint(0, 19, (NB, *LABEL_HW), np.int32))
+    runs = {"train": train_once, "eval": lambda: evaluate(images, labels)}
+    for run in runs.values():
+        run()
+    return runs
+
+
+@pytest.mark.parametrize("kind, forward", [("train", "iv.train.forward"),
+                                           ("eval", "iv.eval.forward")])
+def test_mit_spans_once_a_forward_inside_the_forward_span(mit_steps, tmp_path, kind, forward):
+    """The five ``iv.mit.*`` spans once each a step, in order, inside the
+    step's forward span; the model adds no host-device crossing: the train
+    step's sync spans are the ResNet's (the loss and the fusion), the eval
+    step's too."""
+    events = _annotations(mit_steps[kind], tmp_path)
+    (fwd,) = [e for e in events if e["name"] == forward]
+    mine = sorted((e for e in events if e["name"].startswith("iv.mit.")), key=lambda e: e["ts"])
+    assert [e["name"] for e in mine] == list(MIT_SPANS)
+    for e in mine:
+        assert fwd["ts"] <= e["ts"] and e["ts"] + e["dur"] <= fwd["ts"] + fwd["dur"], e["name"]
+    counted = collections.Counter(e["name"] for e in events if e["name"].startswith("iv.sync."))
+    assert counted == collections.Counter(SYNCS[kind])
