@@ -36,7 +36,16 @@ Phases, each of which fails the run on its own:
    its plain version at ``BN_*``'s bounds, on the one-launch path of one
    rank (bit for bit over two runs) and on the two-launch path of a mesh
    (bit for bit against the one launch); the kernel line gives their
-   launch-weighted means.
+   launch-weighted means. Eval-mode BatchNorm (N3, ``fused_bn_eval``; no
+   Pallas kernel either): at every distinct eval-norm call (x's shape,
+   with or without a residual and a ReLU) of one forward of each of the
+   benchmark's eval cells (``N3_EVAL_CELLS``), in bf16, timed (ms, device
+   ms, the plain chain, the bound of one pass), and in f32, the operator and
+   the exported program's folded form each against the plain chain within
+   ``N3_MAX_ULPS`` and bit for bit on all but ``N3_MAX_NOT_BITWISE`` of the
+   elements; its launches in an eval step of each cell's model
+   (``N3_STEP_LAUNCHES``: 71 and 36, no layout copy) are the kernel line's
+   ``launches``.
 3. predict: the port's predict path at full ResNet-50 width (Cityscapes
    taxonomy, 512x1024 input, 1024x2048 output, bf16, fused blocks) on
    seeded random weights; checks the kernel launch counts, compares with
@@ -199,8 +208,10 @@ Phases, each of which fails the run on its own:
    10-12 (``start_export``, as does the unfused program's below), collected
    here: the graph holds 8
    ``iv2019::fused_bottleneck`` and 2 ``_ct`` nodes (the registered
-   operators of ``csrc/torch_ops.cpp``, built with ``g++`` in phase 1) and
-   no arithmetic on the weights alone; the AOTInductor package served by the
+   operators of ``csrc/torch_ops.cpp``, built with ``g++`` in phase 1), one
+   ``iv2019::bn_eval.folded`` node for each of the 36 batch norms the units
+   leave (N3 on a table folded at export) and no arithmetic on the weights
+   alone; the AOTInductor package served by the
    C++ loader with no Python in its process: ``serve`` (20 timed executes,
    p50/p90), then a ``StreamServer`` answering ``REQUESTS`` seeded u8 frames
    one at a time and pipelined (``infer_many``): ms a request, requests a
@@ -209,8 +220,8 @@ Phases, each of which fails the run on its own:
    ``--fused_block`` forward on the same frames (>= 99.9% equal) and against
    the f32 truth (the predict phase's bar). Beside it the export CLI's
    default program, unfused with the f32 signature, a second process
-   started with the first: no fused-unit node, no arithmetic on the weights
-   alone, its package served by the C++ loader with f32 inputs (20 timed
+   started with the first: no fused-unit node, 66 ``bn_eval.folded``
+   nodes, no arithmetic on the weights alone, its package served by the C++ loader with f32 inputs (20 timed
    executes) and no B4/B5 launch. Printed: export and compile seconds, the
    packages' sizes, the phase's wall time. The kernel line's
    ``serve_launches``: B4/B5 in the fused package's runs.
@@ -282,7 +293,9 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import glob
+import inspect
 import io
 import json
 import os
@@ -356,6 +369,27 @@ BN_EDGE_SHAPES = [(2, 1, 5, 7, 0), (3, 24, 7, 9, 1), (1, 2048, 3, 5, 0), (2, 14,
 # three adaptation units 9, three logit heads 3): under bn_impl="fused" (the
 # default) N1 and N2 launch once each a layer a step
 FLAGSHIP_BATCH_NORMS = 66
+
+# the benchmark's two eval cells (benchmark/configs, benchmark/traffic) as
+# Settings fields, and N3's launches in one eval step of each: Vistas with
+# PSP (53 trunk norms, no unit fuses at 115x159, PSP and the heads' 18
+# more) and Cityscapes with the fused units (66 norms, 30 of them folded by
+# B4/B5's 10 units)
+N3_EVAL_CELLS = [("vistas_psp", dict(per_pixel_dataset_name="vistas", psp_module=True, Nb=4,
+                                     height_feature_extractor=918,
+                                     width_feature_extractor=1266)),
+                 ("cityscapes", dict(per_pixel_dataset_name="cityscapes", fused_block=True, Nb=8,
+                                     height_feature_extractor=512,
+                                     width_feature_extractor=1024))]
+N3_STEP_LAUNCHES = {"vistas_psp": 71, "cityscapes": 36}
+# what N3 stands for in the JAX package (no Pallas kernel, and no counter of
+# the main paths, so not in REPLACES): flax's eval-mode BatchNorm
+# (use_running_average) in Norm, which XLA fuses with its neighbours
+N3_REPLACES = "iv2019_tpu/models/layers.py:268"
+# N3 against the plain chain: within this many units in the last place of
+# x's type everywhere, and bit for bit on all but this share of elements
+N3_MAX_ULPS = 1.0
+N3_MAX_NOT_BITWISE = 1e-3
 
 REQUESTS = 8  # predict requests of the predict phase
 
@@ -704,6 +738,15 @@ def _bn_out_err(got, want, dtype):
     return float((diff / allowed).max()), float(diff.max())
 
 
+def ulps_off(got, want):
+    """|got - want| in units in the last place of want's type (bf16 or f32)
+    at the larger magnitude of the two, element by element."""
+    bits = {torch.bfloat16: 7, torch.float32: 23}[want.dtype]
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    return (got - want).abs() / torch.exp2(torch.floor(torch.log2(mag)) - bits)
+
+
 def bn_check(n, c, h, w, dtype, device, seed=0, offset=0, timed=False):
     """N1 and N2 at one (n, c, h, w) against their plain versions on the same
     inputs (y and dx, the statistics, the gradient's sums, the row count),
@@ -883,6 +926,164 @@ def bn_kernels(device):
             f"(two passes {r['two_pass_bound_ms']:.4f}; shares {r['bound_share']:.3f} / "
             f"{r['two_pass_share']:.3f}), paths {r['path']}, under the library at every map "
             f"{r['under_library']}, launch-weighted over {weight} layers")
+    return out
+
+
+def eval_norm_calls(fields):
+    """({(x shape, residual given, relu): calls} of the eval-mode batch
+    norms of one forward of a model built from ``fields`` on the card, and
+    (N3's launches, its layout copies) in one eval step of that model
+    (``make_eval_step``, as evaluate_cli and the benchmark's eval cells run
+    it), counted from zero after a first step."""
+    import collections
+    import inspect
+
+    from iv2019_tpu_torch.config import Settings
+    from iv2019_tpu_torch.models.layers import Norm
+    from iv2019_tpu_torch.models.model import build_model, init_model
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+    from iv2019_tpu_torch.train.step import make_eval_step
+
+    problem = os.path.join(os.path.dirname(os.path.abspath(__file__)), "iv2019_tpu_torch",
+                           "problem_definitions", fields["per_pixel_dataset_name"],
+                           "problem01.json")
+    settings = Settings(device="cuda", mode="eval", training_problem_def_path=problem, **fields)
+    model = init_model(build_model(settings), torch.Generator().manual_seed(0))
+    calls = collections.Counter()
+
+    def record(module, args, kwargs):
+        bound = inspect.signature(Norm.forward).bind(module, *args, **kwargs)
+        bound.apply_defaults()
+        a = bound.arguments
+        calls[(tuple(a["x"].shape), a["residual"] is not None, bool(a["relu"]))] += 1
+
+    handles = [m.register_forward_pre_hook(record, with_kwargs=True) for m in model.modules()
+               if isinstance(m, Norm) and m.norm_type == "batch"]
+    h, w, n = fields["height_feature_extractor"], fields["width_feature_extractor"], fields["Nb"]
+    images = torch.rand(n, h, w, 3, device="cuda") * 2 - 1
+    with torch.inference_mode():
+        model(images)
+    for handle in handles:
+        handle.remove()
+    step = make_eval_step(settings, model=model)
+    labels = torch.zeros(n, h, w, dtype=torch.int32, device="cuda")
+    step(images, labels)
+    torch.cuda.synchronize()
+    fbn.fused_bn_eval.launches = fbn.fused_bn_eval.layout_copies = 0
+    step(images, labels)
+    torch.cuda.synchronize()
+    counted = fbn.fused_bn_eval.launches, fbn.fused_bn_eval.layout_copies
+    del model, step, images
+    torch.cuda.empty_cache()
+    return calls, counted
+
+
+def bn_eval_inputs(n, c, h, w, residual, dtype, seed):
+    """x (and a residual) NCHW in channels_last memory, x around a
+    per-channel mean in [-1, 1) with a per-channel variance in [0.1, 3.1)
+    that the running statistics hold; f32 scale in [0.5, 1.5), bias in
+    [-0.5, 0.5)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    mean = torch.rand(c, generator=gen, device="cuda") * 2 - 1
+    var = torch.rand(c, generator=gen, device="cuda") * 3 + 0.1
+
+    def nhwc(sd, mu):
+        values = torch.randn((n, h, w, c), generator=gen, device="cuda") * sd + mu
+        return values.to(dtype).permute(0, 3, 1, 2)
+
+    x = nhwc(var.sqrt(), mean)
+    r = nhwc(1.0, 0.0) if residual else None
+    scale = torch.rand(c, generator=gen, device="cuda") + 0.5
+    bias = torch.rand(c, generator=gen, device="cuda") - 0.5
+    return x, r, (mean, var, scale, bias)
+
+
+def bn_eval_check(n, c, h, w, residual, relu, dtype, seed=0, timed=False):
+    """N3 at one eval-norm call against the plain chain on the same inputs,
+    in both of its forms (the eager operator, the exported program's
+    ``bn_eval.folded`` on the table export folds): the largest distance in
+    units in the last place, the share of elements not bit for bit, one
+    launch counted; with ``timed`` its times beside the plain chain's and
+    the bound of one pass, (x + y [+ residual]) bytes at the card's peak."""
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+
+    x, r, params = bn_eval_inputs(n, c, h, w, residual, dtype, seed)
+    args = (*params, BN_EPS, r, relu)
+    before = fbn.fused_bn_eval.launches
+    got = fbn.fused_bn_eval(x, *args)
+    launches = fbn.fused_bn_eval.launches - before
+    want = fbn.batch_norm_eval_plain(x, *args)
+    mean, var, scale, bias = params
+    table = torch.stack([mean, torch.rsqrt(var + BN_EPS) * scale, bias])
+    folded = torch.ops.iv2019.bn_eval.folded(x, table, r, relu)
+    torch.cuda.synchronize()
+    row = dict(n=n, C=c, h=h, w=w, residual=residual, relu=relu, dtype=str(dtype).split(".")[1],
+               launches=launches, layout_equal=got.stride() == x.stride())
+    for key, out in (("", got), ("folded_", folded)):
+        row[key + "ulps_max"] = float(ulps_off(out, want).max())
+        row[key + "not_bitwise"] = float((out != want).float().mean())
+    del got, want, folded
+    row["ok"] = (launches == 1 and row["layout_equal"]
+                 and max(row["ulps_max"], row["folded_ulps_max"]) <= N3_MAX_ULPS
+                 and max(row["not_bitwise"], row["folded_not_bitwise"]) <= N3_MAX_NOT_BITWISE)
+    if timed:
+        runs = 10 if x.numel() > 2 ** 26 else 30
+        tensors = 3 if residual else 2
+        row.update(ms=time_ms(lambda: fbn.fused_bn_eval(x, *args), runs=runs),
+                   device_ms=device_ms(lambda: fbn.fused_bn_eval(x, *args), runs=runs),
+                   plain_ms=time_ms(lambda: fbn.batch_norm_eval_plain(x, *args), runs=runs),
+                   bound_ms=tensors * x.numel() * x.element_size() / PEAK_BYTES_PER_S * 1e3)
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+    return row
+
+
+def bn_eval_kernels():
+    """N3 (phase 2): at every distinct eval-norm call of one forward of
+    each eval cell's model (``N3_EVAL_CELLS``), in bf16 and timed, again in
+    f32, both forms against the plain chain (``N3_MAX_ULPS``,
+    ``N3_MAX_NOT_BITWISE``); N3's launches in an eval step of each, which
+    must be ``N3_STEP_LAUNCHES`` with no layout copy. Returns the kernel
+    line's N3 entry: times launch-weighted over both cells' calls."""
+    rows, checks, launches, problems = [], [], {}, []
+    for cell, fields in N3_EVAL_CELLS:
+        calls, (launched, copies) = eval_norm_calls(fields)
+        launches[cell] = launched
+        if launched != N3_STEP_LAUNCHES[cell] or launched != sum(calls.values()) or copies:
+            problems.append(f"{cell}: {launched} N3 launches and {copies} layout copies in an "
+                            f"eval step, expected {N3_STEP_LAUNCHES[cell]} and 0 "
+                            f"({sum(calls.values())} eval norms in a forward)")
+        for (shape, residual, relu), count in sorted(calls.items()):
+            row = bn_eval_check(*shape, residual, relu, torch.bfloat16, seed=len(rows),
+                                timed=True)
+            row.update(cell=cell, calls=count)
+            log(f"kernel fused_bn_eval {json.dumps(row)}")
+            rows.append(row)
+            checks.append(bn_eval_check(*shape, residual, relu, torch.float32,
+                                        seed=len(checks)))
+            torch.cuda.empty_cache()
+    log(f"kernel fused_bn_eval checks (f32): {json.dumps(checks)}")
+    problems.extend(r for r in rows + checks if not r["ok"])
+    if problems:
+        raise AssertionError(f"N3 departs from the plain chain or its counts: {problems}")
+    weight = sum(r["calls"] for r in rows)
+
+    def mean(key):
+        return sum(r[key] * r["calls"] for r in rows) / weight
+
+    out = dict(name="fused_bn_eval", replaces=N3_REPLACES, route="cuda",
+               source="iv2019_tpu_torch/csrc/fused_bn.cu", launches=launches,
+               ulps_max=max(r[k] for r in rows + checks for k in ("ulps_max", "folded_ulps_max")),
+               not_bitwise_max=max(r[k] for r in rows + checks
+                                   for k in ("not_bitwise", "folded_not_bitwise")),
+               ms=mean("ms"), device_ms=mean("device_ms"), plain_ms=mean("plain_ms"),
+               bound_ms=mean("bound_ms"), bound_by="bytes",
+               bound_share=mean("bound_ms") / mean("device_ms"),
+               under_plain=all(r["ms"] <= r["plain_ms"] for r in rows),
+               per_shape=rows, checks=checks)
+    log(f"kernel fused_bn_eval ms {out['ms']:.4f} device {out['device_ms']:.4f} plain "
+        f"{out['plain_ms']:.4f} bound {out['bound_ms']:.4f} (share {out['bound_share']:.3f}), "
+        f"ulps {out['ulps_max']}, not bit for bit {out['not_bitwise_max']:.2e}, eval-step "
+        f"launches {launches}, launch-weighted over {weight} calls")
     return out
 
 
@@ -4194,8 +4395,9 @@ def stop(proc):
 
 
 def _program_check(key, paths, want):
-    """The exported program's fused-unit operator nodes (``want``), no
-    arithmetic on the weights alone, no ``rsqrt`` in its graph."""
+    """The exported program's operator nodes (``want``: the fused units and
+    ``bn_eval``, one a norm they leave), no arithmetic on the weights alone,
+    no ``rsqrt`` in its graph."""
     from iv2019_tpu_torch.tools import export_model as em
 
     program = torch.export.load(paths["program"])
@@ -4223,16 +4425,17 @@ def export_serve_phase(cli, device, export):
     # both compiles done before anything is timed
     exported = {key: collect_export(export, key, t_phase) for key in ("fused", "unfused")}
     out = {}
-    for key, dtype, want in (("fused", "uint8", SERVE_UNITS),
-                             ("unfused", "float32", dict.fromkeys(SERVE_UNITS, 0))):
+    for key, dtype, units in (("fused", "uint8", SERVE_UNITS),
+                              ("unfused", "float32", dict.fromkeys(SERVE_UNITS, 0))):
         paths = exported[key]
-        graph = _program_check(key, paths, want)
+        norms = FLAGSHIP_BATCH_NORMS - 3 * sum(units.values())
+        graph = _program_check(key, paths, {**units, "bn_eval": norms})
         report = serving.serve(paths["package"], shape, iters=SERVE_ITERS, input_dtype=dtype)
         runs = SERVE_ITERS + 1  # the warm-up too
-        launched = report["detail"]["op_launches"]
-        if launched != {k: v * runs for k, v in want.items()}:
+        launched = report["detail"]["op_launches"]  # the loader counts the fused units'
+        if launched != {k: v * runs for k, v in units.items()}:
             raise AssertionError(f"{key}: the loader launched {launched} in {runs} executes, "
-                                 f"expected {want} each")
+                                 f"expected {units} each")
         out[key] = dict(export_s=paths["seconds"]["export"],
                         compile_s=paths["seconds"]["compile"],
                         package_mb=os.path.getsize(paths["package"]) / 1e6,
@@ -4798,6 +5001,8 @@ def _phases(work):
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     results = _timed(times, "2 kernels", kernel_phase, device)
+    # N3 runs in eval forwards alone: its launches are its own phase's eval steps
+    n3 = _timed(times, "2 eval norms", bn_eval_kernels)
     state, launches = _timed(times, "3 predict", predict_phase, device, REQUESTS)
     cli = _timed(times, "4 cli", cli_phase, state, work)
     del state
@@ -4865,6 +5070,7 @@ def _phases(work):
         if r["name"] in eval_launches:
             # B4/B5 on the evaluation path: the --eval_all_ckpts sweep
             r["eval_launches"] = eval_launches[r["name"]]
+    results.append(n3)
     log("chip_smoke: phase times (s) " + json.dumps(times))
     log(f"chip_smoke: {time.time() - t0:.1f} s from the build to the end")
     log(json.dumps({"kernels": results}))

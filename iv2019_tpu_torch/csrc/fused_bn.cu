@@ -1,12 +1,17 @@
-// Train-mode BatchNorm, forward (N1) and backward (N2), for sm_90a.
+// BatchNorm for sm_90a: train mode, forward (N1) and backward (N2), and
+// eval mode on the running statistics (N3).
 //
-// Replaces no Pallas kernel. It is the counterpart of the plain-JAX custom
-// VJP ``batch_norm_train`` of iv2019_tpu/ops/fused_bn.py:52, which the JAX
+// None replaces a Pallas kernel. N1/N2 are the counterpart of the plain-JAX
+// custom VJP ``batch_norm_train`` of iv2019_tpu/ops/fused_bn.py:52, which the JAX
 // package runs under ``bn_impl="fused"`` (models/layers.py: Norm ->
 // FusedBatchNorm) on an exact f32 upcast of the compute-type activation.
 // These kernels read that activation as it is (bf16 or f32), keep the
 // statistics and every sum in f32 or wider, and write y and dx back in the
-// activation's type, so no f32 copy of x is made or saved.
+// activation's type, so no f32 copy of x is made or saved. N3 is the eval
+// BatchNorm of the same Norm (flax's ``use_running_average``), where XLA
+// fuses the cast, the normalisation, the ReLU and a bottleneck unit's
+// residual add into the neighbouring ops: in eager PyTorch they were five
+// f32 passes a layer and two bf16 ones.
 //
 // What they compute, per channel c over the M = N * H * W rows of x, laid
 // out (M, C) with channels contiguous (the NHWC storage of a channels_last
@@ -23,14 +28,23 @@
 //                       bias gradients (the wrapper all-reduces a copy);
 //                       elementwise: dx = (scale * rstd)
 //                                    * (dy - dbeta / m - xhat * (dgamma / m))
-// in JAX's association (fused_bn.py:63-64, :82-85). The variance is JAX's
+//   N3  bn_eval_kernel  elementwise on the running mean and var: in f32
+//                       y = (x - mean) * (rsqrt(var + eps) * scale) + bias,
+//                       rounded to x's type; with a residual r (x's type)
+//                       y = r + y in f32, rounded again; then max(y, 0)
+//                       where asked (NaN kept)
+// N1/N2 in JAX's association (fused_bn.py:63-64, :82-85). The variance is JAX's
 // single-pass E[x^2] - E[x]^2, clamped at 0 (not Welford); a channel of
 // constant input takes the unclamped branch in the backward, as JAX's does.
+// N3 in the order and with the roundings of the plain PyTorch chain it
+// replaces (ops/fused_bn.py::batch_norm_eval_plain: the per-channel factor,
+// then one ATen op a step, then ATen's bf16 add and ReLU).
 //
 // What bounds them on the H100: bytes. The least is one pass: x (and dy)
 // read once, y (dx) written once, 2 x sizeof(T) bytes an element in N1 and
-// 3 x sizeof(T) in N2 (4 and 6 in bf16). The algorithm reads x (and dy) a
-// second time after the statistics, so from HBM it moves up to 3 and 5 x
+// 3 x sizeof(T) in N2 (4 and 6 in bf16); N3 2 x sizeof(T), 3 x sizeof(T)
+// with a residual, and it does move just that. N1/N2 read x (and dy) a
+// second time after the statistics, so from HBM they move up to 3 and 5 x
 // sizeof(T); a few f32 operations an element are far below the ~20 FLOP a
 // byte at which f32 arithmetic would bound it. The design, against what
 // held the first version (two kernels and a combine a half) back:
@@ -63,6 +77,14 @@
 // - Reads of the sums: each block reads its channel tile's sums once into
 //   shared memory; a read by every thread queued at the L2 slices that hold
 //   them.
+// - N3 is one pass and no reduction, so it takes an ordinary launch: a
+//   grid of as many blocks as the card holds at once (the occupancy query,
+//   asked once a device and instantiation) over the same channel tiles,
+//   each thread walking its channel vector down the rows with a grid
+//   stride; its per-channel factors computed once a thread, in registers;
+//   kEvalStages rows of x (and of the residual) loaded before the first is
+//   stored. The vector width follows C and the pointers as in N1/N2, so the
+//   heads' 3, 7, 14 and 53 channels and PSP's bins take narrower loads.
 //
 // Accuracy and determinism. A thread sums its own rows in order as a
 // compensated (Kahan) f32 sum; the block adds its row lanes in a fixed tree
@@ -80,14 +102,18 @@
 // count, mean, var, rstd; N2: dbias, dscale), the f64 partials (splits x
 // 2C) from ``partials_at``.
 //
-// Plain C interface (no PyTorch headers), loaded with ctypes by
-// iv2019_tpu_torch/ops/fused_bn.py. Each entry point returns the launch's
+// Plain C interface (no PyTorch headers). N1/N2 are loaded with ctypes by
+// iv2019_tpu_torch/ops/fused_bn.py; N3 (iv_bn_eval) is called by the
+// operator iv2019::bn_eval of csrc/torch_ops.cpp, the route of eager calls
+// and of exported programs alike. Each entry point returns the launch's
 // CUDA error, or -1 for a mode, type or vector width it does not take.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <initializer_list>
 #include <utility>
 
 namespace cg = cooperative_groups;
@@ -99,6 +125,8 @@ constexpr int kLanes = 8;  // values a combine group covers
 constexpr int kSlices = kThreads / kLanes;  // ranges of splits it adds in parallel
 constexpr int kFwdStages = 8;  // rows loaded before the first is added, N1
 constexpr int kBwdStages = 4;  // N2, each of x and dy
+constexpr int kEvalStages = 4;  // N3, each of x and the residual
+constexpr int kMaxDevices = 64;  // N3's occupancy answers kept a process
 
 enum Mode : int { kOneLaunch = 0, kReduce = 1, kApply = 2 };
 
@@ -487,6 +515,80 @@ bn_bwd_kernel(int mode, const T* __restrict__ x, const T* __restrict__ dy,
   });
 }
 
+// A value's rounding to T, back in f32.
+template <typename T>
+__device__ __forceinline__ float rounded(float v) {
+  return widen(narrow<T>(v));
+}
+
+// ATen's ReLU: max(v, 0), a NaN kept.
+__device__ __forceinline__ float relu_of(float v) { return isnan(v) ? v : fmaxf(v, 0.0f); }
+
+// N3: a thread's channel vector (blockIdx.x's tile of tc vectors, lane tx)
+// down rows blockIdx.y * tr + ty, then gridDim.y * tr further each time.
+template <typename T, int V, bool Res>
+__global__ void __launch_bounds__(kThreads, 2)
+bn_eval_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+               const float* __restrict__ var, const float* __restrict__ scale,
+               const float* __restrict__ bias, float eps, const T* __restrict__ residual,
+               int relu, T* __restrict__ y, long long m, int c, int tc) {
+  using P = Pack<T, V>;
+  using Raw = typename P::Raw;
+  const int tx = threadIdx.x % tc;
+  const int ty = threadIdx.x / tc;
+  const int tr = kThreads / tc;
+  const int c0 = (blockIdx.x * tc + tx) * V;
+  if (c0 >= c) return;
+  // the plain chain's per-channel factor: rsqrt(var + eps), then * scale;
+  // with no var, scale is that factor already (an exported program's table)
+  float mu[V], mul[V], add[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int ch = c0 + j;
+    mu[j] = mean[ch];
+    mul[j] = var ? __fmul_rn(rsqrtf(__fadd_rn(var[ch], eps)), scale[ch]) : scale[ch];
+    add[j] = bias[ch];
+  }
+  const long long cv = c / V;  // a row, in vectors
+  const long long stride = static_cast<long long>(gridDim.y) * tr;
+  const Raw* xs = reinterpret_cast<const Raw*>(x + c0);
+  const Raw* rs = Res ? reinterpret_cast<const Raw*>(residual + c0) : nullptr;
+  for (long long r0 = static_cast<long long>(blockIdx.y) * tr + ty; r0 < m;
+       r0 += kEvalStages * stride) {
+    Raw xr[kEvalStages], rr[Res ? kEvalStages : 1];
+#pragma unroll
+    for (int u = 0; u < kEvalStages; ++u) {
+      const long long r = r0 + u * stride;
+      if (r < m) {
+        xr[u] = xs[r * cv];
+        if (Res) rr[u] = rs[r * cv];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kEvalStages; ++u) {
+      const long long r = r0 + u * stride;
+      if (r >= m) continue;
+      float v[V];
+      P::unpack(xr[u], v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        v[j] = __fadd_rn(__fmul_rn(__fsub_rn(v[j], mu[j]), mul[j]), add[j]);
+      }
+      if (Res) {
+        float s[V];
+        P::unpack(rr[Res ? u : 0], s);
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[j] = __fadd_rn(s[j], rounded<T>(v[j]));
+      }
+      if (relu) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[j] = relu_of(v[j]);
+      }
+      P::store(y + r * c + c0, v);
+    }
+  }
+}
+
 // One cooperative launch of ``kernel`` on the plan's (tiles, splits) grid:
 // the grid barriers need every block resident, and the launch fails, and
 // does not hang, on a grid the card cannot hold at once.
@@ -505,6 +607,43 @@ cudaError_t launch(void (*kernel)(Exp...), int tiles, int splits, cudaStream_t s
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, std::forward<Act>(args)...);
 }
+
+// N3 on (tiles, splits) blocks, splits as many as fill the card's resident
+// blocks (asked once a device) without more row groups than rows.
+template <typename T, int V, bool Res>
+cudaError_t launch_eval(const T* x, const float* mean, const float* var, const float* scale,
+                        const float* bias, float eps, const T* residual, int relu, T* y,
+                        long long m, int c, cudaStream_t stream) {
+  static std::atomic<int> resident[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int capacity = dev < kMaxDevices ? resident[dev].load(std::memory_order_relaxed) : 0;
+  if (capacity < 1) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bn_eval_kernel<T, V, Res>,
+                                                          kThreads, 0);
+    }
+    if (err != cudaSuccess) return err;
+    capacity = per_sm * sms > 1 ? per_sm * sms : 1;
+    if (dev < kMaxDevices) resident[dev].store(capacity, std::memory_order_relaxed);
+  }
+  const int cv = c / V;
+  int tc = 1;
+  while (tc < cv && tc < 32) tc *= 2;
+  const int tiles = (cv + tc - 1) / tc;
+  const long long tr = kThreads / tc;
+  long long splits = capacity / tiles;
+  const long long groups = (m + tr - 1) / tr;
+  if (splits > groups) splits = groups;
+  if (splits < 1) splits = 1;
+  bn_eval_kernel<T, V, Res><<<dim3(tiles, static_cast<unsigned>(splits)), kThreads, 0, stream>>>(
+      x, mean, var, scale, bias, eps, residual, relu, y, m, c, tc);
+  return cudaGetLastError();
+}
+
 
 int finish(cudaError_t err) {
   const cudaError_t last = cudaGetLastError();
@@ -580,5 +719,42 @@ extern "C" int iv_bn_bwd(int mode, int dtype, int vec, const void* x, const void
                static_cast<T*>(dx), ws, m, c, tc, split_rows, partials_at)
   IV_BN_DISPATCH(IV_BN_BWD)
 #undef IV_BN_BWD
+  return finish(err);
+}
+
+// N3: y (M, C) of x (M, C), both of ``dtype``, on the running statistics
+// and f32 parameters (C each), plus ``residual`` (x's type and layout, or
+// null), with ``relu`` non-zero a ReLU last. A null ``var`` takes ``scale``
+// as the factor rsqrt(var + eps) * scale itself (eps unused). The load
+// width is the widest that C and the three pointers allow. Nothing to do
+// for M = 0.
+extern "C" int iv_bn_eval(int dtype, const void* x, const float* mean, const float* var,
+                          const float* scale, const float* bias, float eps,
+                          const void* residual, int relu, void* y, long long m, int c,
+                          cudaStream_t stream) {
+  if (c < 1 || m < 0 || (dtype != 0 && dtype != 1)) return -1;
+  if (m == 0) return 0;
+  const int itemsize = dtype == 0 ? 4 : 2;
+  int align = 16;
+  for (const void* p : {x, residual, static_cast<const void*>(y)}) {
+    while (p && reinterpret_cast<unsigned long long>(p) % align) align /= 2;
+  }
+  int vec = 1;
+  for (int v : {8, 4, 2}) {
+    if (v * itemsize <= 16 && c % v == 0 && align % (v * itemsize) == 0) {
+      vec = v;
+      break;
+    }
+  }
+  cudaError_t err = cudaSuccess;
+#define IV_BN_EVAL(T, V)                                                                   \
+  err = residual                                                                          \
+            ? launch_eval<T, V, true>(static_cast<const T*>(x), mean, var, scale, bias, eps, \
+                                      static_cast<const T*>(residual), relu,               \
+                                      static_cast<T*>(y), m, c, stream)                    \
+            : launch_eval<T, V, false>(static_cast<const T*>(x), mean, var, scale, bias,   \
+                                       eps, nullptr, relu, static_cast<T*>(y), m, c, stream)
+  IV_BN_DISPATCH(IV_BN_EVAL)
+#undef IV_BN_EVAL
   return finish(err);
 }

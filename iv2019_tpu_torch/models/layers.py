@@ -24,7 +24,12 @@ as ``conv.weight`` (OIHW) and ``norm/BatchNorm/<leaf>`` as ``norm.<leaf>``
   single-pass statistics and the classic two-reduction backward, on the
   compute-type activation (kernels N1/N2 on the card), over every rank's
   rows when there are several; eval mode, group norm and ``"none"`` ignore
-  it, as in JAX.
+  it, as in JAX. A norm may end with a residual add and a ReLU
+  (``relu(norm(x) + residual)``, a unit's last norm with its shortcut, or
+  conv_norm_relu's ReLU): in eval mode batch norm does the three in one
+  pass on the card (kernel N3, ``ops/fused_bn.py::fused_bn_eval``), which
+  raises on what it does not take, and as the plain chain of separate ops
+  on the CPU (bit for bit what it was).
   ``norm_type="group"`` is flax GroupNorm (``min(groups, C)`` groups,
   f32, the same in both modes, no running statistics), its parameters
   named ``scale`` and ``bias`` as flax's (weight decay applies to
@@ -45,6 +50,8 @@ BatchNorm needs nothing more: its sums already run over every rank.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -78,7 +85,10 @@ class Norm(nn.Module):
     ``GroupNorm`` variables); batch norm's mode follows ``module.train()`` /
     ``module.eval()``. ``update_stats`` False keeps the running statistics
     where they are in train mode (a recomputed forward, models/resnet.py).
-    ``bn_impl`` "fused" runs train-mode batch norm as ops/fused_bn.py."""
+    ``bn_impl`` "fused" runs train-mode batch norm as ops/fused_bn.py.
+    The forward's ``residual`` and ``relu`` end the norm with
+    ``relu(y + residual)``; eval-mode batch norm runs all three as
+    ops/fused_bn.py's N3 on a CUDA tensor."""
 
     def __init__(self, channels: int, epsilon: float = 1e-5, decay: float = 0.9,
                  norm_type: str = "batch", groups: int = 32, bn_impl: str = "flax"):
@@ -99,7 +109,18 @@ class Norm(nn.Module):
             self.register_buffer("mean", torch.zeros(channels))
             self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                relu: bool = False) -> torch.Tensor:
+        if self.norm_type == "batch" and not self.training:
+            run = fused_bn.fused_bn_eval if x.is_cuda else fused_bn.batch_norm_eval_plain
+            return run(x, self.mean, self.var, self.scale, self.bias, self.epsilon, residual,
+                       relu)
+        y = self._norm(x)
+        if residual is not None:
+            y = residual + y
+        return torch.relu(y) if relu else y
+
+    def _norm(self, x: torch.Tensor) -> torch.Tensor:
         if self.norm_type == "none":
             return x
         if self.norm_type == "group":
@@ -110,11 +131,7 @@ class Norm(nn.Module):
             else:
                 y = F.group_norm(x.float(), self.num_groups, self.scale, self.bias, self.epsilon)
             return y.to(x.dtype)
-        if self.training:
-            return self._train(x)
-        mul = torch.rsqrt(self.var + self.epsilon) * self.scale
-        y = (x.float() - self.mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(x.dtype)
+        return self._train(x)
 
     def _train(self, x: torch.Tensor) -> torch.Tensor:
         mesh = pmesh.norm_mesh()
@@ -250,7 +267,9 @@ class ConvNormRelu(nn.Module):
 
     ``activation=False`` still applies the norm, as the reference's logit
     heads do. ``feature_group_count`` splits the conv into that many groups;
-    ``groups`` is the group norm's, ``bn_impl`` the batch norm's.
+    ``groups`` is the group norm's, ``bn_impl`` the batch norm's. A
+    ``residual`` (a unit's shortcut) is added after the norm, and a ReLU
+    follows it whatever ``activation``: ``relu(norm(conv(x)) + residual)``.
     """
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1, rate: int = 1,
@@ -263,10 +282,10 @@ class ConvNormRelu(nn.Module):
         self.conv = Conv(cin, cout, kernel_size, feature_group_count)
         self.norm = Norm(cout, norm_type=norm_type, groups=groups, bn_impl=bn_impl)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.norm(conv_same(x.to(self.dtype), self.conv.weight, self.stride, self.rate,
-                                self.feature_group_count))
-        return torch.relu(y) if self.activation else y
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        y = conv_same(x.to(self.dtype), self.conv.weight, self.stride, self.rate,
+                      self.feature_group_count)
+        return self.norm(y, residual, self.activation or residual is not None)
 
     def folded(self):
         """(kernel, bias) with the norm folded in, both f32 (kernel OIHW)."""
@@ -351,8 +370,8 @@ class BottleneckV1(nn.Module):
             shortcut = x if self.stride == 1 else x[:, :, :: self.stride, :: self.stride]
         else:
             shortcut = self.shortcut(x)
-        residual = self.conv3(self.conv2(self.conv1(x)))
-        return torch.relu(shortcut + residual)
+        # relu(shortcut + conv3's norm): in eval mode one pass of N3 on the card
+        return self.conv3(self.conv2(self.conv1(x)), residual=shortcut)
 
     def _fused(self, kernel, x: torch.Tensor) -> torch.Tensor:
         bf = torch.bfloat16

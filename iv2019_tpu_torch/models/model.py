@@ -262,9 +262,10 @@ class HierarchicalSegmentationModel(nn.Module):
         # the branch kernels along its outputs, the shortcut is x three times,
         # and the head outputs are padded to a common width per group
         y = x
-        for i in (1, 2, 3):
+        for i in (1, 2):
             y = self.get_submodule(f"adaptation_module/fused/conv{i}")(y)
-        feats = torch.relu(torch.cat([x, x, x], 1) + y)
+        feats = self.get_submodule("adaptation_module/fused/conv3")(
+            y, residual=torch.cat([x, x, x], 1))
         logits = self.get_submodule("softmax_classifier/fused_logits")(feats)
         hw = self.head_width
         return [logits[:, i * hw:i * hw + n] for i, n in enumerate(self.widths)]

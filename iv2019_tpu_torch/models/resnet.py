@@ -230,7 +230,7 @@ class ResNetV1(nn.Module):
         return [self.get_submodule(n) for n in self.unit_names]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = max_pool_same(torch.relu(self.conv1_norm(self.conv1(x))), 3, 2)
+        x = max_pool_same(self.conv1_norm(self.conv1(x), relu=True), 3, 2)
         remat = self.remat and torch.is_grad_enabled()
         for unit in self.units():
             x = _remat(unit, x) if remat else unit(x)

@@ -7,11 +7,12 @@ sources have a plain C interface (no PyTorch headers), which keeps a build
 to seconds. All sources start compiling together.
 
 ``csrc/torch_ops.cpp``, the operator library that registers the fused-unit
-kernels with PyTorch, compiles with ``g++`` against the installed torch's
-headers and libraries (``build_ops``): the schema alone where torch has no
-CUDA, the schema and the CUDA implementation, linked against the kernels'
-library, where it has. Every build writes a temporary file of its own
-process and renames it over the final name, so processes may race.
+kernels and eval-mode BatchNorm with PyTorch, compiles with ``g++`` against
+the installed torch's headers and libraries (``build_ops``): the schemas
+alone where torch has no CUDA, and the CUDA implementations too, linked
+against the kernels' libraries, where it has.
+Every build writes a temporary file of its own process and renames it over
+the final name, so processes may race.
 
 Nothing here runs when the module is imported: the CPU test environment has
 no nvcc.
@@ -133,22 +134,25 @@ def compile_cxx(sources, out: Path, flags) -> Path:
 def build_ops() -> Path:
     """The operator library of ``csrc/torch_ops.cpp``, built if missing.
 
-    Where torch was built with CUDA it carries the CUDA implementation
+    Where torch was built with CUDA it carries the CUDA implementations
     (compiled with the toolkit's headers) and links against the kernels'
-    library, built first if needed; elsewhere it holds the schema alone.
-    Named by a hash of the source, the flags and the torch version."""
+    libraries, built first if needed; elsewhere it holds the schemas
+    alone. Named by a hash of the source, the flags
+    (which name the kernels' libraries, themselves named by their sources'
+    hashes) and the torch version."""
     import torch
 
     source = CSRC_DIR / "torch_ops.cpp"
     with_cuda = torch.version.cuda is not None
     flags = [*CXX_FLAGS, *torch_link_flags(with_cuda)]
     if with_cuda:
-        kernels = _library_path(CSRC_DIR / "fused_bottleneck.cu")
-        if not kernels.exists():
+        kernels = [_library_path(CSRC_DIR / f"{stem}.cu") for stem in ("fused_bottleneck",
+                                                                         "fused_bn")]
+        if not all(k.exists() for k in kernels):
             build_all()
         cuda_include = Path(_nvcc()).resolve().parents[1] / "include"
-        flags = ["-DIV2019_CUDA", f"-I{cuda_include}", *flags, str(kernels),
-                 f"-Wl,-rpath,{kernels.parent}"]
+        flags = ["-DIV2019_CUDA", f"-I{cuda_include}", *flags, *map(str, kernels),
+                 f"-Wl,-rpath,{BUILD_DIR}"]
     digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()
                             + torch.__version__.encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"libtorch_ops_{digest}.so"

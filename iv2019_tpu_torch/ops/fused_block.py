@@ -283,17 +283,26 @@ def _op_fake(x, w1, b1, w2, b2, w3, b3, rate, plan):
     return x.new_empty(x.shape)
 
 
+# bn_eval's output has x's strides (channels_last), as its CUDA
+# implementations allocate it (csrc/torch_ops.cpp), in either form
+def _bn_eval_fake(x, *_):
+    return torch.empty_like(x)
+
+
 @functools.lru_cache(maxsize=None)
 def ops_library() -> str:
     """Load the operator library (``_build.build_ops``, built at first use)
     into this process and register the CPU and fake implementations of its
-    two operators; returns the library's path. Raises if it cannot be
-    built or loaded."""
+    two fused-unit operators and the fake ones of ``iv2019::bn_eval`` and
+    ``bn_eval.folded`` (ops/fused_bn.py; the card alone runs them); returns
+    the library's path. Raises if it cannot be built or loaded."""
     path = str(_build.build_ops())
     torch.ops.load_library(path)
     for name in OP_NAMES:
         torch.library.register_fake(f"iv2019::{name}")(_op_fake)
         torch.library.impl(f"iv2019::{name}", "CPU")(_op_cpu)
+    for name in ("bn_eval", "bn_eval.folded"):
+        torch.library.register_fake(f"iv2019::{name}")(_bn_eval_fake)
     return path
 
 

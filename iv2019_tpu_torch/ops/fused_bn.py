@@ -1,4 +1,5 @@
-"""Train-mode BatchNorm with the classic two-reduction backward: kernels N1, N2.
+"""BatchNorm on the card: train mode with the classic two-reduction backward
+(kernels N1, N2), and eval mode on the running statistics (kernel N3).
 
 Port of iv2019_tpu/ops/fused_bn.py, the JAX package's ``bn_impl="fused"``:
 per channel over every non-channel axis, ``mean = E[x]``, ``var = max(0,
@@ -39,11 +40,29 @@ scale)`` (and the row count) and no f32 copy of x.
   mesh two cooperative launches of the same kernel on the same grid, with
   the all-reduce between them.
 
+Eval mode (N3; the JAX package's Norm with ``use_running_average``, whatever
+``bn_impl``): ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32
+on the activation as it is, rounded to its type, then, where asked, a
+residual of that type added (in f32, rounded again) and a ReLU: the end of
+a conv_norm_relu, or of a bottleneck unit with its shortcut.
+
+- ``batch_norm_eval_plain``: that function as the plain PyTorch chain the
+  port has always run, op for op (the per-channel factor, then one op a
+  step); ``Norm`` runs it on CPU tensors, bit for bit what it was.
+- ``fused_bn_eval``: N3 of ``csrc/fused_bn.cu`` through the operator
+  ``torch.ops.iv2019.bn_eval`` (``csrc/torch_ops.cpp``, loaded by
+  ``fused_block.ops_library``), one launch and one pass over x, for every
+  eval-mode batch norm of a CUDA tensor; under ``torch.export`` its folded
+  form ``bn_eval.folded``, so that an exported program holds the norm as
+  one node on constants and computes nothing from the weights per
+  request.
+
 Counters: ``fused_bn_fwd.launches`` and ``fused_bn_bwd.launches`` add one
 for each run of N1 and N2 on the card, of one launch or of two (one each a
-BatchNorm layer a microbatch); ``batch_norm_train.layout_copies`` counts the inputs (x
-forward, dy backward) that were not channels_last and were copied to it,
-on either device.
+BatchNorm layer a microbatch); ``fused_bn_eval.launches`` one for each N3
+launch (not under export); ``batch_norm_train.layout_copies`` counts the
+inputs (x forward, dy backward) that were not channels_last and were copied
+to it, on either device, ``fused_bn_eval.layout_copies`` N3's x.
 """
 
 from __future__ import annotations
@@ -58,8 +77,9 @@ import torch
 from iv2019_tpu_torch.ops import _build
 from iv2019_tpu_torch.parallel import mesh as pmesh
 
-__all__ = ["BnPlan", "batch_norm_backward_plain", "batch_norm_train", "batch_norm_train_plain",
-           "batch_stats", "bn_plan", "bn_vec", "fused_bn_bwd", "fused_bn_fwd", "launch_plan"]
+__all__ = ["BnPlan", "batch_norm_backward_plain", "batch_norm_eval_plain", "batch_norm_train",
+           "batch_norm_train_plain", "batch_stats", "bn_plan", "bn_vec", "fused_bn_bwd",
+           "fused_bn_eval", "fused_bn_fwd", "launch_plan"]
 
 _DIMS = (0, 2, 3)
 _THREADS = 256
@@ -130,6 +150,19 @@ def batch_norm_backward_plain(x, dy, mean, rstd, scale, count):
     c = x.shape[1]
     sums = _bwd_sums_plain(x, dy, mean, rstd)
     return _dx_plain(x, dy, mean, rstd, scale, sums, count), sums[c:], sums[:c]
+
+
+def batch_norm_eval_plain(x, mean, var, scale, bias, epsilon: float, residual=None,
+                          relu: bool = False):
+    """N3's function in plain PyTorch: ``relu(residual + y)`` of the
+    eval-mode norm ``y`` of NCHW ``x`` on the running statistics, y rounded
+    to x's type before the add (each optional part where given)."""
+    mul = torch.rsqrt(var + epsilon) * scale
+    y = (x.float() - mean[:, None, None]) * mul[:, None, None] + bias[:, None, None]
+    y = y.to(x.dtype)
+    if residual is not None:
+        y = residual + y
+    return torch.relu(y) if relu else y
 
 
 # -- the kernels ----------------------------------------------------------------------------
@@ -379,8 +412,74 @@ def fused_bn_bwd(x, dy, mean, rstd, scale, count, mesh=None, _split: bool = Fals
     return dx, dscale, dbias
 
 
+class _BnEval(torch.autograd.Function):
+    """N3 where autograd wants a gradient of it (the operator has no
+    derivative): the kernel's forward, and the plain chain's backward,
+    recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, mean, var, scale, bias, epsilon, residual, relu):
+        ctx.save_for_backward(x, mean, var, scale, bias, residual)
+        ctx.epsilon, ctx.relu = epsilon, relu
+        return torch.ops.iv2019.bn_eval(x, mean, var, scale, bias, epsilon, residual, relu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        needs = (*ctx.needs_input_grad[:5], ctx.needs_input_grad[6])
+        inputs = [t if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, needs)]
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        with torch.enable_grad():
+            y = batch_norm_eval_plain(*inputs[:5], ctx.epsilon, inputs[5], ctx.relu)
+            grads = iter(torch.autograd.grad(y, wanted, dy))
+        dx, dmean, dvar, dscale, dbias, dres = (
+            next(grads) if t is not None and t.requires_grad else None for t in inputs)
+        return dx, dmean, dvar, dscale, dbias, None, dres, None
+
+
+def fused_bn_eval(x, mean, var, scale, bias, epsilon: float, residual=None,
+                  relu: bool = False):
+    """N3: ``batch_norm_eval_plain``'s function on a CUDA tensor in one
+    launch of the operator ``iv2019::bn_eval``. Raises on another device,
+    on x that is not 4-D f32 or bf16, and (the operator) on parameters that
+    are not f32 of x's channels or a residual unlike x. An x that is not
+    channels_last is copied to it first, counted in
+    ``fused_bn_eval.layout_copies``; a residual that is not (a strided
+    shortcut) too. Under autograd the backward is the plain chain's
+    (``_BnEval``). Under ``torch.export`` the program gets the folded form,
+    ``iv2019::bn_eval.folded``, on a table of the mean, the per-channel
+    factor and the bias, which the export evaluates once."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_bn_eval: kernel N3 runs on the card, not on {x.device}")
+    if x.dim() != 4 or x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"fused_bn_eval: x of {x.dim()} dims in {x.dtype}; N3 takes NCHW "
+                         "float32 or bfloat16")
+    from iv2019_tpu_torch.ops.fused_block import ops_library
+
+    ops_library()
+    exporting = torch.compiler.is_exporting()
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        x = x.contiguous(memory_format=torch.channels_last)
+        if not exporting:
+            fused_bn_eval.layout_copies += 1
+    if residual is not None:
+        residual = residual.contiguous(memory_format=torch.channels_last)
+    if exporting:
+        # computed from the weights alone: a constant of the program
+        table = torch.stack([mean, torch.rsqrt(var + epsilon) * scale, bias])
+        return torch.ops.iv2019.bn_eval.folded(x, table, residual, relu)
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, mean, var, scale, bias, residual))
+    run = _BnEval.apply if grad else torch.ops.iv2019.bn_eval
+    y = run(x, mean, var, scale, bias, epsilon, residual, relu)
+    fused_bn_eval.launches += 1
+    return y
+
+
 fused_bn_fwd.launches = 0
 fused_bn_bwd.launches = 0
+fused_bn_eval.launches = 0
+fused_bn_eval.layout_copies = 0
 
 
 # -- the autograd function --------------------------------------------------------------------

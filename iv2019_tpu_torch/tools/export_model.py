@@ -25,12 +25,15 @@ alone (the BatchNorm folding of the fused units, the eval BatchNorm's
 ``rsqrt(var + eps) * scale``, the casts of the conv kernels to the compute
 dtype, the weight layouts of the fused units) is evaluated once at export
 (``fold_weights``), so no such operation runs per request
-(``weight_only_nodes`` finds any that would). With ``--fused_block`` the
-fused units stay in the program as ``iv2019::fused_bottleneck`` and
+(``weight_only_nodes`` finds any that would). On the card each eval
+BatchNorm is one ``iv2019::bn_eval.folded`` node (ops/fused_bn.py), which
+reads its folded table (mean, factor, bias) and launches kernel N3; on the
+CPU it is the plain chain. With ``--fused_block`` the fused units stay in
+the program as ``iv2019::fused_bottleneck`` and
 ``iv2019::fused_bottleneck_ct`` nodes (ops/fused_block.py), which launch
-the B4/B5 kernels on the card; a process that runs the package loads the
-operator library first (``fused_block.ops_library``, the loader's
-``ops=``).
+the B4/B5 kernels on the card. A process that runs the program or the
+package loads the operator library first (``fused_block.ops_library``, the
+loader's ``ops=``).
 """
 
 from __future__ import annotations
@@ -162,8 +165,9 @@ def weight_only_nodes(program: torch.export.ExportedProgram) -> list[str]:
 
 
 def op_nodes(program: torch.export.ExportedProgram) -> dict[str, int]:
-    """How many nodes of ``program`` call each fused-unit operator."""
-    counts = {"fused_bottleneck": 0, "fused_bottleneck_ct": 0}
+    """How many nodes of ``program`` call each operator of the library:
+    the fused units and ``bn_eval`` (either form)."""
+    counts = {"fused_bottleneck": 0, "fused_bottleneck_ct": 0, "bn_eval": 0}
     for node in program.graph.nodes:
         name = getattr(node.target, "name", lambda: "")()
         if node.op == "call_function" and name.startswith("iv2019::"):
@@ -204,7 +208,7 @@ def compile_package(program_path: str, package_path: str, metadata: dict) -> flo
 
     from iv2019_tpu_torch.ops.fused_block import ops_library
 
-    ops_library()  # the program may call the fused-unit operators
+    ops_library()  # the program calls the library's operators
     program = torch.export.load(program_path)
     t0 = time.perf_counter()
     # emulate_precision_casts: round where the eager program rounds to bf16,

@@ -210,6 +210,16 @@ def test_kernel_line_names_cover_replaces_and_the_n_kernels():
     assert len(cs.REPLACES) == 8
 
 
+def test_n3_replaces_names_the_jax_eval_batch_norm():
+    """N3's row stands for flax's BatchNorm in the JAX Norm, which runs it
+    on the running statistics in eval mode."""
+    path, line = cs.N3_REPLACES.split(":")
+    with open(os.path.join(ROOT, path)) as f:
+        lines = f.read().splitlines()
+    assert lines[int(line) - 1].strip() == "y = nn.BatchNorm("
+    assert "use_running_average=self.use_running_average" in lines[int(line)]
+
+
 @pytest.mark.parametrize("name", sorted(cs.REPLACES))
 def test_replaces_names_a_line_of_the_jax_package(name):
     path, line = cs.REPLACES[name].split(":")

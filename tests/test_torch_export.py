@@ -13,10 +13,13 @@ once at export). The JAX export's signature checks are mirrored
 (tests/test_serving.py::test_export_wire_u8_signature,
 tests/test_resume_export.py::test_stablehlo_export).
 
-The operator library (csrc/torch_ops.cpp) builds here with ``g++``, schema
-only, and the CLI exports a bf16 ``--fused_block`` program at 128x128 from
-a small training run of the port: its graph holds the three fused units of
-the small stack as ``iv2019::fused_bottleneck`` nodes, and its AOTInductor
+The operator library (csrc/torch_ops.cpp) builds here with ``g++``, the
+schemas only, and the CLI exports a bf16 ``--fused_block`` program at
+128x128 from a small training run of the port: its graph holds the three
+fused units of the small stack as ``iv2019::fused_bottleneck`` nodes (and no
+``iv2019::bn_eval`` node: a CPU export keeps the eval BatchNorm's plain
+chain, its factor folded; the card's exports are held in
+tests/test_torch_kernels_gpu.py), and its AOTInductor
 package, run in this process, equals the eager fused forward (decisions on
 every pixel, probabilities within 1e-6: the package rounds to bf16 where
 the eager program does). That is this file's one AOTInductor compile.
@@ -232,13 +235,92 @@ def test_op_schema_registered(ops_path):
                           "Tensor w3, Tensor b3, int rate, int[] plan) -> Tensor")
 
 
+@pytest.mark.parametrize("overload,args", [
+    ("default", "Tensor x, Tensor mean, Tensor var, Tensor scale, Tensor bias, float epsilon, "
+                "Tensor? residual, bool relu"),
+    ("folded", "Tensor x, Tensor table, Tensor? residual, bool relu")])
+def test_bn_eval_schema_registered(ops_path, overload, args):
+    schema = getattr(torch.ops.iv2019.bn_eval, overload)._schema
+    name = "bn_eval" if overload == "default" else "bn_eval.folded"
+    assert str(schema) == f"iv2019::{name}({args}) -> Tensor"
+
+
 def test_op_library_has_no_cuda_implementation_here(ops_path):
-    """Without CUDA the library is the schema alone; its launch counter
-    reads 0 for both operators and -1 for any other index."""
+    """Without CUDA the library is the schemas alone; its launch counter
+    reads 0 for the three operators and -1 for any other index."""
     lib = ctypes.CDLL(ops_path)
     lib.iv_op_launches.restype = ctypes.c_int64
     assert lib.iv_op_has_cuda() == 0
-    assert [lib.iv_op_launches(i) for i in (0, 1, 2)] == [0, 0, -1]
+    assert [lib.iv_op_launches(i) for i in (0, 1, 2, 3)] == [0, 0, 0, -1]
+
+
+def _norm_case(dtype, c=14, seed=0):
+    """x and a residual (channels_last), running statistics and f32
+    parameters of an eval-mode norm."""
+    g = torch.Generator().manual_seed(seed)
+
+    def t(*shape):
+        return torch.randn(*shape, generator=g)
+
+    x = (t(2, c, 5, 7) * 2).to(dtype).contiguous(memory_format=torch.channels_last)
+    residual = t(2, c, 5, 7).to(dtype).contiguous(memory_format=torch.channels_last)
+    return x, residual, t(c) * 0.3, t(c).abs() + 0.5, t(c).abs() + 0.5, t(c) * 0.2
+
+
+@pytest.mark.parametrize("folded", [False, True])
+def test_bn_eval_fake_implementation_gives_x_layout(ops_path, folded):
+    """Both forms trace to x's shape, type and channels_last strides."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode() as mode:
+        x, residual, mean, var, scale, bias = [mode.from_tensor(a)
+                                               for a in _norm_case(torch.bfloat16)]
+        if folded:
+            out = torch.ops.iv2019.bn_eval.folded(x, torch.stack([mean, scale, bias]), residual,
+                                                  True)
+        else:
+            out = torch.ops.iv2019.bn_eval(x, mean, var, scale, bias, 1e-5, residual, True)
+    assert out.shape == x.shape and out.dtype == torch.bfloat16 and out.stride() == x.stride()
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+def test_cpu_export_keeps_the_plain_norm_chain_folded(ops_path, layout):
+    """Under torch.export an eval-mode Norm of a CPU tensor (a strided
+    residual and a ReLU with it) is the plain chain, not the operator: its
+    factor and every weight it reads folded to constants, nothing computed
+    from the weights per request, the eager bits, no launch counted."""
+    from iv2019_tpu_torch.models.layers import Norm
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+
+    class Unit(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.norm = Norm(14).eval()
+
+        def forward(self, x, shortcut):
+            return self.norm(x, shortcut[:, :, ::2, ::2], True)
+
+    unit = Unit()
+    x, residual, mean, var, scale, bias = _norm_case(torch.bfloat16)
+    with torch.no_grad():
+        for name, value in (("mean", mean), ("var", var), ("scale", scale), ("bias", bias)):
+            getattr(unit.norm, name).copy_(value)
+        if layout == "contiguous":
+            x = x.contiguous()
+        shortcut = torch.cat([residual, residual], 3).repeat(1, 1, 2, 1)
+        before = fbn.fused_bn_eval.launches
+        program = torch.export.export(unit, (x, shortcut), strict=False)
+        module = program.module()
+        assert em.fold_weights(module) > 0
+        program = torch.export.export(module, (x, shortcut), strict=False)
+        want = unit(x, shortcut)
+    assert em.op_nodes(program)["bn_eval"] == 0
+    assert em.weight_only_nodes(program) == []
+    assert all(k.startswith("_folded") for k in program.state_dict)
+    assert torch.equal(program.module()(x, shortcut), want)
+    assert torch.equal(want, fbn.batch_norm_eval_plain(x, mean, var, scale, bias, 1e-5,
+                                                       shortcut[:, :, ::2, ::2], True))
+    assert fbn.fused_bn_eval.launches == before
 
 
 def _unit(seed=0, c=128, m=128, hw=(8, 8)):
@@ -287,7 +369,8 @@ def test_export_keeps_the_fused_unit_as_one_node(ops_path):
     args = _unit(seed=1)
     before = fb.fused_bottleneck_ct.launches
     program = torch.export.export(Unit(), args, strict=False)
-    assert em.op_nodes(program) == {"fused_bottleneck": 0, "fused_bottleneck_ct": 1}
+    assert em.op_nodes(program) == {"fused_bottleneck": 0, "fused_bottleneck_ct": 1,
+                                    "bn_eval": 0}
     assert torch.equal(program.module()(*args), fb.bottleneck_plain(*args, rate=1))
     assert fb.fused_bottleneck_ct.launches == before
 
@@ -344,9 +427,11 @@ def test_cli_writes_the_program_graph_and_package(cli):
 
 def test_cli_graph_holds_the_fused_units(cli):
     """SMALL_BLOCKS at 128x128: block2/unit_2, block3/unit_1 and unit_2
-    pass the full-window rule (tests/test_torch_model.py)."""
+    pass the full-window rule (tests/test_torch_model.py); a CPU export's
+    other norms are the plain chain, folded (no bn_eval node)."""
     program = torch.export.load(cli[0]["program"])
-    assert em.op_nodes(program) == {"fused_bottleneck": 3, "fused_bottleneck_ct": 0}
+    assert em.op_nodes(program) == {"fused_bottleneck": 3, "fused_bottleneck_ct": 0,
+                                    "bn_eval": 0}
     assert open(cli[0]["graph"]).read().count("torch.ops.iv2019.fused_bottleneck.default") == 3
     assert em.weight_only_nodes(program) == []
 

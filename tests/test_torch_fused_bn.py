@@ -45,6 +45,16 @@ numpy from a seed and handed to both:
   channels_last (here on the CPU path as on the card), and the results do
   not change.
 
+Eval mode (kernel N3 on the card): on the CPU ``Norm`` computes the plain
+chain it always has, bit for bit (the chain written out here), with a
+residual and a ReLU where its callers hand them over, in bf16 and f32, a
+strided residual included, and launches nothing; ``fused_bn_eval`` refuses
+a tensor off the card; the gradient N3 gives under autograd is the plain
+chain's (checked here through a CPU stand-in for the operator); the
+model's units end on it (a bottleneck unit's output is ``relu(shortcut +
+conv3's norm)``); the operator library's declaration of ``iv_bn_eval``
+matches the source's.
+
 Also the plan the wrapper gives the kernels (``bn_plan``): every row and
 channel covered once, loads no wider than the alignment allows, a grid the
 card holds at once (and a C whose tiles alone it cannot hold refused), the
@@ -509,3 +519,142 @@ def test_entry_argtypes_match_the_source():
         decl = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", source)
         assert decl, name
         assert len(decl.group(1).split(",")) == len(types), name
+
+
+def _eval_chain(x, mean, var, scale, bias, eps, residual, relu):
+    """Eval-mode Norm as the port computed it before kernel N3, then the
+    callers' residual add and ReLU."""
+    mul = torch.rsqrt(var + eps) * scale
+    y = ((x.float() - mean[:, None, None]) * mul[:, None, None] + bias[:, None, None]).to(x.dtype)
+    if residual is not None:
+        y = residual + y
+    return torch.relu(y) if relu else y
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("residual", [None, "channels_last", "strided"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_norm_eval_on_cpu_is_the_plain_chain(dtype, residual, relu):
+    threads()
+    rng = np.random.RandomState(7)
+    c = 24
+    x = _nchw((rng.randn(2, 6, 10, c) * 3).astype(np.float32), dtype)
+    norm = Norm(c).eval()
+    with torch.no_grad():
+        norm.scale.copy_(torch.tensor(rng.uniform(0.5, 1.5, c), dtype=torch.float32))
+        norm.bias.copy_(torch.tensor(rng.uniform(-0.5, 0.5, c), dtype=torch.float32))
+        norm.mean.copy_(torch.tensor(rng.uniform(-1, 1, c), dtype=torch.float32))
+        norm.var.copy_(torch.tensor(rng.uniform(0.1, 4, c), dtype=torch.float32))
+    r = None
+    if residual is not None:
+        big = _nchw(rng.randn(2, 12, 20, c).astype(np.float32), dtype)
+        r = big[:, :, ::2, ::2] if residual == "strided" else big[:, :, :6, :10].contiguous(
+            memory_format=torch.channels_last)
+    before = tbn.fused_bn_eval.launches
+    with torch.no_grad():
+        got = norm(x, r, relu)
+    want = _eval_chain(x, norm.mean, norm.var, norm.scale, norm.bias, norm.epsilon, r, relu)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(tbn.batch_norm_eval_plain(x, norm.mean, norm.var, norm.scale, norm.bias,
+                                                 norm.epsilon, r, relu), want)
+    assert tbn.fused_bn_eval.launches == before
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_fused_bn_eval_runs_on_the_card_alone(device):
+    """N3 has no CPU mode: a tensor off the card is refused (``Norm`` sends
+    it the plain chain instead), and nothing is counted."""
+    c = 8
+    x = torch.empty(2, c, 3, 5, device=device).contiguous(memory_format=torch.channels_last)
+    params = [torch.zeros(c, device=device), torch.ones(c, device=device),
+              torch.ones(c, device=device), torch.zeros(c, device=device)]
+    before = tbn.fused_bn_eval.launches, tbn.fused_bn_eval.layout_copies
+    with pytest.raises(ValueError, match="runs on the card"):
+        tbn.fused_bn_eval(x, *params, 1e-5)
+    assert (tbn.fused_bn_eval.launches, tbn.fused_bn_eval.layout_copies) == before
+
+
+@pytest.mark.parametrize("with_residual,relu", [(False, False), (True, True)])
+def test_bn_eval_gradient_is_the_plain_chains(with_residual, relu):
+    """``_BnEval`` (N3 where autograd asks for a gradient) gives the plain
+    chain's gradients of x, the residual, scale and bias, and none of the
+    running statistics; the operator's forward is stood in for on the CPU
+    by the plain chain, as the card's gives it within an ulp."""
+    from iv2019_tpu_torch.ops.fused_block import ops_library
+
+    threads()
+    ops_library()
+    stand_in = torch.library.Library("iv2019", "IMPL")
+    stand_in.impl("bn_eval", tbn.batch_norm_eval_plain, "CPU")
+    try:
+        rng = np.random.RandomState(11)
+        c = 12
+
+        def leaf(values, grad=True):
+            return torch.tensor(values, dtype=torch.float32).requires_grad_(grad)
+
+        def inputs():
+            x = leaf(rng.randn(2, c, 4, 6) * 2)
+            r = leaf(rng.randn(2, c, 4, 6)) if with_residual else None
+            return (x, leaf(rng.uniform(-1, 1, c), False), leaf(rng.uniform(0.1, 4, c), False),
+                    leaf(rng.uniform(0.5, 1.5, c)), leaf(rng.uniform(-0.5, 0.5, c)), r)
+
+        state = rng.get_state()
+        fused = inputs()
+        rng.set_state(state)
+        plain = inputs()
+        dy = torch.tensor(rng.randn(2, c, 4, 6), dtype=torch.float32)
+        y = tbn._BnEval.apply(*fused[:5], 1e-5, fused[5], relu)
+        want = tbn.batch_norm_eval_plain(*plain[:5], 1e-5, plain[5], relu)
+        assert torch.equal(y, want)
+        y.backward(dy)
+        want.backward(dy)
+        for got, ref in zip(fused, plain):
+            if ref is None:
+                continue
+            assert (got.grad is None) == (ref.grad is None)
+            if ref.grad is not None:
+                assert torch.equal(got.grad, ref.grad)
+        assert fused[1].grad is None and fused[2].grad is None
+    finally:
+        stand_in._destroy()
+
+
+def test_bottleneck_ends_on_its_last_norm_with_the_shortcut():
+    """An unfused unit in eval mode: relu(shortcut + conv3's norm), the
+    stride-2 identity shortcut strided, equal to the chain written out."""
+    from iv2019_tpu_torch.models.layers import BottleneckV1, conv_same
+
+    threads()
+    torch.manual_seed(3)
+    unit = BottleneckV1(16, 16, 8, stride=2, rate=1, dtype=torch.float32)
+    for m in unit.modules():
+        if isinstance(m, Norm):
+            with torch.no_grad():
+                m.mean.uniform_(-0.2, 0.2)
+                m.var.uniform_(0.5, 1.5)
+                m.scale.uniform_(0.5, 1.5)
+    for conv in (unit.conv1, unit.conv2, unit.conv3):
+        torch.nn.init.normal_(conv.conv.weight, std=0.2)
+    unit.eval()
+    x = torch.randn(2, 16, 9, 11).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        got = unit(x)
+        y = x
+        for conv, act in ((unit.conv1, True), (unit.conv2, True), (unit.conv3, False)):
+            n = conv.norm
+            y = _eval_chain(conv_same(y, conv.conv.weight, conv.stride, conv.rate), n.mean,
+                            n.var, n.scale, n.bias, n.epsilon, None, act)
+    assert torch.equal(got, torch.relu(x[:, :, ::2, ::2] + y))
+
+
+def test_torch_ops_declares_iv_bn_eval_as_the_source():
+    """csrc/torch_ops.cpp's declaration of iv_bn_eval has as many
+    parameters as csrc/fused_bn.cu's definition (a missing one would shift
+    every argument after it, and only the card would notice)."""
+    ops = (tbn._build.CSRC_DIR / "torch_ops.cpp").read_text()
+    source = (tbn._build.CSRC_DIR / "fused_bn.cu").read_text()
+    decl = re.search(r"int iv_bn_eval\(([^)]*)\);", ops)
+    defn = re.search(r'extern "C" int iv_bn_eval\(([^)]*)\)', source)
+    assert decl and defn
+    assert len(decl.group(1).split(",")) == len(defn.group(1).split(",")) == 13

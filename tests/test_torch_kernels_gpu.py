@@ -23,7 +23,18 @@ Train-mode BatchNorm (N1/N2, ``bn_impl="fused"``) at ragged channel counts,
 unaligned pointers, block4's and the root's widths, in bf16 and f32, at
 chip_smoke.py's bounds, on the one-launch path and the two-launch path of a
 mesh (bit-equal to each other); two runs on two streams at once and a run
-replayed from a CUDA graph give the bits of the runs alone.
+replayed from a CUDA graph give the bits of the runs alone. Eval-mode
+BatchNorm (N3, ``fused_bn_eval``) against the plain chain it replaces at the
+heads', PSP's and the trunk's widths and maps, with and without a residual
+and a ReLU, on a misaligned slice, in f32 and on NCHW memory (copied, the
+copy counted), in both forms (the eager operator, the exported program's
+folded table): within one ulp of x's type and bit for bit on at least
+99.9% of elements; its operators refuse what the kernel does not take and
+count their launches; under autograd its gradients are the plain chain's;
+a forward of either eval configuration launches it once a batch norm that
+no fused unit folds, a train step never; the model exported on the card
+holds one ``bn_eval.folded`` node a norm on folded constants alone, and
+runs as the eager forward.
 """
 
 import numpy as np
@@ -614,11 +625,13 @@ def test_default_train_step_runs_n1_n2_once_a_norm_on_card(name, fields):
     state, _ = step(state, batch)  # warm-up: cuDNN's choices, the kernels' build
     torch.cuda.synchronize()
     fbn.fused_bn_fwd.launches = fbn.fused_bn_bwd.launches = fbn.batch_norm_train.layout_copies = 0
+    fbn.fused_bn_eval.launches = 0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
     want = norms * settings.grad_accum_steps
     assert (fbn.fused_bn_fwd.launches, fbn.fused_bn_bwd.launches) == (want, want)
+    assert fbn.fused_bn_eval.launches == 0
     assert fbn.batch_norm_train.layout_copies == 0
     kernels = [e.key for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -785,3 +798,253 @@ def test_mit_b0_on_card_matches_the_plain_reference(dtype):
         got = out[key].permute(0, 3, 1, 2).float()
         gap = float((got - want).abs().max() / want.abs().max())
         assert gap < tol, (key, gap)
+
+
+# N3's widths: the Cityscapes and Vistas heads (3, 14, 53), the root (64),
+# PSP's branches and the extension (256), block4 (2048); its maps: the
+# Vistas and Cityscapes eval maps at stride 8, and PSP's 1x1-6x6 bins
+BN_EVAL_CS = [3, 14, 53, 64, 256, 2048]
+BN_EVAL_MAPS = [(115, 159), (64, 128), (1, 1), (2, 2), (3, 3), (6, 6)]
+
+
+def _bn_eval_case(n, c, h, w, dtype, offset, seed):
+    """x and a residual (NCHW views of NHWC storage ``offset`` elements in),
+    the running statistics and f32 parameters of an eval-mode norm."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def nhwc(values):
+        buf = torch.empty(offset + values.numel(), dtype=dtype, device="cuda")
+        buf[offset:].view(n, h, w, c).copy_(values)
+        return buf[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
+
+    mean = torch.rand(c, generator=gen, device="cuda") * 2 - 1
+    var = torch.rand(c, generator=gen, device="cuda") * 3 + 0.1
+    x = nhwc(torch.randn((n, h, w, c), generator=gen, device="cuda") * var.sqrt() + mean)
+    residual = nhwc(torch.randn((n, h, w, c), generator=gen, device="cuda"))
+    scale = torch.rand(c, generator=gen, device="cuda") + 0.5
+    bias = torch.rand(c, generator=gen, device="cuda") - 0.5
+    return x, residual, mean, var, scale, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["bf16", "misaligned", "f32", "nchw"])
+@pytest.mark.parametrize("h,w", BN_EVAL_MAPS)
+@pytest.mark.parametrize("c", BN_EVAL_CS)
+def test_bn_eval_matches_the_plain_chain_on_card(c, h, w, variant):
+    """N3 against ``batch_norm_eval_plain`` (the ATen ops it replaces) on
+    the same card, with and without a residual and a ReLU, through
+    ``fused_bn_eval`` and through the exported program's ``bn_eval.folded``
+    on the table export folds: within one ulp of x's type everywhere and
+    bit for bit on at least 99.9% of elements, y channels_last, one launch
+    counted a call. ``misaligned``: x and the residual start 2 bytes off 16
+    (one-element loads); ``nchw``: x in NCHW memory, copied to
+    channels_last first and the copy counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import chip_smoke
+
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+
+    dtype = torch.float32 if variant == "f32" else torch.bfloat16
+    x, residual, *params = _bn_eval_case(2, c, h, w, dtype, 1 if variant == "misaligned" else 0,
+                                         seed=c + h)
+    mean, var, scale, bias = params
+    table = torch.stack([mean, torch.rsqrt(var + 1e-5) * scale, bias])
+    x_cl = x
+    if variant == "nchw":
+        x = x.contiguous()
+    for res in (None, residual):
+        for relu in (False, True):
+            before = fbn.fused_bn_eval.launches, fbn.fused_bn_eval.layout_copies
+            got = fbn.fused_bn_eval(x, *params, 1e-5, res, relu)
+            want = fbn.batch_norm_eval_plain(x, *params, 1e-5, res, relu)
+            folded = torch.ops.iv2019.bn_eval.folded(x_cl, table, res, relu)
+            torch.cuda.synchronize()
+            copied = int(not x.is_contiguous(memory_format=torch.channels_last))
+            assert (fbn.fused_bn_eval.launches - before[0],
+                    fbn.fused_bn_eval.layout_copies - before[1]) == (1, copied)
+            assert got.dtype == dtype and got.shape == x.shape
+            assert got.is_contiguous(memory_format=torch.channels_last)
+            for form, out in (("operator", got), ("folded", folded)):
+                off = chip_smoke.ulps_off(out, want)
+                assert float(off.max()) <= 1.0, (form, res is not None, relu, float(off.max()))
+                assert float((out != want).float().mean()) <= 1e-3, (form, res is not None, relu)
+            if relu:
+                assert float(got.float().min()) >= 0.0
+
+
+@pytest.mark.gpu
+def test_bn_eval_op_refuses_what_the_kernel_does_not_take_on_card():
+    """The operator counts its launches in the library (``iv_op_launches``
+    index 2) and raises on an x that is not channels_last, on f16, on a
+    parameter of another type or length, and on a residual of another
+    layout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import ctypes
+
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+
+    lib = ctypes.CDLL(tb.ops_library())
+    lib.iv_op_launches.restype = ctypes.c_int64
+    x, residual, mean, var, scale, bias = _bn_eval_case(2, 64, 8, 12, torch.bfloat16, 0, seed=5)
+    before = lib.iv_op_launches(2)
+    torch.ops.iv2019.bn_eval(x, mean, var, scale, bias, 1e-5, residual, True)
+    torch.cuda.synchronize()
+    assert lib.iv_op_launches(2) == before + 1
+    bad = [((x.contiguous(), mean, var, scale, bias, 1e-5, None, False), "channels_last"),
+           ((x.half(), mean, var, scale, bias, 1e-5, None, False), "float32 or bfloat16"),
+           ((x, mean.double(), var, scale, bias, 1e-5, None, False), "mean must be"),
+           ((x, mean, var[:63], scale, bias, 1e-5, None, False), "var must be"),
+           ((x, mean, var, scale, bias, 1e-5, residual.contiguous(), False), "residual must be")]
+    for args, message in bad:
+        with pytest.raises(RuntimeError, match=message):
+            torch.ops.iv2019.bn_eval(*args)
+    with pytest.raises(RuntimeError, match="table must be"):
+        torch.ops.iv2019.bn_eval.folded(x, torch.stack([mean, scale]), None, False)
+    with pytest.raises(RuntimeError, match="residual must be"):
+        fbn.fused_bn_eval(x, mean, var, scale, bias, 1e-5, residual.float())
+    for bad_x in (x.half(), x[:, :, 0]):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            fbn.fused_bn_eval(bad_x, mean, var, scale, bias, 1e-5)
+    assert lib.iv_op_launches(2) == before + 1
+
+
+@pytest.mark.gpu
+def test_bn_eval_under_autograd_on_card():
+    """An eval-mode Norm on the card called with gradients on (its scale
+    and bias want them): N3's forward, one launch counted, and the plain
+    chain's gradients of x, the shortcut, scale and bias, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import chip_smoke
+
+    from iv2019_tpu_torch.models.layers import Norm
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+
+    x, residual, mean, var, scale, bias = _bn_eval_case(2, 64, 8, 12, torch.bfloat16, 0, seed=9)
+    norm = Norm(64).cuda().eval()
+    with torch.no_grad():
+        for name, value in (("mean", mean), ("var", var), ("scale", scale), ("bias", bias)):
+            getattr(norm, name).copy_(value)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, residual, x, residual)]
+    before = fbn.fused_bn_eval.launches
+    y = norm(leaves[0], leaves[1], True)
+    assert fbn.fused_bn_eval.launches == before + 1
+    want = fbn.batch_norm_eval_plain(leaves[2], norm.mean, norm.var, norm.scale, norm.bias,
+                                     norm.epsilon, leaves[3], True)
+    assert float(chip_smoke.ulps_off(y, want).max()) <= 1.0
+    dy = torch.randn_like(y)
+    got = torch.autograd.grad(y, (*leaves[:2], norm.scale, norm.bias), dy)
+    ref = torch.autograd.grad(want, (*leaves[2:], norm.scale, norm.bias), dy)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+# (name, Settings fields) of the benchmark's two eval configurations, at
+# their images' sizes, batch 1: Vistas (PSP, heads 53 / 12 / 5, no unit
+# fuses at 115x159) and Cityscapes with the fused units
+EVAL_CONFIGS = [("vistas_psp", dict(per_pixel_dataset_name="vistas", psp_module=True,
+                                    height_feature_extractor=918, width_feature_extractor=1266)),
+                ("cityscapes_fused", dict(per_pixel_dataset_name="cityscapes", fused_block=True,
+                                          height_feature_extractor=512,
+                                          width_feature_extractor=1024))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,fields", EVAL_CONFIGS, ids=[c[0] for c in EVAL_CONFIGS])
+def test_eval_forward_runs_n3_once_a_norm_no_unit_folds_on_card(name, fields):
+    """One eval forward of either configuration launches N3 once for every
+    batch norm of the model that no fused unit folds (a fused unit folds
+    its three): all of them in Vistas, all but 3 x (B4 + B5 launches) in
+    Cityscapes; and its profiled kernels hold N3's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+
+    from iv2019_tpu_torch.config import Settings
+    from iv2019_tpu_torch.models.layers import Norm
+    from iv2019_tpu_torch.models.model import build_model, init_model
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+
+    settings = Settings(device="cuda", mode="eval", Nb=1, **fields)
+    model = init_model(build_model(settings), torch.Generator().manual_seed(0))
+    norms = sum(1 for m in model.modules() if isinstance(m, Norm) and m.norm_type == "batch")
+    h, w = fields["height_feature_extractor"], fields["width_feature_extractor"]
+    images = torch.rand(1, h, w, 3, device="cuda") * 2 - 1
+    with torch.inference_mode():
+        model(images)  # the kernels' build, cuDNN's choices
+        torch.cuda.synchronize()
+        fbn.fused_bn_eval.launches = fbn.fused_bn_eval.layout_copies = 0
+        fused = tb.fused_bottleneck.launches + tb.fused_bottleneck_ct.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = model(images)
+            torch.cuda.synchronize()
+    fused = tb.fused_bottleneck.launches + tb.fused_bottleneck_ct.launches - fused
+    assert (fused > 0) == (name == "cityscapes_fused")
+    assert fbn.fused_bn_eval.launches == norms - 3 * fused
+    assert fbn.fused_bn_eval.layout_copies == 0
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert sum(n for k, n in kernels.items() if "bn_eval_kernel" in k) == norms - 3 * fused
+    assert bool(torch.isfinite(out["l1_probabilities"]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused_block", [False, True], ids=["unfused", "fused"])
+def test_card_export_holds_one_bn_eval_node_a_norm(tmp_path, fused_block):
+    """The Cityscapes model exported on the card (bf16, 64x128): one
+    ``iv2019::bn_eval.folded`` node for each batch norm that no fused unit
+    folds, traced through its fake implementation (y laid out as x); every
+    constant of the program folded at export (``_folded*``, the norms'
+    tables among them), nothing computed from the weights per request, no
+    rsqrt in its graph; the program launches N3 once a node and gives the
+    eager forward's decisions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import ctypes
+
+    from iv2019_tpu_torch.config import Settings
+    from iv2019_tpu_torch.models.layers import Norm
+    from iv2019_tpu_torch.models.model import build_model, init_model
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+    from iv2019_tpu_torch.tools import export_model as em
+
+    settings = Settings(device="cuda", mode="eval", per_pixel_dataset_name="cityscapes",
+                        fused_block=fused_block, height_feature_extractor=64,
+                        width_feature_extractor=128, Nb=1)
+    model = init_model(build_model(settings), torch.Generator().manual_seed(0)).eval()
+    gen = torch.Generator("cuda").manual_seed(1)
+    norms = [m for m in model.modules() if isinstance(m, Norm) and m.norm_type == "batch"]
+    with torch.no_grad():
+        for m in norms:
+            m.mean.copy_(torch.rand(m.mean.shape, generator=gen, device="cuda") - 0.5)
+            m.var.copy_(torch.rand(m.var.shape, generator=gen, device="cuda") + 0.5)
+    paths = em.export_program(model, (1, 64, 128, 3), str(tmp_path), package=False)
+    program = torch.export.load(paths["program"])
+    nodes = em.op_nodes(program)
+    fused = nodes["fused_bottleneck"] + nodes["fused_bottleneck_ct"]
+    assert (fused > 0) == fused_block
+    assert nodes["bn_eval"] == len(norms) - 3 * fused
+    calls = [n for n in program.graph.nodes
+             if n.op == "call_function" and n.target == torch.ops.iv2019.bn_eval.folded]
+    assert len(calls) == nodes["bn_eval"]
+    for node in calls:
+        x, y = node.args[0].meta["val"], node.meta["val"]
+        assert (y.shape, y.dtype, y.stride()) == (x.shape, x.dtype, x.stride())
+        assert y.is_contiguous(memory_format=torch.channels_last)
+    assert em.weight_only_nodes(program) == []
+    assert all(k.startswith("_folded") for k in program.state_dict)
+    assert "rsqrt" not in open(paths["graph"]).read()
+    lib = ctypes.CDLL(tb.ops_library())
+    lib.iv_op_launches.restype = ctypes.c_int64
+    images = torch.rand(1, 64, 128, 3, generator=gen, device="cuda") * 2 - 1
+    with torch.no_grad():
+        eager = em.ServedForward(model, None, False)(images)
+        before = lib.iv_op_launches(2), fbn.fused_bn_eval.launches
+        got = program.module()(images)
+        torch.cuda.synchronize()
+    assert lib.iv_op_launches(2) - before[0] == nodes["bn_eval"]
+    assert fbn.fused_bn_eval.launches == before[1]  # the program calls the operator itself
+    assert float((got[0] == eager[0]).float().mean()) >= 0.999
+    assert float((got[1] - eager[1]).abs().max()) < 1e-2

@@ -1,7 +1,7 @@
-"""Probe of the port's fused-loss kernels (B1, B2), root-conv wgrad (B6) and
-train-mode BatchNorm (N1, N2) on one CUDA card.
+"""Probe of the port's fused-loss kernels (B1, B2), root-conv wgrad (B6),
+train-mode BatchNorm (N1, N2) and eval-mode BatchNorm (N3) on one CUDA card.
 
-    python3 tools/kernel_probe.py [--root TREE] [--quick] [--only b1|b2|b6|n1|n2] [--step]
+    python3 tools/kernel_probe.py [--root TREE] [--quick] [--only b1|b2|b6|n1|n2|n3] [--step]
                                   [--jc N] [--ib N] [--xc N] [--yb N]
 
 Imports ``iv2019_tpu_torch`` and ``chip_smoke`` from TREE (default: the
@@ -38,6 +38,19 @@ step, and the share of N1's y, over the step's 66 norms, that differs from
 the y of exactly rounded statistics (f64 mean and variance of the same x,
 each rounded once to f32, then N1's f32 arithmetic): how far the kernel's
 statistics stand from exact ones.
+
+N3 (``--only n3``; not without it) goes through every eval-mode batch norm
+of one forward of the two eval configurations the benchmark runs (Vistas
+with PSP, 4 images at 918x1266; Cityscapes with the fused units, 8 at
+512x1024), as the model calls it (the maps, the residual and the ReLU
+recorded by a hook on each ``Norm``): one line a distinct call with the
+check against the plain chain (largest ulps off, share of elements not bit
+for bit), ``ms``, ``device_ms``, ``kernel_ms`` (the profiler's duration of
+the kernel itself, the mean of 10 calls back to back: what a call costs
+inside a step, where no launch gap sits between kernels), the plain
+chain's ``plain_ms`` and ``bound_ms`` (x, y and any residual moved once at
+3.35 TB/s); then each configuration's sums over its forward and the
+shares of the bound (of ``device_ms`` and of ``kernel_ms``).
 """
 
 from __future__ import annotations
@@ -77,6 +90,22 @@ def sass_counts(lib_path):
         return dict(counts)
 
 
+def kernel_ms(fn, name, calls=10):
+    """Mean device ms a call of the CUDA kernels whose names hold ``name``,
+    over ``calls`` calls of ``fn`` queued back to back (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key) / 1e3 / calls
+
+
 def kernel_times(fn):
     """Device time in ms of each CUDA kernel of one call of ``fn``."""
     import torch
@@ -101,7 +130,7 @@ def main():
     ap.add_argument("--yb", type=int, help="B1: output rows per band, in place of the plan's")
     ap.add_argument("--step", action="store_true",
                     help="n1: step 1's losses and N1's y against exactly rounded statistics")
-    ap.add_argument("--only", choices=["b1", "b2", "b6", "n1", "n2"],
+    ap.add_argument("--only", choices=["b1", "b2", "b6", "n1", "n2", "n3"],
                     help="one kernel (a fault in one launch ends the process, so a first run "
                     "probes each in its own)")
     args = ap.parse_args()
@@ -150,6 +179,8 @@ def main():
         probe_bn(args, cs, _build)
     if args.only == "n1" and args.step:
         probe_bn_step(cs)
+    if args.only == "n3":
+        probe_bn_eval(args, cs, _build)
     return 0
 
 
@@ -367,6 +398,69 @@ def probe_bn_step(cs):
     print(json.dumps(dict(kernel="N1 step 1", losses=rows, norms=len(shares),
                           y_off_exact_statistics=sum(shares) / len(shares),
                           y_off_exact_statistics_max=max(shares))), flush=True)
+
+
+def probe_bn_eval(args, cs, _build):
+    """N3 at every eval-mode batch norm call of the two eval cells' forwards."""
+    import torch
+
+    from iv2019_tpu_torch.ops import fused_bn as fbn
+
+    for cell, fields in cs.N3_EVAL_CELLS:
+        rows = []
+        for seed, (((n, c, h, w), res, relu), calls) in enumerate(
+                sorted(cs.eval_norm_calls(fields)[0].items())):
+            gen = torch.Generator("cuda").manual_seed(seed)
+
+            def draw():
+                return torch.randn(n, h, w, c, generator=gen, device="cuda").to(
+                    torch.bfloat16).permute(0, 3, 1, 2)
+
+            x, r = draw(), draw() if res else None
+            mean = torch.rand(c, generator=gen, device="cuda") - 0.5
+            var = torch.rand(c, generator=gen, device="cuda") + 0.5
+            scale = torch.rand(c, generator=gen, device="cuda") + 0.5
+            bias = torch.rand(c, generator=gen, device="cuda") - 0.5
+            params = (mean, var, scale, bias, cs.BN_EPS, r, relu)
+
+            def call():
+                return fbn.fused_bn_eval(x, *params)
+
+            def plain():
+                return fbn.batch_norm_eval_plain(x, *params)
+
+            got, want = call(), plain()
+            torch.cuda.synchronize()
+            ulps = cs.ulps_off(got, want)
+            tensors = 3 if res else 2
+            row = dict(kernel="N3", cell=cell, n=n, C=c, h=h, w=w, residual=res, relu=relu,
+                       calls=calls, ulps_max=float(ulps.max()),
+                       not_bitwise=float((got != want).float().mean()),
+                       bound_ms=tensors * x.numel() * x.element_size() / cs.PEAK_BYTES_PER_S * 1e3)
+            del got, want
+            if not args.quick:
+                runs = 10 if x.numel() > 2 ** 26 else 30
+                row.update(ms=cs.time_ms(call, runs=runs), device_ms=cs.device_ms(call, runs=runs),
+                           kernel_ms=kernel_ms(call, "bn_eval_kernel"),
+                           plain_ms=cs.time_ms(plain, runs=runs))
+                row["bound_share"] = row["bound_ms"] / row["device_ms"]
+                row["kernel_bound_share"] = row["bound_ms"] / row["kernel_ms"]
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+            del x, r
+            torch.cuda.empty_cache()
+        summary = dict(kernel="N3", cell=cell, calls=sum(r["calls"] for r in rows),
+                       ulps_max=max(r["ulps_max"] for r in rows),
+                       not_bitwise_max=max(r["not_bitwise"] for r in rows))
+        for key in ("ms", "device_ms", "kernel_ms", "plain_ms", "bound_ms"):
+            if key in rows[0]:
+                summary[key + "_forward"] = sum(r[key] * r["calls"] for r in rows)
+        if "device_ms_forward" in summary:
+            summary["bound_share"] = summary["bound_ms_forward"] / summary["device_ms_forward"]
+            summary["kernel_bound_share"] = (summary["bound_ms_forward"]
+                                             / summary["kernel_ms_forward"])
+        summary["sass"] = sass_counts(_build._library_path(_build.CSRC_DIR / "fused_bn.cu"))
+        print(json.dumps(summary), flush=True)
 
 
 if __name__ == "__main__":
