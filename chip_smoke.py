@@ -67,8 +67,8 @@ Phases, each of which fails the run on its own:
    6 on synthetic input, checkpoints every 3 steps, then a rerun on the same
    directory that resumes at 6 and stops at 8), then ``train_cli.main`` at
    256x512 for 2 steps: the run's artifacts, one B6 launch per step; step
-   p50/p90, images/s, the host input's time per batch, idle share, peak
-   memory. Then ``predict_cli`` on train_cli's checkpoint, with and without
+   p50/p90, images/s, the host input's time per batch, phase 5's device
+   busy of one step, peak memory. Then ``predict_cli`` on train_cli's checkpoint, with and without
    ``--restore_emas``: the exports, and the predictions against a model
    holding the run's weights (or their unbiased EMA shadows); and with TTA
    (scales 0.75/1.0/1.25 and the flip) and with 3 x 3 sliding windows over
@@ -95,8 +95,8 @@ Phases, each of which fails the run on its own:
    ``SemanticSegmentation.train`` for 8 steps of 4 + 8 + 4 with those two,
    all four augmentations, ``grad_accum_steps=2`` and ``root_wgrad_pallas``:
    launch counts exact (B1, B2, B6 twice a step, B3 once), step p50/p90,
-   images/s, idle share against the device busy of the same step on one
-   batch, peak memory; on that batch the device rasterizer (bit-equal on two
+   images/s, the device busy and idle share of the same step on one batch,
+   peak memory; on that batch the device rasterizer (bit-equal on two
    launches and to its CPU run), each augmentation's apply on the card
    against the CPU with the same draws, and accum=2 steps against accum=1
    steps on their halves (two identical halves against one step on that
@@ -232,10 +232,10 @@ Phases, each of which fails the run on its own:
    at full width and reduced step counts, ``BENCH_RUNS``): train (N1/N2 66
    times a step), and train with ``IV_ROOT_WGRAD_PALLAS=1`` and
    ``IV_BN_IMPL=flax`` together (B6 once a step, no N1/N2), predict and
-   eval with ``IV_FUSED_BLOCK=1``, input, the input worker-scaling curve,
-   e2e. Each run's JSON line is printed and must carry its mode's metric
-   and a finite, positive value; the kernels' launches in its timed part,
-   which the bench reads from their counters, must be exact (B1, B2, B3
+   eval with ``IV_FUSED_BLOCK=1``, input, e2e. Each run's JSON line is
+   printed and must carry its mode's metric and a finite, positive value;
+   the kernels' launches in its timed part, which the bench reads from
+   their counters, must be exact (B1, B2, B3
    once a train or e2e step, N1/N2 66 times unless ``IV_BN_IMPL=flax``, B6
    only with its flag; B4/B5 8 + 2 a predict request and by the dispatch
    rule an eval step; none elsewhere). The kernel line's
@@ -310,16 +310,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# f32 operations per output pixel of the fused loss and per parameter of the
-# update, the counts the bench adds to its step's operations
-from iv2019_tpu_torch.bench import (LOSS_BWD_OPS_PER_LOGIT, LOSS_FWD_OPS_PER_LOGIT,
-                                    LOSS_OPS_PER_PIXEL, UPDATE_OPS_PER_PARAM)
+# the card's peaks, the least-time arithmetic and the fused loss's f32
+# operations per output pixel are the benchmark's
+from benchmark.counts import (LOSS_BWD_OPS_PER_LOGIT, LOSS_FWD_OPS_PER_LOGIT,
+                              LOSS_OPS_PER_PIXEL, bound_s, peaks)
+from benchmark.trace import capture
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
-# the tensor cores, and HBM3.
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
+# f32 operations per parameter of the update (B3), counted from the
+# kernel's arithmetic; its bound's only reader is the kernel line
+UPDATE_OPS_PER_PARAM = 14
 
 # max |got - want| / max(1, |want|) of a kernel against its plain version;
 # the bound the reference holds its Pallas kernel to
@@ -830,17 +829,16 @@ def bn_check(n, c, h, w, dtype, device, seed=0, offset=0, timed=False):
         mbytes=2 * m * c * isz / 1e6, bwd_mbytes=3 * m * c * isz / 1e6)
     # the least bytes: x (and dy) read once and y (dx) written once; the two
     # passes of the algorithm read x (and dy) twice
-    fwd_bound = bound(2 * m * c * isz + 20 * c, BN_FWD_OPS * m * c, PEAK_F32_FLOPS)
-    bwd_bound = bound(3 * m * c * isz + 28 * c, BN_BWD_OPS * m * c, PEAK_F32_FLOPS)
+    fwd_bound = least_ms(2 * m * c * isz + 20 * c, BN_FWD_OPS * m * c, "f32")
+    bwd_bound = least_ms(3 * m * c * isz + 28 * c, BN_BWD_OPS * m * c, "f32")
     row.update(bound_ms=fwd_bound[0], bound_by=fwd_bound[1], bwd_bound_ms=bwd_bound[0],
-               bwd_bound_by=bwd_bound[1],
-               two_pass_bound_ms=3 * m * c * isz / PEAK_BYTES_PER_S * 1e3,
-               bwd_two_pass_bound_ms=5 * m * c * isz / PEAK_BYTES_PER_S * 1e3)
+               bwd_bound_by=bwd_bound[1], two_pass_bound_ms=least_ms(3 * m * c * isz)[0],
+               bwd_two_pass_bound_ms=least_ms(5 * m * c * isz)[0])
     for pre in ("", "bwd_"):
         dev = row[pre + "device_ms"]
         row.update({pre + "host_ms": row[pre + "ms"] - dev,
-                    pre + "bound_share": row[pre + "bound_ms"] / dev,
-                    pre + "two_pass_share": row[pre + "two_pass_bound_ms"] / dev})
+                    pre + "bound_share": _share(row[pre + "bound_ms"], dev),
+                    pre + "two_pass_share": _share(row[pre + "two_pass_bound_ms"], dev)})
     return row
 
 
@@ -900,8 +898,8 @@ def bn_kernels(device):
         raise AssertionError(f"N1/N2 depart from their plain versions: {problems}")
     weight = sum(r["layers"] for r in rows)
 
-    def mean(key):
-        return sum(r[key] * r["layers"] for r in rows) / weight
+    def mean(key):  # a bound is null in every row or in none (one card)
+        return None if rows[0][key] is None else sum(r[key] * r["layers"] for r in rows) / weight
 
     common = dict(route="cuda", source="iv2019_tpu_torch/csrc/fused_bn.cu", launches=None,
                   per_shape=rows, checks=checks)
@@ -915,16 +913,16 @@ def bn_kernels(device):
             split_device_ms=mean(pre + "split_device_ms"), plain_ms=mean(pre + "plain_ms"),
             library_ms=mean(pre + "library_ms"), bound_ms=bounds["bound_ms"], bound_by="bytes",
             two_pass_bound_ms=bounds["two_pass_bound_ms"],
-            bound_share=bounds["bound_ms"] / bounds["device_ms"],
-            two_pass_share=bounds["two_pass_bound_ms"] / bounds["device_ms"],
+            bound_share=_share(bounds["bound_ms"], bounds["device_ms"]),
+            two_pass_share=_share(bounds["two_pass_bound_ms"], bounds["device_ms"]),
             path=sorted({r["path"][1 if pre else 0] for r in rows}),
             under_library=all(r[pre + "ms"] <= r[pre + "library_ms"] for r in rows), **common))
     for r in out:
         log(f"kernel {r['name']} ms {r['ms']:.4f} device {r['device_ms']:.4f} host "
             f"{r['host_ms']:.4f} split path device {r['split_device_ms']:.4f} plain "
-            f"{r['plain_ms']:.4f} library {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
-            f"(two passes {r['two_pass_bound_ms']:.4f}; shares {r['bound_share']:.3f} / "
-            f"{r['two_pass_share']:.3f}), paths {r['path']}, under the library at every map "
+            f"{r['plain_ms']:.4f} library {r['library_ms']:.4f} bound {_fmt(r['bound_ms'])} "
+            f"(two passes {_fmt(r['two_pass_bound_ms'])}; shares {_fmt(r['bound_share'], 3)} / "
+            f"{_fmt(r['two_pass_share'], 3)}), paths {r['path']}, under the library at every map "
             f"{r['under_library']}, launch-weighted over {weight} layers")
     return out
 
@@ -1032,8 +1030,8 @@ def bn_eval_check(n, c, h, w, residual, relu, dtype, seed=0, timed=False):
         row.update(ms=time_ms(lambda: fbn.fused_bn_eval(x, *args), runs=runs),
                    device_ms=device_ms(lambda: fbn.fused_bn_eval(x, *args), runs=runs),
                    plain_ms=time_ms(lambda: fbn.batch_norm_eval_plain(x, *args), runs=runs),
-                   bound_ms=tensors * x.numel() * x.element_size() / PEAK_BYTES_PER_S * 1e3)
-        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+                   bound_ms=least_ms(tensors * x.numel() * x.element_size())[0])
+        row["bound_share"] = _share(row["bound_ms"], row["device_ms"])
     return row
 
 
@@ -1067,8 +1065,8 @@ def bn_eval_kernels():
         raise AssertionError(f"N3 departs from the plain chain or its counts: {problems}")
     weight = sum(r["calls"] for r in rows)
 
-    def mean(key):
-        return sum(r[key] * r["calls"] for r in rows) / weight
+    def mean(key):  # a bound is null in every row or in none (one card)
+        return None if rows[0][key] is None else sum(r[key] * r["calls"] for r in rows) / weight
 
     out = dict(name="fused_bn_eval", replaces=N3_REPLACES, route="cuda",
                source="iv2019_tpu_torch/csrc/fused_bn.cu", launches=launches,
@@ -1077,11 +1075,12 @@ def bn_eval_kernels():
                                    for k in ("not_bitwise", "folded_not_bitwise")),
                ms=mean("ms"), device_ms=mean("device_ms"), plain_ms=mean("plain_ms"),
                bound_ms=mean("bound_ms"), bound_by="bytes",
-               bound_share=mean("bound_ms") / mean("device_ms"),
+               bound_share=_share(mean("bound_ms"), mean("device_ms")),
                under_plain=all(r["ms"] <= r["plain_ms"] for r in rows),
                per_shape=rows, checks=checks)
     log(f"kernel fused_bn_eval ms {out['ms']:.4f} device {out['device_ms']:.4f} plain "
-        f"{out['plain_ms']:.4f} bound {out['bound_ms']:.4f} (share {out['bound_share']:.3f}), "
+        f"{out['plain_ms']:.4f} bound {_fmt(out['bound_ms'])} "
+        f"(share {_fmt(out['bound_share'], 3)}), "
         f"ulps {out['ulps_max']}, not bit for bit {out['not_bitwise_max']:.2e}, eval-step "
         f"launches {launches}, launch-weighted over {weight} calls")
     return out
@@ -1204,7 +1203,7 @@ def kernel_phase(device):
             rel = float((diff / want.abs().clamp_min(1.0)).max())
             flops = 2 * h * w * (c * m + 9 * m * m + m * c)
             nbytes = 2 * x.numel() * 2 + sum(t.numel() * t.element_size() for t in args[1:])
-            t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+            b = least_ms(nbytes, flops)
             y1 = torch.empty((1, h, w, m), dtype=torch.bfloat16, device=device)
             symbol = f"iv_{name}"
             row = dict(
@@ -1218,28 +1217,29 @@ def kernel_phase(device):
                 plain_ms=time_ms(lambda: fb.bottleneck_plain(*args, rate=rate)),
                 library_ms=time_ms(unfused_cudnn(x, u, rate)),
                 library_device_ms=device_ms(unfused_cudnn(x, u, rate)),
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_ms=b[0], bound_by=b[1],
                 gflop=flops / 1e9, mbytes=nbytes / 1e6,
             )
-            row.update(tflops=flops / row["ms"] / 1e9, bound_share=row["bound_ms"] / row["ms"],
+            row.update(tflops=flops / row["ms"] / 1e9,
+                       bound_share=_share(row["bound_ms"], row["ms"]),
                        device_tflops=flops / row["device_ms"] / 1e9,
-                       device_bound_share=row["bound_ms"] / row["device_ms"])
+                       device_bound_share=_share(row["bound_ms"], row["device_ms"]))
             log(f"kernel {name} {unit}: {row['ms']:.4f} ms by the registered operator, "
                 f"{row['ctypes_ms']:.4f} by ctypes ({row['tflops']:.1f} TFLOP/s, "
-                f"{row['bound_share']:.3f} of the bound), device {row['device_ms']:.4f} ms "
+                f"{_fmt(row['bound_share'], 3)} of the bound), device {row['device_ms']:.4f} ms "
                 f"= conv1 {row['kernel1_ms']:.4f} + conv2/3 {row['kernel2_ms']:.4f} "
-                f"({row['device_tflops']:.1f} TFLOP/s, {row['device_bound_share']:.3f}); "
+                f"({row['device_tflops']:.1f} TFLOP/s, {_fmt(row['device_bound_share'], 3)}); "
                 f"cuDNN unit {row['library_ms']:.4f} ms, device {row['library_device_ms']:.4f}; "
-                f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
+                f"bound {_fmt(row['bound_ms'])} ({row['bound_by']})")
             log(f"kernel {name} {json.dumps(row)}")
             if not rel < KERNEL_REL_TOL:
                 raise AssertionError(f"{name} {unit}: max rel err {rel} >= {KERNEL_REL_TOL}")
             rows.append(row)
         weight = sum(r["per_request"] for r in rows)
 
-        def mean(key):
-            return sum(r[key] * r["per_request"] for r in rows) / weight
+        def mean(key):  # a bound is null in every row or in none (one card)
+            return None if rows[0][key] is None else sum(
+                r[key] * r["per_request"] for r in rows) / weight
 
         bound_by = {r["bound_by"] for r in rows}
         results.append(dict(
@@ -1296,7 +1296,7 @@ def eval_unit_checks(device):
         rel = float((diff / want.abs().clamp_min(1.0)).max())
         flops = 2 * n * h * w * (c * m + 9 * m * m + m * c)
         nbytes = 2 * x.numel() * 2 + sum(t.numel() * t.element_size() for t in args[1:])
-        b = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        b = least_ms(nbytes, flops)
         row = dict(wrapper=name, unit=unit, n=n, h=h, w=w, C=c, M=m, rate=rate,
                    spatial_band=band, max_abs_err=float(diff.max()), max_rel_err=rel,
                    ms=time_ms(lambda: wrapper(*args, rate=rate)),
@@ -1360,7 +1360,7 @@ def wgrad_times(x_shape, cout, k, check, pad_rows=None):
     n, c = x_shape[:2]
     pixels = n * dy.shape[2] * dy.shape[3]
     nbytes = x.numel() * 2 + dy.numel() * 2 + cout * c * k * k * 4
-    b = bound(nbytes, 2 * k * k * c * cout * pixels, PEAK_BF16_FLOPS)
+    b = least_ms(nbytes, 2 * k * k * c * cout * pixels)
     w_shape = (cout, c, k, k)
     pad = (k - 1) // 2
     padding = pad if pad_rows is None else (pad_rows[0], pad)
@@ -1377,7 +1377,7 @@ def wgrad_times(x_shape, cout, k, check, pad_rows=None):
         mbytes=nbytes / 1e6, gflop=2 * k * k * c * cout * pixels / 1e9)
     log(f"kernel root_conv_wgrad {x_shape} pad_rows {pad_rows} ms {row['ms']:.4f} "
         f"device {row['device_ms']:.4f} plain {row['plain_ms']:.4f} "
-        f"cudnn {row['library_ms']:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']})")
+        f"cudnn {row['library_ms']:.4f} bound {_fmt(row['bound_ms'])} ({row['bound_by']})")
     return row
 
 
@@ -1409,9 +1409,24 @@ def wgrad_kernel(device):
                 per_shape=checks + band_checks)
 
 
-def bound(nbytes, ops, peak_ops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def least_ms(nbytes, ops=0, peak="bf16"):
+    """(ms, what bounds it) of a call that moves ``nbytes`` and does
+    ``ops`` operations at the card's ``peak`` ("bf16" on the tensor cores,
+    "f32" outside them): ``benchmark/counts.py``'s peaks and ``bound_s``,
+    "bytes" or "operations". (None, None) on a card that table lacks."""
+    card = peaks(torch.cuda.get_device_name())
+    if card is None:
+        return None, None
+    ms = bound_s(nbytes, ops, card[peak], card["bytes"]) * 1e3
+    return ms, "bytes" if nbytes / card["bytes"] >= ops / card[peak] else "operations"
+
+
+def _share(bound_ms, ms):
+    return None if bound_ms is None else bound_ms / ms
+
+
+def _fmt(value, digits=4):
+    return "null" if value is None else f"{value:.{digits}f}"
 
 
 def _scratch(fn):
@@ -1470,10 +1485,10 @@ def loss_shape(tax, n_pp, n_weak, device):
     in_bytes = sum(t.numel() * t.element_size() for t in args)
     logit_bytes = sum(t.numel() * t.element_size() for t in args[:3])
     fwd_bytes, bwd_bytes = in_bytes + 2 * pixels * 4, in_bytes + logit_bytes
-    fwd_bound = bound(fwd_bytes, pixels * (LOSS_FWD_OPS_PER_LOGIT * c_tot + LOSS_OPS_PER_PIXEL),
-                      PEAK_F32_FLOPS)
-    bwd_bound = bound(bwd_bytes, pixels * (LOSS_BWD_OPS_PER_LOGIT * c_tot + LOSS_OPS_PER_PIXEL),
-                      PEAK_F32_FLOPS)
+    fwd_bound = least_ms(fwd_bytes,
+                         pixels * (LOSS_FWD_OPS_PER_LOGIT * c_tot + LOSS_OPS_PER_PIXEL), "f32")
+    bwd_bound = least_ms(bwd_bytes,
+                         pixels * (LOSS_BWD_OPS_PER_LOGIT * c_tot + LOSS_OPS_PER_PIXEL), "f32")
     fwd = dict(
         shape, max_abs_err=checks[0]["sums_max_abs_err"],
         ms=time_ms(lambda: fl.fused_loss_fwd(*args, tax=tax, out_hw=out_hw)),
@@ -1497,7 +1512,7 @@ def loss_shape(tax, n_pp, n_weak, device):
         grad_rel_err=checks[0]["grad_rel_err"])
     for name, r in (("fused_loss_fwd", fwd), ("fused_loss_bwd", bwd)):
         log(f"kernel {name} {n_pp}+{n_weak} images ms {r['ms']:.4f} device {r['device_ms']:.4f} "
-            f"plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} ({r['bound_by']})")
+            f"plain {r['plain_ms']:.4f} bound {_fmt(r['bound_ms'])} ({r['bound_by']})")
     return fwd, bwd
 
 
@@ -1549,7 +1564,7 @@ def train_kernels(device):
     log(f"kernel fused_update n={num_params} {json.dumps(check)}")
     if not update_ok(check):
         raise AssertionError(f"fused update departs from its plain version: {check}")
-    upd_bound = bound(32 * num_params, UPDATE_OPS_PER_PARAM * num_params, PEAK_F32_FLOPS)
+    upd_bound = least_ms(32 * num_params, UPDATE_OPS_PER_PARAM * num_params, "f32")
     results.append(dict(
         name="fused_update", route="cuda", source="iv2019_tpu_torch/csrc/fused_update.cu",
         replaces=REPLACES["fused_update"], launches=None, max_abs_err=check["vec_max_abs_err"],
@@ -1560,7 +1575,7 @@ def train_kernels(device):
         reg_rel_err=check["reg_rel_err"]))
     for r in results:
         log(f"kernel {r['name']} ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
-            f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+            f"bound {_fmt(r['bound_ms'])} ({r['bound_by']})")
     return results
 
 
@@ -1620,11 +1635,13 @@ PREDICT_GROUPS = (
     ("conv and gemm", ("xmma", "nvjet", "gemm", "conv", "cutlass")),
     ("copies and casts", ("copy", "convert")),
 )
+# B6's kernels, the root conv's weight gradient when it runs there
+B6_KERNELS = ("wgrad_root_kernel", "wgrad_root_reduce_kernel", "wgrad_general_kernel",
+              "wgrad_general_reduce_kernel")
 # device-time groups of the train step's profile, first match wins
 STEP_GROUPS = (
     ("port kernels B1-B3, B6", ("fwd_walk_kernel", "bwd_walk_kernel", "update_kernel", "sum_partials",
-                                "wgrad_root_kernel", "wgrad_root_reduce_kernel",
-                                "wgrad_general_kernel", "wgrad_general_reduce_kernel")),
+                                *B6_KERNELS)),
     ("batchnorm", ("batchnorm", "batch_norm", "bn_fwd_kernel", "bn_bwd_kernel")),
     ("conv and gemm", ("xmma", "nvjet", "gemm", "conv", "cutlass")),
     ("copies and casts", ("copy", "convert")),
@@ -1632,27 +1649,33 @@ STEP_GROUPS = (
 
 
 def profile_call(fn, label, p50_ms, top=8, groups=(), root_shape=None, host_waits=True):
-    """Device time of one call of ``fn`` by kernel (torch.profiler); the wall
-    time under the profiler includes its own overhead, so the device's idle
-    share is taken against the unprofiled p50. ``groups``: (name, key
-    substrings) to sum device time by; the rest is "other". ``root_shape``:
-    the images' NCHW shape, to report the device time of the root conv's
-    weight gradient (B6's kernels, or cuDNN's convolution backward on that
-    input). ``host_waits``: also count, in a second call, where the host
-    waits for the device (not in a gloo rank, whose every collective does).
-    Returns the numbers."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one call of ``fn``, read as the benchmark reads a
+    trace (``benchmark/trace.py``): ``device_busy_ms`` is the union of the
+    device events' intervals, so work on two streams at once counts once,
+    and ``idle_share`` is 1 - busy over the traced window, from the first
+    device event's start to the last one's end. ``p50_ms``: the call's
+    unprofiled p50, logged beside them. ``groups``: (name, key substrings)
+    to sum device time by name; the rest is "other". ``root_shape``: the
+    images' NCHW shape, to report the device time of B6's kernels, the root
+    conv's weight gradient (``root_wgrad_ms``; null where cuDNN computes it,
+    since a trace by name cannot tell its kernels from the other convs').
+    ``host_waits``: also count, in a second call, where the host waits for
+    the device (not in a gloo rank, whose every collective does). Returns
+    the numbers."""
+    timed = {}
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=root_shape is not None) as prof:
+    def run(_steps):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: a CPU op's device time repeats its kernels'
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(r[2] for r in rows)
+        timed["wall_ms"] = (time.perf_counter() - t0) * 1e3
+
+    trace = capture(run, 1)
+    wall_ms, busy_ms, window_ms = timed["wall_ms"], trace.busy_s * 1e3, trace.window_s * 1e3
+    rows = collections.defaultdict(lambda: [0, 0.0])
+    for name, _, dur in trace.device:
+        rows[name][0] += 1
+        rows[name][1] += dur / 1e3
     syncs = []
     if host_waits:
         # points where the host waits for the device (blocking copies, syncs)
@@ -1662,32 +1685,25 @@ def profile_call(fn, label, p50_ms, top=8, groups=(), root_shape=None, host_wait
             fn()
         torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-    out = dict(wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
-               kernels=sum(r[1] for r in rows), idle_share=1 - busy_ms / p50_ms,
-               host_waits=len(syncs))
+    out = dict(wall_ms_profiled=wall_ms, device_busy_ms=busy_ms, kernels=len(trace.device),
+               idle_share=1 - busy_ms / window_ms if window_ms else None, host_waits=len(syncs))
     if groups:
-        by_group = {name: 0.0 for name, _ in groups}
-        by_group["other"] = 0.0
-        port_rows = []
-        for key, count, ms in rows:
-            name = next((g for g, keys in groups if any(k in key for k in keys)), "other")
-            by_group[name] += ms
-            if name == groups[0][0]:
-                port_rows.append((key[:60], count, ms))
-        out["device_ms_by_group"] = by_group
-        out["port_kernels"] = port_rows
+        def group(name):
+            return next((g for g, keys in groups if any(k in name for k in keys)), "other")
+
+        out["device_ms_by_group"] = {g: trace.device_ms(lambda name, g=g: group(name) == g)
+                                     for g in [name for name, _ in groups] + ["other"]}
+        out["port_kernels"] = [(name[:60], count, ms) for name, (count, ms) in rows.items()
+                               if group(name) == groups[0][0]]
     if root_shape is not None:
-        cudnn = [e for e in prof.key_averages(group_by_input_shape=True)
-                 if e.key == "aten::convolution_backward"
-                 and list(root_shape) in [list(s) for s in e.input_shapes]]
-        out["root_wgrad_ms"] = (
-            sum(e.device_time_total for e in cudnn) / 1e3
-            + sum(ms for key, _, ms in rows if "::wgrad_" in key))
-    log(f"profile {label}: wall {wall_ms:.3f} ms under the profiler, device busy "
-        f"{busy_ms:.3f} ms, {out['kernels']} kernels, idle share of the "
-        f"p50 {out['idle_share']:.3f}, {len(syncs)} host waits for the device")
-    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:top]:
-        log(f"  {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+        b6_ms = trace.device_ms(lambda name: any(k in name for k in B6_KERNELS))
+        out["root_wgrad_ms"] = b6_ms if b6_ms else None
+    log(f"profile {label}: wall {wall_ms:.3f} ms under the profiler (p50 {p50_ms:.3f} "
+        f"unprofiled), device busy {busy_ms:.3f} ms of a {window_ms:.3f} ms window, "
+        f"{out['kernels']} device events, idle share {_fmt(out['idle_share'], 3)}, "
+        f"{len(syncs)} host waits for the device")
+    for name, (count, ms) in sorted(rows.items(), key=lambda r: -r[1][1])[:top]:
+        log(f"  {ms:9.3f} ms  x{count:<4d} {name[:90]}")
     return out
 
 
@@ -2052,7 +2068,7 @@ def _read_jsonl(path):
 def train_run_phase(device, step_busy_ms, tmp):
     """The training run through its entry points (see the module
     docstring), in the directory ``tmp``. ``step_busy_ms``: the device time
-    of one B6 train step (train phase profile), for the run's idle share.
+    of one B6 train step (train phase profile), logged beside the run's.
     Returns the launch counts of the two SemanticSegmentation runs, those of
     the ``--eval_all_ckpts`` sweep, and the sweep (log dir, problem, the
     evaluate_cli argv, [(step, matrix)])."""
@@ -2137,7 +2153,7 @@ def train_run_phase(device, step_busy_ms, tmp):
     p50, p90 = _p50_p90(step_ms)
     stats = dict(steps=RESUME_STEPS, p50_ms=p50, p90_ms=p90, images_per_s=images / p50 * 1e3,
                  input_ms_per_batch=input_ms, device_busy_ms_per_step=step_busy_ms,
-                 idle_share=1 - step_busy_ms / p50, peak_memory_gib=peak_gib,
+                 peak_memory_gib=peak_gib,
                  first_run_s=first_s, resumed_run_s=resume_s,
                  host_waits_resumed_run=_waits_by_file(syncs), launches=launches,
                  last_total=records[-1]["total"])
@@ -2796,7 +2812,7 @@ def real_format_phase(device):
         torch.cuda.empty_cache()
 
         # the same step on one batch of the run's input: steady step time,
-        # device busy (for the run's idle share), then the card checks
+        # device busy and idle share, then the card checks
         host_batch = next(train_input(settings, load_problem_def(problem)))
         batch = _device_batch(host_batch, device)
         model = build_initialized_model(settings)
@@ -2826,12 +2842,12 @@ def real_format_phase(device):
 
         step_ms = [images / r["images_per_sec"] * 1e3 for r in records if r["step"] > 1]
         p50, p90 = _p50_p90(step_ms)
-        busy = profile["device_busy_ms"]
         stats = dict(steps=REAL_STEPS, grad_accum_steps=REAL_ACCUM, p50_ms=p50, p90_ms=p90,
                      images_per_s=images / p50 * 1e3,
                      host_input_ms_per_batch=host["on_device"]["ms_per_batch"],
                      dense_host_input_ms_per_batch=host["dense"]["ms_per_batch"],
-                     device_busy_ms_per_step=busy, idle_share=1 - busy / p50,
+                     device_busy_ms_per_step=profile["device_busy_ms"],
+                     idle_share=profile["idle_share"],
                      constant_batch_p50_ms=const_p50, constant_batch_p90_ms=const_p90,
                      peak_memory_gib=peak_gib, run_s=run_s, launches=launches,
                      last_total=records[-1]["total"])
@@ -4496,7 +4512,7 @@ def export_serve_phase(cli, device, export):
                     stream_requests=served) for k, v in per_request.items()}
 
 
-# phase 14: the bench's runs, (label, arguments, knobs): each of its six
+# phase 14: the bench's runs, (label, arguments, knobs): each of its five
 # modes once and each kernel knob once (B6 on and N1/N2 off, as
 # IV_BN_IMPL=flax, in one train run; predict and eval only fused: unfused they launch no port
 # kernel); step counts cut from the bench's defaults (20 train steps, 30
@@ -4509,12 +4525,10 @@ BENCH_RUNS = [
     ("predict_fused", ["predict", "5"], {"IV_FUSED_BLOCK": "1"}),
     ("eval_fused", ["eval", "2"], {"IV_FUSED_BLOCK": "1"}),
     ("input", ["input", "2"], {}),
-    ("input_workers", ["input", "--workers", "1,4,16", "--stage_ms", "20"], {}),
     ("e2e", ["e2e", "2"], {}),
 ]
 BENCH_METRICS = {"train": "train_images_per_sec_per_chip", "predict": "predict_p50_latency_ms",
                  "eval": "eval_images_per_sec_per_chip", "input": "input_pipeline_images_per_sec",
-                 "input_workers": "input_pipeline_worker_scaling",
                  "e2e": "e2e_train_images_per_sec_per_chip"}
 BENCH_TIMEOUT_S = 300
 
@@ -4555,7 +4569,7 @@ def bench_phase():
         lines = proc.stdout.strip().splitlines()
         line = json.loads(lines[-1])
         log(f"bench {label} ({time.time() - t0:.1f} s): {lines[-1]}")
-        metric = BENCH_METRICS["input_workers" if "--workers" in argv else argv[0]]
+        metric = BENCH_METRICS[argv[0]]
         value = line.get("value")
         if (len(lines) != 1 or line.get("metric") != metric
                 or not isinstance(value, (int, float)) or not np.isfinite(value) or value <= 0):

@@ -1,33 +1,26 @@
 """Benchmark entry point of the PyTorch port, one JSON line per run.
 
     python -m iv2019_tpu_torch.bench [MODE] [STEPS] [--device cpu]
-    python -m iv2019_tpu_torch.bench input --workers 1,2,4,8,16 [--stage_ms 100]
 
 The port's counterpart of the repository's ``bench.py``: the same modes,
 metric names, JSON line and environment knobs, built on the port's entry
 functions. MODE is ``train`` (the default; ``python -m
 iv2019_tpu_torch.bench 10`` takes 10 train steps), ``predict``, ``eval``,
-``input`` (host only; with ``--workers`` the worker-scaling curve) or
-``e2e``. STEPS defaults as in ``bench.py``: 20 train steps, 30 predict
-requests, 12 eval steps, 12 input batches, 20 e2e steps. Every run takes
-the card (``cuda``) unless ``--device cpu`` is given; with no card it
-raises. A kernel that fails to build or launch raises too.
+``input`` (host only) or ``e2e``. STEPS defaults as in ``bench.py``: 20
+train steps, 30 predict requests, 12 eval steps, 12 input batches, 20 e2e
+steps. Every run takes the card (``cuda``) unless ``--device cpu`` is
+given; with no card it raises. A kernel that fails to build or launch
+raises too.
 
 Metrics (``metric`` of the line):
 
 - ``train_images_per_sec_per_chip``: the flagship train step (4 + 8 + 4
   images at 512x1024, bf16, the settings of bench.py:61-75) on the constant
-  batch of ``train_batch``; ``vs_baseline`` = value / (0.9 x roofline),
-  the roofline being the card's peak bf16 rate (``peak_flops``) over the
-  step's operations per image. The operations are those
-  ``torch.utils.flop_counter.FlopCounterMode`` counts over one untimed step,
-  plus the operations of the hand-written kernels the counter cannot see
-  (``ctypes`` calls: B1, B2, B3 and, with ``IV_ROOT_WGRAD_PALLAS=1``, B6),
-  counted from their shapes (``kernel_flops``, reported apart). On the CPU
-  the kernels' plain versions run in their place and the counter sees
-  their matrix products, so only kernels that launched are added. The
-  timed steps are bracketed by ``synchronize()``; ``detail`` has the p50
-  and p90 of per-step CUDA-event times beside the wall time.
+  batch of ``train_batch``. An untimed first step must launch each
+  hand-written kernel on the step's path as often as ``step_launches``
+  says (on the card). The timed steps are bracketed by ``synchronize()``;
+  ``detail`` has the p50 and p90 of per-step CUDA-event times beside the
+  wall time.
 - ``predict_p50_latency_ms``: one image at (h, w) to (2h, 2w), p50 and p90
   of the requests after 3 warm-ups, each ended by the host readback of one
   decision; ``IV_FUSED_BLOCK=1`` runs the fused units (B4, B5).
@@ -36,31 +29,26 @@ Metrics (``metric`` of the line):
 - ``input_pipeline_images_per_sec``: the host pipeline
   (``input/heterogeneous.py::train_input``) on on-disk data in the real
   formats (``build_synthetic_input_data``), no device.
-- ``input_pipeline_worker_scaling``: ``input/core.py::parallel_map`` and
-  ``batched`` over a decode stage that sleeps ``--stage_ms`` (releasing the
-  GIL as the real decoders do), per worker count.
 - ``e2e_train_images_per_sec_per_chip``: host input -> ``device_prefetch``
   -> the train step, with boxes rasterized and image labels broadcast on the
   device (``IV_DENSE_LABELS=1``: dense labels from the host).
 
+``vs_baseline`` is null in every mode: the step's operations, the card's
+peaks and the model FLOP utilization are the benchmark's
+(``benchmark/counts.py``, ``mfu.*``), not this entry point's.
+
 Knobs: ``IV_SHAPE`` ("512,1024" or "512x1024"; the two formats of
 ``bench.py``'s train and eval modes, accepted by every mode), ``IV_NB``
 ("4,8,4" for train, input and e2e; one count, default 8, for eval),
-``IV_FUSED_BLOCK``, ``IV_DENSE_LABELS``, ``IV_ROOT_WGRAD_PALLAS``,
+``IV_FUSED_BLOCK``, ``IV_DENSE_LABELS``, ``IV_ROOT_WGRAD_PALLAS`` and
 ``IV_BN_IMPL`` (``Settings``' default ``fused``: train-mode BatchNorm as
 kernels N1/N2, one launch each a batch-norm layer a step; ``flax``: f32
-``F.batch_norm``), and the TPU layout switches
-``IV_CONV_IMPL``, ``IV_DILATION_MODE``, ``IV_ROOT_S2D``, which the port
-accepts and runs its one path for (config.py).
+``F.batch_norm``).
 ``bench.py`` reads ``IV_SHAPE`` and ``IV_NB`` in train and eval only; here
 predict, input and e2e read them too (predict's output is twice the input,
 the input data's native size twice it as well), so that every mode runs at
 a small size on the CPU; at their defaults every mode runs ``bench.py``'s
 sizes.
-
-``docs/floor.json`` is a TPU's measurement, so the achievable-floor fields
-are null; no peak is guessed for a device not in ``PEAK_FLOPS``
-(``vs_baseline`` null, the name printed to stderr).
 """
 
 from __future__ import annotations
@@ -72,27 +60,13 @@ import shutil
 import sys
 import tempfile
 import time
-from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["PEAK_FLOPS", "build_synthetic_input_data", "count_flops", "e2e_throughput",
-           "eval_throughput", "input_pipeline_throughput", "input_worker_scaling",
-           "kernel_flops", "main", "make_train", "peak_flops", "predict_latency", "train",
-           "train_batch", "train_settings"]
-
-# dense bf16 tensor-core peak by torch.cuda.get_device_name(): the H100 SXM5
-# (NVIDIA H100 Tensor Core GPU datasheet, bf16 without sparsity)
-PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": 989e12}
-
-# operations per output pixel of the fused loss and per parameter of the
-# update, counted from the kernels' arithmetic (chip_smoke.py bounds the
-# kernels by them too): the 4-tap upsample (9 per logit), max, exp, sum and
-# the CE terms (~6 per logit), plus the weak projection and gates (~40); the
-# backward adds the gradient (4 per logit) and its two contractions (~5)
-LOSS_FWD_OPS_PER_LOGIT, LOSS_BWD_OPS_PER_LOGIT, LOSS_OPS_PER_PIXEL = 15, 24, 40
-UPDATE_OPS_PER_PARAM = 14
+__all__ = ["build_synthetic_input_data", "e2e_throughput", "eval_throughput",
+           "input_pipeline_throughput", "main", "make_train", "predict_latency",
+           "step_launches", "train", "train_batch", "train_settings"]
 
 MODES = ("train", "predict", "eval", "input", "e2e")
 DEFAULT_STEPS = {"train": 20, "predict": 30, "eval": 12, "input": 12, "e2e": 20}
@@ -116,15 +90,6 @@ def _device_name(device: torch.device) -> str:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def peak_flops(name: str) -> Optional[float]:
-    """The card's peak bf16 FLOP/s, or None (and the name on stderr) for a
-    device this table does not know."""
-    peak = PEAK_FLOPS.get(name)
-    if peak is None:
-        print(f"bench: no peak known for {name!r}; vs_baseline is null", file=sys.stderr)
-    return peak
 
 
 def _shape(default: str) -> tuple[int, int]:
@@ -199,10 +164,7 @@ def train_settings(h: int, w: int, npp: int, npb: int, npi: int, device: str = "
         learning_rate_boundaries=(8, 15, 17),
         learning_rate_values=(0.01, 0.005, 0.0025),
         compute_dtype="bfloat16",
-        conv_impl=os.environ.get("IV_CONV_IMPL", "conv"),
         bn_impl=os.environ.get("IV_BN_IMPL", Settings.bn_impl),
-        dilation_mode=os.environ.get("IV_DILATION_MODE", "dilated"),
-        root_conv_s2d=_flag("IV_ROOT_S2D"),
         root_wgrad_pallas=_flag("IV_ROOT_WGRAD_PALLAS"),
     ).finalize()
 
@@ -245,42 +207,28 @@ def make_train(settings, model):
                                                                                model=model)
 
 
-def count_flops(fn: Callable[[], object]) -> int:
-    """Operations of the aten calls ``fn`` makes (forward and backward), as
-    ``FlopCounterMode`` counts them: convolutions and matrix products."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    counter = FlopCounterMode(display=False)
-    with counter:
-        fn()
-    return counter.get_total_flops()
-
-
-def kernel_flops(settings, model) -> dict:
-    """Operations a train step of ``settings`` does in each hand-written
-    kernel on its path, by the kernel's name: B1/B2 when the fused loss runs
-    (``train/step.py::uses_fused_loss``), B3 under the fused optimizer, B6
-    when the root conv sends its weight gradient there
-    (``_RootConv.runs_wgrad_kernel``); once a step each."""
-    from iv2019_tpu_torch.problem.taxonomy import get_taxonomy
+def step_launches(settings, model) -> dict:
+    """Launches of each hand-written kernel in one train step of
+    ``settings`` on the card, by the name ``_counters`` gives it: B1/B2 when
+    the fused loss runs (``train/step.py::uses_fused_loss``), B3 under the
+    fused optimizer, B6 when the root conv sends its weight gradient there
+    (``_RootConv.runs_wgrad_kernel``), once a step each; N1/N2 once each a
+    batch-norm layer under ``bn_impl="fused"``."""
     from iv2019_tpu_torch.train.step import uses_fused_loss
 
-    tax = get_taxonomy(settings.per_pixel_dataset_name)
     h, w = settings.height_feature_extractor, settings.width_feature_extractor
     n = settings.Nb_per_pixel + settings.Nb_per_bbox + settings.Nb_per_image
-    out = {}
+    want = {}
     if uses_fused_loss(settings, model):
-        c_tot = tax.num_l1_classes + tax.num_vehicle_classes + tax.num_human_classes
-        pixels = n * h * w
-        out["fused_loss_fwd"] = pixels * (LOSS_FWD_OPS_PER_LOGIT * c_tot + LOSS_OPS_PER_PIXEL)
-        out["fused_loss_bwd"] = pixels * (LOSS_BWD_OPS_PER_LOGIT * c_tot + LOSS_OPS_PER_PIXEL)
+        want.update(fused_loss_fwd=1, fused_loss_bwd=1)
     if settings.fused_optimizer and settings.pallas_update:
-        out["fused_update"] = UPDATE_OPS_PER_PARAM * sum(p.numel() for p in model.parameters())
-    root = model.get_submodule("feature_extractor/base").conv1
-    if root.runs_wgrad_kernel((n, 3, h, w)):
-        cout, cin, k, _ = root.conv.weight.shape
-        out["root_conv_wgrad"] = 2 * k * k * cin * cout * n * (h // 2) * (w // 2)
-    return out
+        want["fused_update"] = 1
+    if model.get_submodule("feature_extractor/base").conv1.runs_wgrad_kernel((n, 3, h, w)):
+        want["root_conv_wgrad"] = 1
+    norms = train_norm_launches(model)
+    if norms:
+        want.update(fused_bn_fwd=norms, fused_bn_bwd=norms)
+    return want
 
 
 def train(steps: int = 20, warmup: int = 3, device: str = "cuda") -> dict:
@@ -296,27 +244,15 @@ def train(steps: int = 20, warmup: int = 3, device: str = "cuda") -> dict:
     batch = {k: torch.as_tensor(v, device=device)
              for k, v in train_batch(h, w, npp, npb, npi).items()}
     imgs = npp + npb + npi
-    name = _device_name(device)
 
-    # the operations of one step, on a step of its own (untimed)
-    expected = kernel_flops(settings, model)
+    # one untimed step: the kernels on the step's path, each launched as often as it should be
     _reset_launches()
-    holder = {}
-
-    def one_step():
-        holder["state"], _ = step_fn(state, batch)
-
-    counted = count_flops(one_step)
-    state = holder.pop("state")
+    state, _ = step_fn(state, batch)
     _sync(device)
     launched = {k: v for k, v in _launches().items() if v}
-    want = dict.fromkeys(expected, 1)
-    norms = train_norm_launches(model)
-    if norms:
-        want.update(fused_bn_fwd=norms, fused_bn_bwd=norms)
+    want = step_launches(settings, model)
     if device.type == "cuda" and launched != want:
         raise RuntimeError(f"bench train: kernel launches {launched} in one step, expected {want}")
-    flops_per_step = counted + sum(v for k, v in expected.items() if k in launched)
 
     for _ in range(warmup):
         state, metrics = step_fn(state, batch)
@@ -342,33 +278,23 @@ def train(steps: int = 20, warmup: int = 3, device: str = "cuda") -> dict:
     dt = time.perf_counter() - t0
     launches = _launches()
 
-    ips = steps * imgs / dt
-    peak = peak_flops(name)
-    roofline = peak / (flops_per_step / imgs) if peak and flops_per_step else None
     p50, p90 = _p50_p90(step_ms)
     return _emit({
         "metric": "train_images_per_sec_per_chip",
-        "value": round(ips, 3),
+        "value": round(steps * imgs / dt, 3),
         "unit": "img/s",
-        "vs_baseline": round(ips / (0.9 * roofline), 4) if roofline else None,
+        "vs_baseline": None,
         "detail": {
             "step_time_ms": round(dt / steps * 1e3, 2),
             "step_p50_ms": round(p50, 3), "step_p90_ms": round(p90, 3),
             "step_timer": "cuda events" if device.type == "cuda" else "host clock",
             "steps": steps, "images_per_step": imgs, "input_hw": [h, w],
             "Nb": [npp, npb, npi],
-            "flops_per_step": flops_per_step, "flops_counted": counted,
-            "kernel_flops": expected,
-            "peak_flops": peak,
-            "roofline_img_per_s_per_chip": round(roofline, 2) if roofline else None,
-            "achievable_floor_img_per_s_per_chip": None,
-            "vs_achievable_floor": None,
             "loss": float(metrics["total"]),
             "root_wgrad_pallas": settings.root_wgrad_pallas,
-            "layout": {k: getattr(settings, k) for k in (
-                "conv_impl", "bn_impl", "dilation_mode", "root_conv_s2d")},
+            "bn_impl": settings.bn_impl,
             "launches": launches,
-            "device": name,
+            "device": _device_name(device),
         },
     })
 
@@ -564,47 +490,6 @@ def input_pipeline_throughput(num_batches: int = 12, device: str = "cuda") -> di
     })
 
 
-def input_worker_scaling(workers=(1, 2, 4, 8, 16), stage_ms: float = 100.0,
-                         items_per_point: int = 64, device: str = "cuda") -> dict:
-    """The worker-scaling curve of the host pipeline's harness
-    (bench.py:420-480): ``parallel_map`` -> ``batched`` over a decode stage
-    of fixed service time that releases the GIL; ideal = workers / stage."""
-    from iv2019_tpu_torch.input.core import batched, parallel_map
-
-    _device(device)
-    stage_s = stage_ms / 1e3
-
-    def synthetic_decode(i):
-        time.sleep(stage_s)  # releases the GIL like the real decoders
-        return {"image": np.full((8, 8, 3), i % 255, np.uint8), "index": i}
-
-    curve = []
-    for w in workers:
-        it = batched(parallel_map(synthetic_decode, iter(range(10 * items_per_point)),
-                                  num_workers=w), batch_size=4)
-        try:
-            next(it)  # warm the pool
-            n_batches = max(items_per_point // 4, 1)
-            t0 = time.perf_counter()
-            for _ in range(n_batches):
-                next(it)
-            dt = time.perf_counter() - t0
-        finally:
-            it.close()
-        ips, ideal = n_batches * 4 / dt, w / stage_s
-        curve.append({"workers": w, "img_per_s": round(ips, 2),
-                      "ideal_img_per_s": round(ideal, 2), "efficiency": round(ips / ideal, 3)})
-    return _emit({
-        "metric": "input_pipeline_worker_scaling",
-        "value": curve[-1]["img_per_s"],
-        "unit": "img/s",
-        "vs_baseline": None,
-        "detail": {"stage_ms_per_image": stage_ms, "curve": curve, "host_cores": os.cpu_count(),
-                   "note": "synthetic GIL-releasing decode through the real "
-                           "parallel_map+batched harness; ideal = workers/stage_time"},
-    })
-
-
 # -- end to end -------------------------------------------------------------
 
 def e2e_throughput(steps: int = 20, warmup: int = 3, device: str = "cuda") -> dict:
@@ -664,37 +549,28 @@ def e2e_throughput(steps: int = 20, warmup: int = 3, device: str = "cuda") -> di
 # -- command line -----------------------------------------------------------
 
 def parse_args(argv) -> dict:
-    """``[MODE] [STEPS] [--device D] [--workers 1,2,...] [--stage_ms MS]`` ->
-    {mode, steps, device, workers, stage_ms}; a first argument that is a
-    number is train's step count, as in ``python bench.py 10``."""
+    """``[MODE] [STEPS] [--device D]`` -> {mode, steps, device}; a first
+    argument that is a number is train's step count, as in ``python
+    bench.py 10``."""
     argv = list(argv)
-    opts = {"device": "cuda", "workers": None, "stage_ms": 100.0}
-    for flag, cast in (("--device", str), ("--workers", str), ("--stage_ms", float)):
-        if flag in argv:
-            i = argv.index(flag)
-            if i + 1 >= len(argv):
-                raise SystemExit(f"bench: {flag} needs a value")
-            opts[flag[2:]] = cast(argv[i + 1])
-            del argv[i:i + 2]
+    device = "cuda"
+    if "--device" in argv:
+        i = argv.index("--device")
+        if i + 1 >= len(argv):
+            raise SystemExit("bench: --device needs a value")
+        device = argv[i + 1]
+        del argv[i:i + 2]
     mode = argv.pop(0) if argv and argv[0] in MODES else "train"
     if len(argv) > 1 or (argv and not argv[0].isdigit()):
         raise SystemExit(f"bench: unexpected arguments {argv}; usage: "
                          "[train|predict|eval|input|e2e] [STEPS] [--device cpu]")
     steps = int(argv[0]) if argv else DEFAULT_STEPS[mode]
-    workers = opts["workers"]
-    if workers is not None:
-        if mode != "input":
-            raise SystemExit("bench: --workers belongs to the input mode")
-        workers = tuple(int(x) for x in workers.split(","))
-    return {"mode": mode, "steps": steps, "device": opts["device"], "workers": workers,
-            "stage_ms": opts["stage_ms"]}
+    return {"mode": mode, "steps": steps, "device": device}
 
 
 def main(argv=None) -> dict:
     args = parse_args(sys.argv[1:] if argv is None else argv)
     mode, steps, device = args["mode"], args["steps"], args["device"]
-    if mode == "input" and args["workers"]:
-        return input_worker_scaling(args["workers"], stage_ms=args["stage_ms"], device=device)
     if mode == "input":
         return input_pipeline_throughput(steps, device=device)
     if mode == "predict":

@@ -1,8 +1,9 @@
 """What ``chip_smoke.py`` must keep while its phases are cut to its time
 limit: the bench runs of phase 14 (every mode, every kernel knob, exact
-launches asked of each), phase 9's step-1 bar from a measured spread, and
-the kernel line's names. The smoke itself runs only on a CUDA card; these
-are its tables and its arithmetic on plain numbers."""
+launches asked of each), phase 9's step-1 bar from a measured spread, the
+kernel line's names, and its kernels' bounds from the benchmark's peaks.
+The smoke itself runs only on a CUDA card; these are its tables and its
+arithmetic on plain numbers."""
 
 import os
 
@@ -11,10 +12,11 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from benchmark import counts
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-BENCH_MODES = ("train", "predict", "eval", "input", "input_workers", "e2e")
+BENCH_MODES = ("train", "predict", "eval", "input", "e2e")
 # each knob that turns on a kernel, and the kernels it turns on
 KNOB_KERNELS = {
     ("IV_FUSED_BLOCK", "1"): ("fused_bottleneck", "fused_bottleneck_ct"),
@@ -26,13 +28,9 @@ TRAIN_KERNELS = ("fused_loss_fwd", "fused_loss_bwd", "fused_update", "fused_bn_f
                  "fused_bn_bwd")
 
 
-def _mode(argv):
-    return "input_workers" if "--workers" in argv else argv[0]
-
-
 @pytest.mark.parametrize("mode", BENCH_MODES)
 def test_bench_runs_drive_every_mode(mode):
-    assert any(_mode(argv) == mode for _, argv, _ in cs.BENCH_RUNS)
+    assert any(argv[0] == mode for _, argv, _ in cs.BENCH_RUNS)
     assert mode in cs.BENCH_METRICS
 
 
@@ -228,3 +226,23 @@ def test_replaces_names_a_line_of_the_jax_package(name):
     assert 1 <= int(line) <= len(lines)
     if not name.startswith("fused_bn"):  # a Pallas kernel's body
         assert lines[int(line) - 1].lstrip().startswith("def ")
+
+
+@pytest.mark.parametrize("name", ["NVIDIA H100 80GB HBM3", "cpu", "NVIDIA H100 PCIe",
+                                  "NVIDIA A100-SXM4-80GB"])
+def test_bounds_are_the_benchmark_arithmetic_on_a_known_card(monkeypatch, name):
+    """A kernel's least time is ``benchmark/counts.py``'s ``bound_s`` at that
+    table's peaks for the card the smoke runs on, and null on a card the
+    table lacks (no other card's peaks stand in)."""
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *device: name)
+    # 6.7 GB (2 ms at 3.35 TB/s) with 9.89e12 bf16 operations (10 ms) and
+    # with 6.7e10 f32 ones (1 ms)
+    got = [cs.least_ms(6.7e9, 9.89e12), cs.least_ms(6.7e9, 6.7e10, "f32")]
+    card = counts.peaks(name)
+    if card is None:
+        assert got == [(None, None), (None, None)]
+        return
+    assert got == [(counts.bound_s(6.7e9, 9.89e12, card["bf16"], card["bytes"]) * 1e3,
+                    "operations"),
+                   (counts.bound_s(6.7e9, 6.7e10, card["f32"], card["bytes"]) * 1e3, "bytes")]
+    assert [ms for ms, _ in got] == [pytest.approx(10.0), pytest.approx(2.0)]

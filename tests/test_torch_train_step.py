@@ -32,14 +32,18 @@ import jax
 import numpy as np
 import pytest
 
-from helpers import synthetic_batch, tiny_model
+from helpers import TINY_BLOCKS, synthetic_batch, tiny_model
 from iv2019_tpu.train.fused_update import FusedSGDM as JaxFusedSGDM
 from iv2019_tpu.train.state import create_fused_train_state as jax_create_state
 from iv2019_tpu.train.step import make_train_step as jax_make_train_step
+from iv2019_tpu_torch.bench import step_launches
+from iv2019_tpu_torch.config import Settings
+from iv2019_tpu_torch.models import model as port_model
+from iv2019_tpu_torch.models.layers import Norm
 from iv2019_tpu_torch.train.fused_update import FusedSGDM
 from iv2019_tpu_torch.train.optimizer import make_optimizer
 from iv2019_tpu_torch.train.state import create_fused_train_state, create_train_state
-from iv2019_tpu_torch.train.step import make_train_step
+from iv2019_tpu_torch.train.step import make_train_step, uses_fused_loss
 from iv2019_tpu_torch.utils.convert import flax_from_state_dict, opt_state_to_jax
 from torch_parity import numpy_tree, threads, torch_tiny_model, torch_tiny_settings
 
@@ -250,6 +254,47 @@ def test_step_refuses_unported_paths():
     with pytest.raises(ValueError, match="unknown augmentations"):
         make_train_step(settings.replace(augmentations=("rotate",)), fused_opt=opt)(
             create_fused_train_state(opt), batch)
+
+
+# (case, Settings overrides, hand-written kernels on the step's path)
+PATH_CASES = [
+    ("default", {}, {"fused_loss_fwd", "fused_loss_bwd", "fused_update"}),
+    ("b6", {"root_wgrad_pallas": True},
+     {"fused_loss_fwd", "fused_loss_bwd", "fused_update", "root_conv_wgrad"}),
+    # B6 takes bf16 operands only; a degenerate mix and bootstrapped CE take
+    # the reference loss; the optax path has no B3
+    ("b6-f32", {"root_wgrad_pallas": True, "compute_dtype": "float32"},
+     {"fused_loss_fwd", "fused_loss_bwd", "fused_update"}),
+    ("no-bbox", {"Nb_per_bbox": 0}, {"fused_update"}),
+    ("bootstrapping", {"bootstrapping_percentage": 10}, {"fused_update"}),
+    ("optax", {"fused_optimizer": False}, {"fused_loss_fwd", "fused_loss_bwd"}),
+]
+
+
+@pytest.mark.parametrize("case,overrides,kernels", PATH_CASES, ids=[c[0] for c in PATH_CASES])
+def test_step_decides_which_kernels_it_runs(monkeypatch, case, overrides, kernels):
+    """The step's own decisions, at a bf16 1 + 1 + 1 batch of 32x64: B1/B2
+    where ``uses_fused_loss`` holds, B3 under the fused optimizer with
+    ``pallas_update``, B6 where the root conv's ``runs_wgrad_kernel`` takes
+    the batch's images; and the bench's ``step_launches`` from them, with
+    N1/N2 once a batch norm under the default ``bn_impl``."""
+    monkeypatch.setitem(port_model.FEATURE_EXTRACTOR_BLOCKS, "resnet_v1_50", TINY_BLOCKS)
+    settings = Settings(
+        per_pixel_dataset_name="cityscapes", device="cpu", mode="train", Nb_per_pixel=1,
+        Nb_per_bbox=1, Nb_per_image=1, Nb=1, height_feature_extractor=32,
+        width_feature_extractor=64, compute_dtype="bfloat16").finalize().replace(**overrides)
+    model = port_model.build_model(settings)
+    n = settings.Nb_per_pixel + settings.Nb_per_bbox + settings.Nb_per_image
+    root = model.get_submodule("feature_extractor/base").conv1
+    assert uses_fused_loss(settings, model) is ("fused_loss_fwd" in kernels)
+    assert ("fused_loss_fwd" in kernels) is ("fused_loss_bwd" in kernels)
+    assert bool(settings.fused_optimizer and settings.pallas_update) is ("fused_update" in kernels)
+    assert root.runs_wgrad_kernel((n, 3, 32, 64)) is ("root_conv_wgrad" in kernels)
+    # the bench's launch check: these kernels once a step, N1/N2 once a batch norm
+    norms = sum(1 for m in model.modules() if isinstance(m, Norm) and m.norm_type == "batch")
+    assert settings.bn_impl == "fused" and norms
+    assert step_launches(settings, model) == {
+        **dict.fromkeys(kernels, 1), "fused_bn_fwd": norms, "fused_bn_bwd": norms}
 
 
 def test_compact_image_labels_match_dense():

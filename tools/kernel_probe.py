@@ -49,8 +49,10 @@ for bit), ``ms``, ``device_ms``, ``kernel_ms`` (the profiler's duration of
 the kernel itself, the mean of 10 calls back to back: what a call costs
 inside a step, where no launch gap sits between kernels), the plain
 chain's ``plain_ms`` and ``bound_ms`` (x, y and any residual moved once at
-3.35 TB/s); then each configuration's sums over its forward and the
-shares of the bound (of ``device_ms`` and of ``kernel_ms``).
+the card's memory peak); then each configuration's sums over its forward
+and the shares of the bound (of ``device_ms`` and of ``kernel_ms``). The
+bounds are TREE's ``chip_smoke.least_ms`` (the card's memory peak from
+``benchmark/counts.py``), null on a card that table lacks.
 """
 
 from __future__ import annotations
@@ -329,8 +331,8 @@ def probe_bn(args, cs, _build):
         row = dict(kernel="N2" if backward else "N1", n=n, C=c, h=h, w=w, layers=layers,
                    ok=ratio <= 1, err_over_allowed=ratio, max_abs_err=err,
                    bit_equal=all(bool(torch.equal(a, b)) for a, b in zip(first, second)),
-                   bound_ms=(isz_reads + 1) * elems / cs.PEAK_BYTES_PER_S * 1e3,
-                   two_pass_bound_ms=(2 * isz_reads + 1) * elems / cs.PEAK_BYTES_PER_S * 1e3)
+                   bound_ms=cs.least_ms((isz_reads + 1) * elems)[0],
+                   two_pass_bound_ms=cs.least_ms((2 * isz_reads + 1) * elems)[0])
         del first, second, want
         if not args.quick:
             runs = 10 if m * c > 2 ** 26 else 20
@@ -348,7 +350,7 @@ def probe_bn(args, cs, _build):
                    bit_equal=all(r["bit_equal"] for r in rows))
     for key in ("ms", "device_ms", "split_device_ms", "library_ms", "host_ms", "bound_ms",
                 "two_pass_bound_ms"):
-        if key in rows[0]:
+        if key in rows[0] and rows[0][key] is not None:
             summary[key] = sum(r[key] * r["layers"] for r in rows) / weight
     if "ms" in summary:
         summary["under_library"] = [r["ms"] <= r["library_ms"] for r in rows]
@@ -436,15 +438,16 @@ def probe_bn_eval(args, cs, _build):
             row = dict(kernel="N3", cell=cell, n=n, C=c, h=h, w=w, residual=res, relu=relu,
                        calls=calls, ulps_max=float(ulps.max()),
                        not_bitwise=float((got != want).float().mean()),
-                       bound_ms=tensors * x.numel() * x.element_size() / cs.PEAK_BYTES_PER_S * 1e3)
+                       bound_ms=cs.least_ms(tensors * x.numel() * x.element_size())[0])
             del got, want
             if not args.quick:
                 runs = 10 if x.numel() > 2 ** 26 else 30
                 row.update(ms=cs.time_ms(call, runs=runs), device_ms=cs.device_ms(call, runs=runs),
                            kernel_ms=kernel_ms(call, "bn_eval_kernel"),
                            plain_ms=cs.time_ms(plain, runs=runs))
-                row["bound_share"] = row["bound_ms"] / row["device_ms"]
-                row["kernel_bound_share"] = row["bound_ms"] / row["kernel_ms"]
+                if row["bound_ms"] is not None:
+                    row["bound_share"] = row["bound_ms"] / row["device_ms"]
+                    row["kernel_bound_share"] = row["bound_ms"] / row["kernel_ms"]
             rows.append(row)
             print(json.dumps(row), flush=True)
             del x, r
@@ -453,9 +456,9 @@ def probe_bn_eval(args, cs, _build):
                        ulps_max=max(r["ulps_max"] for r in rows),
                        not_bitwise_max=max(r["not_bitwise"] for r in rows))
         for key in ("ms", "device_ms", "kernel_ms", "plain_ms", "bound_ms"):
-            if key in rows[0]:
+            if key in rows[0] and rows[0][key] is not None:
                 summary[key + "_forward"] = sum(r[key] * r["calls"] for r in rows)
-        if "device_ms_forward" in summary:
+        if "device_ms_forward" in summary and "bound_ms_forward" in summary:
             summary["bound_share"] = summary["bound_ms_forward"] / summary["device_ms_forward"]
             summary["kernel_bound_share"] = (summary["bound_ms_forward"]
                                              / summary["kernel_ms_forward"])
